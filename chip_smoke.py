@@ -1,8 +1,7 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--imdb-scale``, ``--vg-scale`` and ``--uw-scale`` shrink the databases
-for a quick check; the defaults are the full sizes.)
+(no arguments: every database is at its full size, ``*_SCALE`` below).
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -12,15 +11,18 @@ Phases (any failure exits non-zero before the last line is printed):
               and prints the build time and ``ptxas`` register/shared lines.
 3. main     — HYBRID model discovery over the sparse executor on the IMDb
               stand-in at full size (1.06M rows, 3 relationships), counting
-              every kernel launch; then HYBRID pre-counting alone on the
-              VisualGenome stand-in (15.8M rows, 8 relationships, chains of
-              3, which take the dense-message hop).  Checks that each kernel
-              was launched and that every single-relation positive table
-              sums to its relation's edge count.  The IMDb run is made once
-              more under ``torch.profiler``: device busy time against wall
-              time, and the kernels that took most of it.
-4. kernels  — each kernel against its plain PyTorch version on the inputs
-              the main path gave it (its largest call): exact for the
+              every kernel launch; its wall time and peak memory are read on
+              this run alone.  The IMDb run is made once more under
+              ``torch.profiler``: device busy time against wall time, and
+              the kernels that took most of it.  Then HYBRID pre-counting
+              alone on the VisualGenome stand-in (15.8M rows, 8
+              relationships, chains of 3, which take the dense-message
+              hop).  Checks that each kernel was launched and that every
+              single-relation positive table sums to its relation's edge
+              count.
+4. kernels  — the IMDb run once more, keeping a copy of the inputs of each
+              kernel's largest call; each kernel against its plain PyTorch
+              version on those inputs: exact for the
               segment sums, the Möbius transform and BDeu (BDeu is
               bit-reproducible by design; the ``rtol=1e-4, atol=1e-2``
               tolerance is the JAX reference's and is checked too).  Times
@@ -37,7 +39,6 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -53,6 +54,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 LGAMMA_OPS = 70                    # float32 operations per lgamma_f32 call
                                    # (count of bdeu.cu's lgamma_f32 + log_f32)
+
+# Database sizes (``paper_benchmark_db`` scale): all full size, none cut.
+IMDB_SCALE = 1.0
+VG_SCALE = 1.0
+UW_SCALE = 1.0
 
 
 def log(msg: str) -> None:
@@ -99,8 +105,10 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 class Spy:
-    """Wraps the ``ops`` wrappers during the main path and keeps a copy of
-    the inputs of each kernel's largest call (by input elements)."""
+    """Wraps the ``ops`` wrappers during a run and keeps a copy of the
+    positional inputs of each kernel's largest call (by input elements).
+    An ``out`` that a call adds into is not kept: the comparison sums
+    into a zeroed table."""
 
     def __init__(self, ops, names):
         self.ops, self.orig, self.big = ops, {}, {}
@@ -109,12 +117,12 @@ class Spy:
             setattr(ops, name, self._wrap(name, self.orig[name]))
 
     def _wrap(self, name, fn):
-        def spy(*args):
+        def spy(*args, **kwargs):
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self.big.get(name, (0,))[0]:
                 self.big[name] = (size, tuple(
                     a.clone() if torch.is_tensor(a) else a for a in args))
-            return fn(*args)
+            return fn(*args, **kwargs)
         return spy
 
     def remove(self):
@@ -171,12 +179,7 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
             f"{e.key[:100]}")
 
 
-def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--imdb-scale", type=float, default=1.0)
-    parser.add_argument("--vg-scale", type=float, default=1.0)
-    parser.add_argument("--uw-scale", type=float, default=1.0)
-    args = parser.parse_args(argv)
+def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -210,10 +213,9 @@ def main(argv=None) -> None:
 
     # -- 3. main path ----------------------------------------------------------
     t0 = time.perf_counter()
-    db = paper_benchmark_db("IMDb", seed=0, scale=args.imdb_scale)
+    db = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
     log(f"IMDb stand-in: {db.total_rows} rows, {len(db.relations)} "
         f"relationships (generated in {time.perf_counter() - t0:.1f} s)")
-    spy = Spy(ops, ops.KERNELS)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     sync()
@@ -224,14 +226,14 @@ def main(argv=None) -> None:
     sync()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    spy.remove()
+    peak = torch.cuda.max_memory_allocated()
     st = strategy.stats.as_dict()
     log(f"main path (IMDb, HYBRID/sparse, chains <= 2, parents <= 3): "
         f"{wall:.3f} s wall on {kind}")
     log("  stats: " + json.dumps({k: st[k] for k in (
         "joins", "rows_scanned", "ct_rows", "time_metadata",
         "time_positive", "time_negative", "peak_bytes")}))
-    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated()} B; "
+    log(f"  max_memory_allocated: {peak} B; "
         f"learned edges: {sum(len(m.edges()) for m in models.values())}; "
         f"launches: {json.dumps(launches)}")
     if any(launches[k] <= 0 for k in ops.KERNELS):
@@ -244,10 +246,9 @@ def main(argv=None) -> None:
     check_positive_invariant(strategy, db, "IMDb")
     del strategy, models
     profile_main_path(db, discover_model, make_strategy)
-    del db
 
     t0 = time.perf_counter()
-    vg = paper_benchmark_db("VisualGenome", seed=0, scale=args.vg_scale)
+    vg = paper_benchmark_db("VisualGenome", seed=0, scale=VG_SCALE)
     log(f"VisualGenome stand-in: {vg.total_rows} rows, {len(vg.relations)} "
         f"relationships (generated in {time.perf_counter() - t0:.1f} s)")
     torch.cuda.reset_peak_memory_stats()
@@ -268,6 +269,11 @@ def main(argv=None) -> None:
     del vg_strategy, vg
 
     # -- 4. kernels against their plain versions -------------------------------
+    spy = Spy(ops, ops.KERNELS)
+    discover_model(db, make_strategy("HYBRID", executor="sparse"),
+                   max_chain_length=2, max_parents=3)
+    spy.remove()
+    del db
     rows = []
     seg, w, p = spy.big["segsum_ones"][1]
     e = seg.shape[0]
@@ -355,7 +361,7 @@ def main(argv=None) -> None:
             f"max_abs_err {row['max_abs_err']}")
 
     # -- 5. card against CPU -------------------------------------------------
-    uw = paper_benchmark_db("UW", seed=0, scale=args.uw_scale)
+    uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
     for ex in ("sparse", "dense"):
         t0 = time.perf_counter()
         on_card, _ = discover_model(uw, make_strategy("HYBRID", executor=ex))

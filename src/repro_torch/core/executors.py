@@ -353,18 +353,20 @@ def _kr_segment_sum(code: torch.Tensor, mats: Sequence[torch.Tensor],
     """Chunked Khatri-Rao expansion + segment-sum accumulation:
     ``out[c, :] = sum_{i: code[i]=c} ⊗_m mats[m][i, :]`` as a ``(ds,
     prod_D)`` table, chunking rows so the expansion never materialises
-    more than ``_MAX_CHUNK_CELLS`` cells.  Each chunk is one K2 call."""
+    more than ``_MAX_CHUNK_CELLS`` cells.  Each chunk is one K2 call that
+    adds into the same table."""
     d_prod = int(np.prod([m.shape[1] for m in mats], dtype=np.int64))
     n = int(mats[0].shape[0])
     chunk = max(64, min(max(n, 1), _MAX_CHUNK_CELLS // max(d_prod, 1)))
-    out = torch.zeros((ds, d_prod), dtype=dtype, device=mats[0].device)
+    out = torch.zeros((ds, d_prod), dtype=torch.float32,
+                      device=mats[0].device)
     for s in range(0, n, chunk):
         kr = mats[0][s:s + chunk]
         for m in mats[1:]:
             blk = m[s:s + chunk]
             kr = (kr[:, :, None] * blk[:, None, :]).reshape(kr.shape[0], -1)
-        out = out + ops.segsum_rows(code[s:s + chunk], kr.contiguous(), ds)
-    return out
+        ops.segsum_rows(code[s:s + chunk], kr.contiguous(), ds, out=out)
+    return out.to(dtype)
 
 
 class SparseExecutor(Executor):

@@ -18,7 +18,7 @@ kernel is an atomic scatter of O(edges).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -86,11 +86,20 @@ def segsum_ones(seg: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def segsum_rows(seg: torch.Tensor, rows: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """``out[p, d] = sum_{e: seg[e]==p} rows[e, d]`` (float32 ``[P, D]``);
-    ids outside ``[0, P)`` are dropped."""
-    if not _on_card("segsum_rows", seg, rows):
+def segsum_rows(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[p, d] += sum_{e: seg[e]==p} rows[e, d]`` (float32 ``[P, D]``,
+    a new zeroed table unless ``out`` is given); ids outside ``[0, P)``
+    are dropped."""
+    shape = (num_segments, rows.shape[1])
+    if out is not None:
+        if (out.shape != shape or out.dtype != torch.float32
+                or not out.is_contiguous()):
+            raise ValueError(f"segsum_rows: out must be a contiguous float32 "
+                             f"{shape} table")
+        if not _on_card("segsum_rows", seg, rows, out):
+            return segsum_rows_plain(seg, rows, num_segments, out)
+    elif not _on_card("segsum_rows", seg, rows):
         return segsum_rows_plain(seg, rows, num_segments)
     _check("segsum_rows", seg, torch.int32, 1)
     _check("segsum_rows", rows, torch.float32, 2)
@@ -98,10 +107,11 @@ def segsum_rows(seg: torch.Tensor, rows: torch.Tensor,
         raise ValueError("segsum_rows: seg and rows differ in length")
     if not 0 <= num_segments <= _INT32_MAX:
         raise ValueError("segsum_rows: segment space exceeds int32")
+    if out is None:
+        out = torch.zeros(shape, dtype=torch.float32, device=rows.device)
     if rows.numel() == 0 or num_segments == 0:
-        return torch.zeros((num_segments, rows.shape[1]),
-                           dtype=torch.float32, device=rows.device)
-    out = segsum_rows_cuda(seg, rows, num_segments)
+        return out
+    segsum_rows_cuda(seg, rows, num_segments, out)
     LAUNCHES["segsum_rows"] += 1
     return out
 

@@ -8,9 +8,13 @@ in the reference package (the executors pad with ``seg == P``).  The CUDA
 kernels are ``csrc/segsum.cu``; the plain versions below compute the same
 function with ``index_add_``, which raises on an out-of-range index, so
 they mask first.  :mod:`repro_torch.kernels.ops` routes between the two.
+Both segment sums of rows add into ``out`` (a zeroed table unless the
+caller passes one to accumulate into).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,10 +29,12 @@ def segsum_ones_plain(seg: torch.Tensor, w: torch.Tensor,
 
 
 def segsum_rows_plain(seg: torch.Tensor, rows: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
+                      num_segments: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     keep = (seg >= 0) & (seg < num_segments)
-    out = torch.zeros((num_segments, rows.shape[1]), dtype=torch.float32,
-                      device=rows.device)
+    if out is None:
+        out = torch.zeros((num_segments, rows.shape[1]), dtype=torch.float32,
+                          device=rows.device)
     return out.index_add_(0, seg[keep].long(), rows[keep].float())
 
 
@@ -44,10 +50,8 @@ def segsum_ones_cuda(seg: torch.Tensor, w: torch.Tensor,
 
 
 def segsum_rows_cuda(seg: torch.Tensor, rows: torch.Tensor,
-                     num_segments: int) -> torch.Tensor:
+                     num_segments: int, out: torch.Tensor) -> torch.Tensor:
     n_edges, width = rows.shape
-    out = torch.zeros((num_segments, width), dtype=torch.float32,
-                      device=rows.device)
     rc = build.load().segsum_rows(
         seg.data_ptr(), rows.data_ptr(), out.data_ptr(), n_edges, width,
         num_segments, torch.cuda.current_stream(rows.device).cuda_stream)

@@ -21,8 +21,11 @@ What is held:
   differ by less than the error bound of the four family scores involved,
   in both packages' scores (the flip and both deltas are printed).  Every
   point no flip reached, directly or through its sub-points, has the JAX
-  package's model edge for edge.  BDeu is score equivalent, so reversing
-  an edge between two nodes with the same other parents ties exactly, and
+  package's model edge for edge, and the flips and the points whose models
+  differ are no more than those recorded in ``UW_FLIPS``/``UW_DIFFER``
+  (``IMDB_*`` for IMDb; ROADMAP.md, section C).  BDeu is score
+  equivalent, so reversing an edge between two nodes with the same other
+  parents ties exactly, and
   only the last float32 bits break that tie: the JAX package's come from
   XLA's lgamma and reduction order, the port's from its own
   bit-reproducible scorer (``repro_torch/kernels/bdeu.py``).
@@ -231,12 +234,12 @@ def replay_against_reference(ref, port):
                 gap_port = delta(port_score, mp) - delta(port_score, mj)
                 name = lambda m: "stop" if m is None else \
                     f"{m[0]} {m[1]}->{m[2]}"
-                flips.append(f"{point}: JAX {name(mj)}, port {name(mp)}; "
-                             f"delta gap {gap_jax!r} in JAX scores, "
-                             f"{gap_port!r} in port scores, "
-                             f"bound {noise!r}")
-                print(flips[-1])
-                assert gap_jax <= noise and gap_port <= noise, flips[-1]
+                flips.append((str(point), name(mj), name(mp)))
+                msg = (f"{point}: JAX {name(mj)}, port {name(mp)}; "
+                       f"delta gap {gap_jax!r} in JAX scores, "
+                       f"{gap_port!r} in port scores, bound {noise!r}")
+                print(msg)
+                assert gap_jax <= noise and gap_port <= noise, msg
             if mp is None:
                 break
             op, src, dst, _ = mp
@@ -249,13 +252,38 @@ def replay_against_reference(ref, port):
                                for a in ps) for p, m in models.items()}
     assert replayed == edges_of(port["models"])
     want, got = edges_of(ref["models"]), edges_of(port["models"])
-    for point in ref["lattice"]:
-        if point not in diverged:
-            assert got[str(point)] == want[str(point)], str(point)
-    return flips
+    differ = {str(p) for p in ref["lattice"] if got[str(p)] != want[str(p)]}
+    assert differ <= {str(p) for p in diverged}
+    return flips, differ
+
+
+def check_known_divergence(ref, port, known_flips, known_differ):
+    """The near-tie replay, and no flip or differing point beyond those
+    recorded in ROADMAP.md (section C): a new divergence fails here."""
+    flips, differ = replay_against_reference(ref, port)
+    assert set(flips) <= known_flips, set(flips) - known_flips
+    assert differ <= known_differ, differ - known_differ
 
 
 # ------------------------------------------------------------------ UW ----
+
+# Every decision where the two packages' searches part on UW at scale 0.25
+# (the same over both executors): (point, JAX move, port move).
+UW_FLIPS = {
+    ("Registered(student0,course0)",
+     "add ranking(student0)->intelligence(student0)",
+     "add intelligence(student0)->ranking(student0)"),
+    ("RA(prof0,student0)",
+     "add teachingability(prof0)->popularity(prof0)",
+     "add popularity(prof0)->teachingability(prof0)"),
+    ("RA(prof0,student0)",
+     "add ranking(student0)->intelligence(student0)",
+     "add intelligence(student0)->ranking(student0)"),
+}
+# The points whose learned models differ: all three of UW's lattice.
+UW_DIFFER = {"Registered(student0,course0)", "RA(prof0,student0)",
+             "RA(prof0,student0)&Registered(student0,course0)"}
+
 
 @pytest.fixture(scope="module")
 def uw():
@@ -284,7 +312,7 @@ def test_uw_jax_search_on_port_scores_learns_port_models(uw, uw_ports, ex):
 
 @pytest.mark.parametrize("ex", ["sparse", "dense"])
 def test_uw_models_equal_but_for_near_ties(uw, uw_ports, ex):
-    replay_against_reference(uw, uw_ports[ex])
+    check_known_divergence(uw, uw_ports[ex], UW_FLIPS, UW_DIFFER)
 
 
 def test_uw_dense_and_sparse_learn_the_same_models(uw_ports):

@@ -66,6 +66,25 @@ def test_segsum_rows_matches_jax(n, d, p):
         got.numpy())
 
 
+def test_segsum_rows_accumulates_into_out():
+    """The root combine's chunks all add into one table: equal to the sum
+    of the JAX package's per-chunk segment sums."""
+    rng, seg = _seg_inputs(5, 900, 27)
+    rows = rng.integers(0, 9, size=(900, 12)).astype(np.float32)
+    out = torch.zeros((27, 12))
+    want = np.zeros((27, 12), np.float32)
+    for s in range(0, 900, 256):
+        got = ops.segsum_rows(torch.from_numpy(seg[s:s + 256]),
+                              torch.from_numpy(rows[s:s + 256]), 27, out=out)
+        assert got is out
+        want += np.asarray(jref.edge_segment_sum_ref(
+            jnp.asarray(seg[s:s + 256]), jnp.asarray(rows[s:s + 256]), 27))
+    np.testing.assert_array_equal(out.numpy(), want)
+    with pytest.raises(ValueError):
+        ops.segsum_rows(torch.from_numpy(seg), torch.from_numpy(rows), 27,
+                        out=torch.zeros((27, 11)))
+
+
 def test_segsum_empty_inputs():
     seg = torch.zeros(0, dtype=torch.int32)
     assert ops.segsum_ones(seg, torch.zeros(0), 4).tolist() == [0.0] * 4
