@@ -32,6 +32,25 @@ Phases (any failure exits non-zero before the last line is printed):
               over 67 TFLOP/s: NVIDIA H100 SXM data sheet).
 5. parity   — model discovery on the full UW stand-in, HYBRID over sparse
               and over dense, on the card and on the CPU: edge-identical.
+6. hist     — K5's path: the weighted segment histogram at the three
+              shapes of ``benchmarks/bench_kernels.py``'s ``bench_hist``,
+              counting launches; each against its plain version
+              (``rtol=1e-5, atol=1e-3``: float sums whose atomics land in
+              any order), the largest timed against ``index_add_``.
+7. lm       — Qwen2.5-3B serving at its published full size (36 layers,
+              d_model 2048, 16/2 heads, vocab 151,936, bf16; random weights
+              from generator seed 0).  (c) prefill/decode consistency at
+              full width and depth on 2 x 256 tokens; (a) the main run:
+              prefill of 4 x 4,096 tokens, then 32 greedy decode steps into
+              a 4,128-token cache, and one prefill of 1 x 32,768 tokens
+              (``prefill_32k``'s length, its batch cut from 32 to 1), K6
+              launched exactly once per layer of each prefill; four
+              decode steps and the main prefill once more under
+              ``torch.profiler``; (b) K6 against
+              its plain version on layer 0's q, k, v of the main prefill,
+              in bf16 and in float32, and of the long prefill in bf16;
+              timed at the main shape against PyTorch's
+              ``scaled_dot_product_attention``.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -52,6 +71,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor cores
 LGAMMA_OPS = 70                    # float32 operations per lgamma_f32 call
                                    # (count of bdeu.cu's lgamma_f32 + log_f32)
 
@@ -59,6 +79,25 @@ LGAMMA_OPS = 70                    # float32 operations per lgamma_f32 call
 IMDB_SCALE = 1.0
 VG_SCALE = 1.0
 UW_SCALE = 1.0
+
+# The counting path's kernels (phases 3-4); K5 and K6 have paths of their own.
+COUNTING_KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu")
+
+# Qwen2.5-3B serving (phase 7): the main run and the long prefill.
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 4096, 32
+LM_LONG = 32768                    # prefill_32k's length; batch cut 32 -> 1
+LM_CHECK_BATCH, LM_CHECK_LEN = 2, 256
+# Tolerances.  K6 against its plain version: bf16 output, probabilities
+# rounded to bf16 at the running (kernel) or the final (plain) max: two
+# bf16 roundings, 2^-7 relative; float32 inputs: 1e-4.  Prefill/decode
+# consistency at 36 layers of bf16: the JAX arch test's 2e-2 and 5e-2 (at
+# 2 layers), applied to the logits' max abs difference as a fraction of
+# their max abs value.
+K6_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+K6_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_PREFILL_TOL = 0.02
+LM_DECODE_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -97,9 +136,10 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -179,6 +219,311 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
             f"{e.key[:100]}")
 
 
+def hist_phase(ops) -> dict:
+    """K5's path: ``bench_hist``'s three shapes (N, P, D), counted; each
+    checked against its plain version, the largest timed."""
+    from repro_torch.kernels.segsum import segment_hist_plain
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    inputs = [(torch.randint(0, p, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32),
+               torch.rand((n, d), generator=gen, device="cuda"), p)
+              for n, p, d in ((4096, 64, 128), (65536, 256, 128),
+                              (262144, 1024, 64))]
+    sync()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    outs = [ops.segment_hist(*args) for args in inputs]
+    sync()
+    launches = ops.LAUNCHES["segment_hist"]
+    log(f"hist path (bench_hist shapes): {time.perf_counter() - t0:.4f} s "
+        f"wall, {launches} segment_hist launches")
+    if launches != len(inputs):
+        fail(f"segment_hist launched {launches} times, not {len(inputs)}")
+    errs = []
+    for (codes, vals, p), got in zip(inputs, outs):
+        want = segment_hist_plain(codes, vals, p)
+        errs.append(float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-3):
+            fail(f"segment_hist at N={codes.shape[0]} P={p} D="
+                 f"{vals.shape[1]} outside rtol=1e-5, atol=1e-3 of its "
+                 f"plain version (max_abs_err {errs[-1]})")
+    log(f"segment_hist against its plain version at the three shapes: "
+        f"max_abs_err {errs}")
+    err = max(errs)
+    codes, vals, p = inputs[-1]
+    n, d = vals.shape
+    codes_l = codes.long()
+    b_ms, b_by = bound_ms(4.0 * n + 4.0 * n * d + 4.0 * p * d, n * d)
+    return dict(
+        name="segment_hist", route="cuda",
+        source="src/repro_torch/kernels/csrc/segsum.cu",
+        replaces="src/repro/kernels/hist_kernel.py:37",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: ops.segment_hist(codes, vals, p)),
+        plain_ms=cuda_ms(lambda: segment_hist_plain(codes, vals, p)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.zeros((p, d), device=vals.device)
+                           .index_add_(0, codes_l, vals)),
+        shape=f"N={n} P={p} D={d}; max_abs_err over the three shapes")
+
+
+def sdpa_ms(q, k, v) -> float:
+    """One PyTorch library call of the same attention (the yardstick; the
+    port never calls it).  KV heads are repeated beforehand where this
+    PyTorch has no ``enable_gqa``."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        kw = dict(is_causal=True, enable_gqa=True)
+    except TypeError:
+        rep = q.shape[2] // k.shape[2]
+        kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+        kw = dict(is_causal=True)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+
+
+def lm_consistency(model, ops) -> None:
+    """(c) ``tests/test_arch_smoke.py``'s property at full width and
+    depth: prefill's last logits against ``forward`` at s-2, and
+    ``decode_step`` at s-1 against ``forward`` at s-1."""
+    b, s = LM_CHECK_BATCH, LM_CHECK_LEN
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, (b, s), dtype=np.int64)).cuda()
+    logits_all = model.forward({"tokens": toks})
+    cache = model.init_cache(b, s)
+    last, cache = model.prefill({"tokens": toks[:, :s - 1]}, cache)
+    logits1, _ = model.decode_step(cache, {"token": toks[:, s - 1:],
+                                           "pos": s - 1})
+    for name, got, want, tol in (
+            ("prefill", last, logits_all[:, s - 2], LM_PREFILL_TOL),
+            ("decode", logits1, logits_all[:, s - 1], LM_DECODE_TOL)):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            fail(f"lm consistency: non-finite {name} logits")
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"lm consistency ({b} x {s}): {name} vs forward max abs diff "
+            f"{diff:.5f} of max |logit| {scale:.4f} ({diff / scale:.5f}, "
+            f"tolerance {tol}); argmax agreement {agree:.2f}")
+        if diff > tol * scale:
+            fail(f"lm consistency: {name} logits differ from forward by "
+                 f"{diff} > {tol} x {scale}")
+
+
+def layer0_qkv(model, tokens):
+    """Layer 0's q, k, v of a prefill of ``tokens``: the same operations on
+    the same tokens as in the prefill, recomputed."""
+    from repro_torch.models.attention import qkv_project
+    from repro_torch.models.layers import embed_lookup, rms_norm
+    from repro_torch.models.model import _positions_for
+    cfg = model.cfg
+    with torch.no_grad():
+        x = embed_lookup(model.embed, tokens).to(cfg.act_dtype())
+        blk = model.blocks[0]
+        return qkv_project(blk.attn, rms_norm(x, blk.norm1), cfg,
+                           _positions_for(cfg, {"tokens": tokens},
+                                          tokens.shape[1]))
+
+
+def check_k6_bf16(ops, q, k, v, label: str) -> float:
+    """K6 against its plain version on bf16 ``q, k, v``; the max abs
+    error."""
+    from repro_torch.kernels.attention import flash_attention_plain
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **K6_BF16_TOL):
+        fail(f"K6 (bf16, {label}) outside {K6_BF16_TOL} of its plain "
+             f"version (max_abs_err {err})")
+    return err
+
+
+def log_profile(label: str, prof, wall: float) -> None:
+    """Device busy time against wall time, K6's share, the top kernels."""
+    from torch.autograd import DeviceType
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not on_card:
+        log(f"{label}: device time not measured (the trace holds no device "
+            f"events)")
+        return
+    busy = sum(e.self_device_time_total for e in on_card) / 1e6
+    k6 = sum(e.self_device_time_total for e in on_card
+             if "flash_" in e.key) / 1e6
+    log(f"{label}: {wall:.4f} s wall under the profiler, device busy "
+        f"{busy:.4f} s ({100 * busy / wall:.2f} %), "
+        f"{sum(e.count for e in on_card)} device events; K6 {k6:.4f} s "
+        f"({100 * k6 / busy:.2f} % of device time)")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:100]}")
+
+
+def lm_phase(ops, kind: str) -> dict:
+    """7. Qwen2.5-3B serving at full size; returns K6's kernels row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm: {LM_ARCH} at full size ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}): {n_params} parameters, "
+        f"initialised in {time.perf_counter() - t0:.2f} s; "
+        f"memory_allocated {torch.cuda.memory_allocated()} B")
+
+    # (c) first: it also warms up cuBLAS before the timed runs
+    lm_consistency(model, ops)
+
+    # (a) the main run
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int64)).cuda()
+    cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_NEW)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    k6_launches = ops.LAUNCHES["flash_attention"]
+    tok = logits.argmax(dim=-1)[:, None]
+    out, steps = [tok], []
+    t0 = time.perf_counter()
+    for i in range(LM_NEW):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"token": tok,
+                                                  "pos": LM_PROMPT + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        out.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t1)
+    t_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, dim=1)
+    log(f"lm main run: prefill {LM_BATCH} x {LM_PROMPT} tokens in "
+        f"{t_prefill:.4f} s ({LM_BATCH * LM_PROMPT / t_prefill:.1f} tok/s); "
+        f"{LM_NEW} decode steps x {LM_BATCH} requests in {t_decode:.4f} s "
+        f"({LM_BATCH * LM_NEW / t_decode:.2f} tok/s, "
+        f"{1e3 * t_decode / LM_NEW:.3f} ms/step); max_memory_allocated "
+        f"{peak} B; K6 launches {k6_launches}; first tokens "
+        f"{gen[0, :8].tolist()}")
+    log(f"lm decode step seconds: first {steps[0]:.4f}, min {min(steps):.4f}"
+        f", median {sorted(steps)[len(steps) // 2]:.4f}, max "
+        f"{max(steps):.4f}")
+    if k6_launches != cfg.n_layers:
+        fail(f"the prefill launched K6 {k6_launches} times, not "
+             f"{cfg.n_layers}")
+    if ops.PLAIN_CALLS["flash_attention"]:
+        fail("the plain attention ran on the card")
+    if not torch.isfinite(logits).all() or logits.shape != (LM_BATCH,
+                                                            cfg.vocab):
+        fail(f"lm main run: bad decode logits {tuple(logits.shape)}")
+    if gen.shape != (LM_BATCH, LM_NEW + 1) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail("lm main run: generated tokens out of range")
+    # four decode steps once more (rewriting the cache's last positions)
+    # under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_NEW - 4, LM_NEW):
+            model.decode_step(cache, {"token": tok, "pos": LM_PROMPT + i})
+        sync()
+        wall = time.perf_counter() - t0
+    log_profile("lm decode profile (4 steps)", prof, wall)
+    del cache, logits
+
+    long_tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, LM_LONG), dtype=np.int64)).cuda()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": long_tokens})
+    sync()
+    t_long = time.perf_counter() - t0
+    long_launches = ops.LAUNCHES["flash_attention"]
+    log(f"lm long prefill: 1 x {LM_LONG} tokens in {t_long:.4f} s "
+        f"({LM_LONG / t_long:.1f} tok/s); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; K6 launches "
+        f"{long_launches}")
+    if long_launches != cfg.n_layers:
+        fail(f"the long prefill launched K6 {long_launches} times")
+    if not torch.isfinite(logits).all():
+        fail("lm long prefill: non-finite logits")
+    del cache, logits
+    # K6 against its plain version at the long prefill's shape
+    q, k, v = layer0_qkv(model, long_tokens)
+    err_long = check_k6_bf16(ops, q, k, v, f"1 x {LM_LONG}")
+    log(f"K6 against its plain version on layer 0 of the long prefill "
+        f"(B=1 S={LM_LONG}): bf16 max_abs_err {err_long} (tolerance "
+        f"{K6_BF16_TOL})")
+    del q, k, v, long_tokens
+
+    # the main prefill once more under the profiler: where its time goes
+    cache = model.init_cache(LM_BATCH, LM_PROMPT)
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": prompts}, cache)
+        sync()
+    wall = time.perf_counter() - t0
+    log_profile("lm prefill profile", prof, wall)
+    del cache
+
+    # (b) K6 against its plain version on layer 0's q, k, v of the main
+    # prefill
+    q, k, v = layer0_qkv(model, prompts)
+    err = check_k6_bf16(ops, q, k, v, f"{LM_BATCH} x {LM_PROMPT}")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    got32 = ops.flash_attention(qf, kf, vf, causal=True)
+    want32 = flash_attention_plain(qf, kf, vf, causal=True)
+    err32 = float((got32 - want32).abs().max())
+    if not torch.allclose(got32, want32, **K6_F32_TOL):
+        fail(f"K6 (float32) outside {K6_F32_TOL} of its plain version "
+             f"(max_abs_err {err32})")
+    log(f"K6 against its plain version on layer 0 of the main prefill: "
+        f"bf16 max_abs_err {err} (tolerance {K6_BF16_TOL}), float32 "
+        f"max_abs_err {err32} (tolerance {K6_F32_TOL})")
+    del got32, want32, qf, kf, vf
+    b, s, h, hd = q.shape
+    hk = k.shape[2]
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2       # causal pairs only
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/attention_kernel.py:66",
+        launches=k6_launches, max_abs_err=max(err, err_long),
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, True),
+                         reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms(q, k, v),
+        shape=f"B={b} S={s} H={h} Hkv={hk} hd={hd} causal bf16; "
+              f"max_abs_err over this shape and 1 x {LM_LONG}")
+    log(f"K6 share of the main prefill: {k6_launches} x {row['ms']:.4f} ms "
+        f"= {k6_launches * row['ms'] / 1e3:.4f} s of {t_prefill:.4f} s "
+        f"({100 * k6_launches * row['ms'] / 1e3 / t_prefill:.2f} %) on "
+        f"{kind}")
+    del model, q, k, v, prompts
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -211,7 +556,7 @@ def main() -> None:
     for line in info["ptxas"]:
         log(f"  {line}")
 
-    # -- 3. main path ----------------------------------------------------------
+    # -- 3. main path ---------------------------------------------------------
     t0 = time.perf_counter()
     db = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
     log(f"IMDb stand-in: {db.total_rows} rows, {len(db.relations)} "
@@ -236,7 +581,7 @@ def main() -> None:
     log(f"  max_memory_allocated: {peak} B; "
         f"learned edges: {sum(len(m.edges()) for m in models.values())}; "
         f"launches: {json.dumps(launches)}")
-    if any(launches[k] <= 0 for k in ops.KERNELS):
+    if any(launches[k] <= 0 for k in COUNTING_KERNELS):
         fail(f"a kernel of the main path was not launched: {launches}")
     if any(ops.PLAIN_CALLS[k] for k in ops.KERNELS):
         fail(f"plain versions ran on the card: {ops.PLAIN_CALLS}")
@@ -268,8 +613,8 @@ def main() -> None:
     check_positive_invariant(vg_strategy, vg, "VisualGenome")
     del vg_strategy, vg
 
-    # -- 4. kernels against their plain versions -------------------------------
-    spy = Spy(ops, ops.KERNELS)
+    # -- 4. kernels against their plain versions ------------------------------
+    spy = Spy(ops, COUNTING_KERNELS)
     discover_model(db, make_strategy("HYBRID", executor="sparse"),
                    max_chain_length=2, max_parents=3)
     spy.remove()
@@ -359,6 +704,8 @@ def main() -> None:
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
             f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
             f"max_abs_err {row['max_abs_err']}")
+    # the LM phase reads its memory with no earlier tensors held
+    del spy, seg, seg_l, w, r, x, tmat, nijk, got, want
 
     # -- 5. card against CPU -------------------------------------------------
     uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
@@ -374,6 +721,18 @@ def main() -> None:
         log(f"UW HYBRID/{ex}: card and CPU models edge-identical "
             f"({sum(len(m.edges()) for m in on_card.values())} edges, "
             f"{time.perf_counter() - t0:.1f} s)")
+    del uw, on_card, on_cpu
+
+    # -- 6. K5's path ---------------------------------------------------------
+    rows.append(hist_phase(ops))
+
+    # -- 7. Qwen2.5-3B serving ------------------------------------------------
+    rows.append(lm_phase(ops, kind))
+    for row in rows[-2:]:
+        log(f"kernel {row['name']} [{row['shape']}]: {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"max_abs_err {row['max_abs_err']}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

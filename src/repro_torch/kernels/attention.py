@@ -1,0 +1,71 @@
+"""Flash-attention forward (K6): the prefill's attention over a sequence.
+
+    out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, hk] * hd^-0.5) @ v[b, j, hk]
+
+``q`` is ``[B, Sq, H, hd]`` and ``k``/``v`` are ``[B, Skv, Hkv, hd]`` with
+``Hkv`` dividing ``H``: query head ``h`` reads KV head ``h // (H // Hkv)``,
+the grouping of the model's chunked attention.  With ``causal`` the mask
+keeps key ``j <= i``, both counted from 0; masked logits are ``-1e30``.
+The softmax runs in float32, the probabilities are rounded to ``v``'s
+dtype before the product with ``v`` (float32 accumulation), the output is
+divided by ``max(l, 1e-30)`` and has ``q``'s dtype.  There are no padded
+keys: every key below ``Skv`` counts and no other does, causal or not.
+
+The CUDA kernel is ``csrc/attention.cu``.  The plain version below computes
+the same function in float32 chunks of query rows, so a ``[B, H, Sq, Skv]``
+score matrix is never held whole; :mod:`repro_torch.kernels.ops` routes
+between the two.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+#: query rows per chunk of the plain version
+PLAIN_CHUNK = 512
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    b, sq, h, hd = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    out = torch.empty_like(q)
+    if skv == 0:
+        return out.zero_()
+    kt = k.float().permute(0, 2, 3, 1)[:, :, None]           # [B,Hkv,1,hd,S]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]           # [B,Hkv,1,S,hd]
+    k_pos = torch.arange(skv, device=q.device)
+    for s0 in range(0, sq, chunk):
+        c = min(chunk, sq - s0)
+        qc = (q[:, s0:s0 + c].float().reshape(b, c, hk, g, hd)
+              .permute(0, 2, 3, 1, 4))                        # [B,Hkv,G,c,hd]
+        logits = torch.matmul(qc, kt) * hd ** -0.5            # [B,Hkv,G,c,S]
+        if causal:
+            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            logits.masked_fill_(q_pos[:, None] < k_pos[None, :], -1e30)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), vf) / l.clamp_min(1e-30)
+        out[:, s0:s0 + c] = (o.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd)
+                             .to(q.dtype))
+    return out
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    b, sq, h, hd = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = build.load().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+        h, hk, hd, int(causal), _DTYPE_CODES[q.dtype], hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed (cudaError {rc})")
+    return out

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("segsum.cu", "mobius.cu", "bdeu.cu")
+SOURCES = ("segsum.cu", "mobius.cu", "bdeu.cu", "attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -37,6 +37,8 @@ _SIGNATURES = {
     "mobius_max_bits": [],
     "bdeu_batch": [_P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float,
                    _P],
+    "flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

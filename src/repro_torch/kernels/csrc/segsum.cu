@@ -1,14 +1,20 @@
 // Segment sums by atomic scatter-add: the sparse executor's hop primitive.
 //
-// Replaces the TPU kernels in src/repro/kernels/segsum_kernel.py:
+// Replaces the TPU kernels
 //   segsum_ones  <- segment_sum_ones_pallas   out[p]    = sum_{e: seg[e]=p} w[e]
 //   segsum_rows  <- segment_sum_rows_pallas   out[p, d] = sum_{e: seg[e]=p} rows[e, d]
-// Ids outside [0, P) are dropped (the executors' padding convention).
+// in src/repro/kernels/segsum_kernel.py, and
+//   segment_hist <- segment_hist_pallas       out[p, d] = sum_{n: codes[n]=p} values[n, d]
+// in src/repro/kernels/hist_kernel.py, which has segsum_rows' contract and
+// launches its row scatter through the segsum_rows entry point.
+// Ids outside [0, P) are dropped (the executors' padding convention, and
+// the -1 padding of the histogram's callers).
 //
 // Bound on this card: bytes.  segsum_ones moves 8E + 4P bytes and
-// segsum_rows 4E + 4ED + 4PD; each edge does one add.  The TPU kernel
-// recast the scatter as a one-hot contraction on the matrix unit, which
-// costs O(E x P) and is why the JAX package caps it at 32k segments.  Here
+// segsum_rows (and segment_hist) 4E + 4ED + 4PD; each edge does one add.
+// The TPU kernels recast the scatter as a one-hot contraction on the
+// matrix unit, which costs O(E x P) and is why the JAX package caps the
+// segment sums at 32k segments.  Here
 // every element is one atomicAdd into device memory (resolved in L2), so
 // the cost is O(E) or O(E x D) whatever P is, and there is no cap.
 //
@@ -17,7 +23,8 @@
 // bytes (segsum_rows).  Offsets are 64-bit: dense-message hops of long
 // chains reach hundreds of millions of cells.  Counts are integers in
 // float32 below 2^24 per cell on the counting path, so the atomics give
-// the exact sum in any order.
+// the exact sum in any order.  The histogram's values are any float32, so
+// its sums round in the order the atomics land and are not bit-exact.
 //
 // The kernels allocate nothing and launch on the caller's stream; each
 // entry point returns cudaGetLastError() after its launch.

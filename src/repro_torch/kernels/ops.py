@@ -22,16 +22,19 @@ from typing import Dict, Optional
 
 import torch
 
+from .attention import flash_attention_cuda, flash_attention_plain
 from .bdeu import bdeu_cuda, bdeu_plain
 from .mobius import mobius_cuda, mobius_plain
-from .segsum import (segsum_ones_cuda, segsum_ones_plain, segsum_rows_cuda,
-                     segsum_rows_plain)
+from .segsum import (segment_hist_plain, segsum_ones_cuda, segsum_ones_plain,
+                     segsum_rows_cuda, segsum_rows_plain)
 
-KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu")
+KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu", "segment_hist",
+           "flash_attention")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _INT32_MAX = 2 ** 31 - 1
+_GRID_MAX = 65535                  # CUDA's limit on gridDim.y and .z
 
 
 def reset_counts() -> None:
@@ -64,6 +67,18 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
+
+
+def _check_rows(name: str, seg: torch.Tensor, rows: torch.Tensor,
+                num_segments: int) -> None:
+    """The row scatter's inputs: int32 ids ``[E]``, float32 rows ``[E, D]``
+    and an int32 segment space."""
+    _check(name, seg, torch.int32, 1)
+    _check(name, rows, torch.float32, 2)
+    if rows.shape[0] != seg.shape[0]:
+        raise ValueError(f"{name}: ids and rows differ in length")
+    if not 0 <= num_segments <= _INT32_MAX:
+        raise ValueError(f"{name}: segment space exceeds int32")
 
 
 def segsum_ones(seg: torch.Tensor, w: torch.Tensor,
@@ -101,12 +116,7 @@ def segsum_rows(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
             return segsum_rows_plain(seg, rows, num_segments, out)
     elif not _on_card("segsum_rows", seg, rows):
         return segsum_rows_plain(seg, rows, num_segments)
-    _check("segsum_rows", seg, torch.int32, 1)
-    _check("segsum_rows", rows, torch.float32, 2)
-    if rows.shape[0] != seg.shape[0]:
-        raise ValueError("segsum_rows: seg and rows differ in length")
-    if not 0 <= num_segments <= _INT32_MAX:
-        raise ValueError("segsum_rows: segment space exceeds int32")
+    _check_rows("segsum_rows", seg, rows, num_segments)
     if out is None:
         out = torch.zeros(shape, dtype=torch.float32, device=rows.device)
     if rows.numel() == 0 or num_segments == 0:
@@ -138,4 +148,57 @@ def bdeu(nijk: torch.Tensor, ess: float = 1.0) -> torch.Tensor:
         return torch.zeros(0, dtype=torch.float32, device=nijk.device)
     out = bdeu_cuda(nijk, ess)
     LAUNCHES["bdeu"] += 1
+    return out
+
+
+def segment_hist(codes: torch.Tensor, values: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Weighted segment histogram ``out[p, d] = sum_{n: codes[n]==p}
+    values[n, d]`` (float32 ``[P, D]``); codes outside ``[0, P)`` are
+    dropped.  On the card it is K2's row scatter into a zeroed table."""
+    if not _on_card("segment_hist", codes, values):
+        return segment_hist_plain(codes, values, num_segments)
+    _check_rows("segment_hist", codes, values, num_segments)
+    out = torch.zeros((num_segments, values.shape[1]), dtype=torch.float32,
+                      device=values.device)
+    if values.numel() == 0 or num_segments == 0:
+        return out
+    segsum_rows_cuda(codes, values, num_segments, out)
+    LAUNCHES["segment_hist"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention forward of ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv,
+    hd]`` with ``Hkv | H`` (query head ``h`` reads KV head ``h // (H //
+    Hkv)``) -> ``[B, Sq, H, hd]`` in ``q``'s dtype; see
+    :mod:`.attention`."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: expected q [B, Sq, H, hd] and "
+                         f"k, v [B, Skv, Hkv, hd]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd or k.shape[2] < 1 \
+            or h % k.shape[2] != 0:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (batch and hd equal, Hkv | H)")
+    if not _on_card("flash_attention", q, k, v):
+        return flash_attention_plain(q, k, v, causal)
+    for t in (q, k, v):
+        if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise TypeError("flash_attention: q, k, v must all be float32 "
+                            "or all bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention: inputs must be contiguous "
+                             "and 16-byte aligned")
+    if not 1 <= hd <= 128:
+        raise ValueError(f"flash_attention: head dim {hd} outside [1, 128]")
+    if b > _GRID_MAX or h > _GRID_MAX:
+        raise ValueError("flash_attention: batch or heads exceed the grid")
+    if q.numel() == 0 or k.shape[1] == 0:
+        return torch.zeros_like(q)
+    out = flash_attention_cuda(q, k, v, causal)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -1,7 +1,9 @@
-"""Segment sums (K1, K2): the sparse executor's scatter-add hop.
+"""Segment sums (K1, K2): the sparse executor's scatter-add hop, and the
+weighted segment histogram (K5), which has K2's contract.
 
-    out[p]    = sum_{e: seg[e] == p} w[e]          segsum_ones  (K1)
-    out[p, d] = sum_{e: seg[e] == p} rows[e, d]    segsum_rows  (K2)
+    out[p]    = sum_{e: seg[e] == p} w[e]               segsum_ones   (K1)
+    out[p, d] = sum_{e: seg[e] == p} rows[e, d]         segsum_rows   (K2)
+    out[p, d] = sum_{n: codes[n] == p} values[n, d]     segment_hist  (K5)
 
 Ids outside ``[0, P)`` are dropped, as ``jax.ops.segment_sum`` drops them
 in the reference package (the executors pad with ``seg == P``).  The CUDA
@@ -9,7 +11,8 @@ kernels are ``csrc/segsum.cu``; the plain versions below compute the same
 function with ``index_add_``, which raises on an out-of-range index, so
 they mask first.  :mod:`repro_torch.kernels.ops` routes between the two.
 Both segment sums of rows add into ``out`` (a zeroed table unless the
-caller passes one to accumulate into).
+caller passes one to accumulate into).  K5 launches K2's row scatter
+into a zeroed table under a launch counter of its own.
 """
 
 from __future__ import annotations
@@ -58,3 +61,8 @@ def segsum_rows_cuda(seg: torch.Tensor, rows: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"segsum_rows launch failed (cudaError {rc})")
     return out
+
+
+def segment_hist_plain(codes: torch.Tensor, values: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    return segsum_rows_plain(codes, values.float(), num_segments)

@@ -1,0 +1,61 @@
+"""Weights carried across from the JAX package.
+
+:func:`params_from_jax` maps the parameters of the JAX package's
+``LM.init`` (as numpy arrays) onto the state dict of
+:class:`repro_torch.models.model.LM`.  The port keeps the JAX layout of
+every weight (projections ``[d_in, d_out]``, applied as ``x @ w``, not
+``nn.Linear``'s ``[d_out, d_in]``), so nothing is transposed: the stacked
+``[L, ...]`` block parameters are split per layer and renamed.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+
+
+def _field(tree: Any, name: str) -> Any:
+    """``tree[name]`` for a mapping, ``tree.name`` for a named tuple."""
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16 numpy arrays
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def params_from_jax(params_np: Mapping[str, Any],
+                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX ``LM.init`` pytree as numpy arrays -> ``LM``'s state dict.
+
+    ``params_np`` holds ``embed`` [V, D], ``final_norm`` [D] and
+    ``blocks``, stacked over layers: ``norm1``/``norm2`` [L, D], ``attn``
+    (``AttnParams``: ``wq``/``wk``/``wv``/``wo`` and, with ``qkv_bias``,
+    ``bq``/``bk``/``bv``) and ``mlp`` (``MlpParams``: ``wi``/``wo`` and,
+    for SwiGLU, ``wg``).  The arrays keep their dtype; the result goes to
+    ``LM.load_state_dict``, which copies onto the model's device."""
+    blocks = _field(params_np, "blocks")
+    attn, mlp = _field(blocks, "attn"), _field(blocks, "mlp")
+    attn_names = ["wq", "wk", "wv", "wo"]
+    if cfg.qkv_bias:
+        attn_names += ["bq", "bk", "bv"]
+    mlp_names = ["wi", "wo"] + (["wg"] if cfg.mlp == "swiglu" else [])
+    state = {"embed": _tensor(_field(params_np, "embed")),
+             "final_norm": _tensor(_field(params_np, "final_norm"))}
+    stacked = ([("norm1", _field(blocks, "norm1")),
+                ("norm2", _field(blocks, "norm2"))]
+               + [(f"attn.{n}", _field(attn, n)) for n in attn_names]
+               + [(f"mlp.{n}", _field(mlp, n)) for n in mlp_names])
+    for name, arr in stacked:
+        if np.shape(arr)[0] != cfg.n_layers:
+            raise ValueError(f"blocks.{name}: {np.shape(arr)[0]} layers, "
+                             f"config has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            state[f"blocks.{i}.{name}"] = _tensor(arr[i])
+    return state

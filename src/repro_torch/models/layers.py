@@ -1,0 +1,80 @@
+"""Primitive layers: norms, projections, embeddings, RoPE.
+
+The JAX package's ``repro.models.layers`` for the serving path.  Weights
+keep the JAX layout: a projection is ``[d_in, d_out]`` and is applied as
+``x @ w`` (not ``nn.Linear``'s ``[d_out, d_in]``), so weights carry across
+unchanged.  ``*_init`` functions draw from an explicit ``torch.Generator``
+on the device the weights live on; apply functions are plain functions on
+tensors.  The serving path needs no gradient, so ``rms_norm`` is the
+forward only (its hand-written backward waits for the training slice), and
+M-RoPE and the sinusoidal table wait for the models that use them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+
+def parameter(shape: Sequence[int], dtype: torch.dtype,
+              device: torch.device) -> nn.Parameter:
+    """An uninitialised weight that takes no gradient (serving only)."""
+    return nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn in float32 (``scale`` defaults to
+    ``d_in ** -0.5``) as a ``[d_in, d_out]`` weight of ``dtype``."""
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d_model: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    return dense_init(generator, vocab, d_model, dtype, scale=d_model ** -0.5)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, returned in ``x``'s dtype."""
+    x32 = x.float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return ((x32 * r) * scale.float()).to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def tied_logits(table: torch.Tensor, x: torch.Tensor,
+                fp32: bool = True) -> torch.Tensor:
+    """Output head tied to the embedding ``[V, D]``; in float32 (a float32
+    copy of the table) when ``fp32``."""
+    w = table.float() if fp32 else table
+    return x.to(w.dtype) @ w.T
+
+
+# ------------------------------------------------------------------- RoPE ---
+
+def rope_freqs(hd: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # [hd/2]
+    ang = positions[..., None].float() * freqs                     # [B,S,hd/2]
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -201,6 +201,10 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
     x = torch.tensor([[[10.0], [3.0]]])
     assert ops.mobius(x).reshape(-1).tolist() == [7.0, 3.0]
     assert ops.bdeu(torch.ones(2, 3, 2), 1.0).shape == (2,)
+    assert ops.segment_hist(seg, rows, 3).tolist() == [[0, 1], [0, 0],
+                                                       [6, 8]]
+    qkv = torch.ones(1, 3, 2, 4)
+    assert ops.flash_attention(qkv, qkv, qkv).tolist() == qkv.tolist()
     assert ops.PLAIN_CALLS == {k: 1 for k in ops.KERNELS}
     assert ops.LAUNCHES == {k: 0 for k in ops.KERNELS}
 
