@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the last line is printed):
 1. device   — a CUDA card is required; prints its name, count, versions and
               ``nvidia-smi`` name / power limit.
 2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-              and prints the build time and ``ptxas`` register/shared lines.
+              and prints the build time and ``ptxas`` register, shared
+              memory and spill lines; fails if the Hopper attention kernel
+              spills.
 3. main     — HYBRID model discovery over the sparse executor on the IMDb
               stand-in at full size (1.06M rows, 3 relationships), counting
               every kernel launch; its wall time and peak memory are read on
@@ -37,7 +39,16 @@ Phases (any failure exits non-zero before the last line is printed):
               counting launches; each against its plain version
               (``rtol=1e-5, atol=1e-3``: float sums whose atomics land in
               any order), the largest timed against ``index_add_``.
-7. lm       — Qwen2.5-3B serving at its published full size (36 layers,
+7. k6-edges — K6 against its plain version in bf16 (``K6_BF16_TOL``) on a
+              grid of small shapes that reach every edge of its tiles:
+              ``Sq = Skv`` in ``K6_EDGE_LENGTHS``, causal and not, and
+              ``Sq != Skv`` (``K6_EDGE_RAGGED``, not causal); 16 query
+              heads over 1, 2 or 16 KV heads; batch 1 and 3; hd 128 (the
+              Hopper kernel) and 64 (the mma.sync kernel).  One line per
+              shape: the shape, the kernel the C entry chose, max_abs_err.
+              K6's row in the kernels line keeps each kernel's largest
+              error apart (``max_abs_err_by_route``).
+8. lm       — Qwen2.5-3B serving at its published full size (36 layers,
               d_model 2048, 16/2 heads, vocab 151,936, bf16; random weights
               from generator seed 0).  (c) prefill/decode consistency at
               full width and depth on 2 x 256 tokens; (a) the main run:
@@ -49,8 +60,9 @@ Phases (any failure exits non-zero before the last line is printed):
               ``torch.profiler``; (b) K6 against
               its plain version on layer 0's q, k, v of the main prefill,
               in bf16 and in float32, and of the long prefill in bf16;
-              timed at the main shape against PyTorch's
-              ``scaled_dot_product_attention``.
+              timed at both shapes against PyTorch's
+              ``scaled_dot_product_attention``, with K6's share of each
+              prefill (launches x ms / wall).
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -95,6 +107,12 @@ LM_CHECK_BATCH, LM_CHECK_LEN = 2, 256
 # 2 layers), applied to the logits' max abs difference as a fraction of
 # their max abs value.
 K6_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+# K6's edge shapes (phase 7): lengths either side of its 64- and 128-row
+# tiles, and a query length unlike the key length.
+K6_EDGE_LENGTHS = (1, 64, 127, 128, 129, 300, 1000)
+K6_EDGE_RAGGED = (200, 333)
+K6_EDGE_HEADS, K6_EDGE_KV_HEADS = 16, (1, 2, 16)
+K6_EDGE_BATCHES, K6_EDGE_HDS = (1, 3), (128, 64)
 K6_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 LM_PREFILL_TOL = 0.02
 LM_DECODE_TOL = 0.05
@@ -327,17 +345,52 @@ def layer0_qkv(model, tokens):
                                           tokens.shape[1]))
 
 
-def check_k6_bf16(ops, q, k, v, label: str) -> float:
+def check_k6_bf16(ops, q, k, v, label: str, causal: bool = True) -> float:
     """K6 against its plain version on bf16 ``q, k, v``; the max abs
     error."""
     from repro_torch.kernels.attention import flash_attention_plain
-    got = ops.flash_attention(q, k, v, causal=True)
-    want = flash_attention_plain(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), **K6_BF16_TOL):
         fail(f"K6 (bf16, {label}) outside {K6_BF16_TOL} of its plain "
              f"version (max_abs_err {err})")
     return err
+
+
+def k6_edge_phase(ops) -> dict:
+    """7. K6 against its plain version on the edge shapes; the largest max
+    abs error of each route (kernel) that the shapes took."""
+    from repro_torch.kernels.attention import flash_attention_route
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(sq, sq, c) for sq in K6_EDGE_LENGTHS for c in (True, False)]
+    shapes.append((*K6_EDGE_RAGGED, False))
+    h, errs, by_route = K6_EDGE_HEADS, [], {}
+    ops.reset_counts()
+    for hd in K6_EDGE_HDS:
+        route = flash_attention_route(torch.bfloat16, hd)
+        for b in K6_EDGE_BATCHES:
+            for hk in K6_EDGE_KV_HEADS:
+                for sq, skv, causal in shapes:
+                    q = torch.randn((b, sq, h, hd), generator=gen,
+                                    device="cuda").bfloat16()
+                    k, v = (torch.randn((b, skv, hk, hd), generator=gen,
+                                        device="cuda").bfloat16()
+                            for _ in range(2))
+                    label = (f"B={b} Sq={sq} Skv={skv} H={h} Hkv={hk} "
+                             f"hd={hd} {'causal' if causal else 'full'}")
+                    errs.append(check_k6_bf16(ops, q, k, v, label, causal))
+                    by_route[route] = max(by_route.get(route, 0.0),
+                                          errs[-1])
+                    log(f"k6 edge {label}: {route}, max_abs_err "
+                        f"{errs[-1]}")
+    sync()
+    if ops.LAUNCHES["flash_attention"] != len(errs):
+        fail(f"k6 edges: {ops.LAUNCHES['flash_attention']} launches for "
+             f"{len(errs)} shapes")
+    log(f"k6 edges: {len(errs)} shapes within {K6_BF16_TOL} of the plain "
+        f"version, largest max_abs_err by route {by_route}")
+    return by_route
 
 
 def log_profile(label: str, prof, wall: float) -> None:
@@ -362,12 +415,16 @@ def log_profile(label: str, prof, wall: float) -> None:
             f"{e.key[:100]}")
 
 
-def lm_phase(ops, kind: str) -> dict:
-    """7. Qwen2.5-3B serving at full size; returns K6's kernels row."""
+def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
+    """8. Qwen2.5-3B serving at full size; returns K6's kernels row, whose
+    max_abs_err is the largest over the LM shapes and the edge shapes
+    (bf16), and whose max_abs_err_by_route keeps each kernel's apart;
+    ``edge_errs`` is :func:`k6_edge_phase`'s."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
     from repro_torch.models.model import build_model
 
     cfg = get_config(LM_ARCH)
@@ -470,6 +527,16 @@ def lm_phase(ops, kind: str) -> dict:
     log(f"K6 against its plain version on layer 0 of the long prefill "
         f"(B=1 S={LM_LONG}): bf16 max_abs_err {err_long} (tolerance "
         f"{K6_BF16_TOL})")
+    long_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    long_sdpa = sdpa_ms(q, k, v)
+    long_bound, _ = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                             4.0 * q.shape[2] * q.shape[3] * LM_LONG
+                             * (LM_LONG + 1) / 2, BF16_OPS_PER_S)
+    log(f"K6 share of the long prefill: {long_launches} x {long_ms:.4f} ms "
+        f"= {long_launches * long_ms / 1e3:.4f} s of {t_long:.4f} s "
+        f"({100 * long_launches * long_ms / 1e3 / t_long:.2f} %); K6 "
+        f"{long_ms:.4f} ms, SDPA {long_sdpa:.4f} ms, bound {long_bound:.4f} "
+        f"ms at B=1 S={LM_LONG} on {kind}")
     del q, k, v, long_tokens
 
     # the main prefill once more under the profiler: where its time goes
@@ -501,6 +568,9 @@ def lm_phase(ops, kind: str) -> dict:
     del got32, want32, qf, kf, vf
     b, s, h, hd = q.shape
     hk = k.shape[2]
+    by_route = dict(edge_errs)
+    lm_route = flash_attention_route(q.dtype, hd)
+    by_route[lm_route] = max(by_route.get(lm_route, 0.0), err, err_long)
     flops = 4.0 * b * h * hd * s * (s + 1) / 2       # causal pairs only
     b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
                           flops, BF16_OPS_PER_S)
@@ -508,13 +578,15 @@ def lm_phase(ops, kind: str) -> dict:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/attention.cu",
         replaces="src/repro/kernels/attention_kernel.py:66",
-        launches=k6_launches, max_abs_err=max(err, err_long),
+        launches=k6_launches, max_abs_err=max(by_route.values()),
+        max_abs_err_by_route=by_route,
         ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
         plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, True),
                          reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms(q, k, v),
         shape=f"B={b} S={s} H={h} Hkv={hk} hd={hd} causal bf16; "
-              f"max_abs_err over this shape and 1 x {LM_LONG}")
+              f"max_abs_err over this shape, 1 x {LM_LONG} and the edge "
+              f"shapes (bf16), by route {by_route}")
     log(f"K6 share of the main prefill: {k6_launches} x {row['ms']:.4f} ms "
         f"= {k6_launches * row['ms'] / 1e3:.4f} s of {t_prefill:.4f} s "
         f"({100 * k6_launches * row['ms'] / 1e3 / t_prefill:.2f} %) on "
@@ -555,6 +627,14 @@ def main() -> None:
         f"{info['seconds']:.2f} s -> {info['path']}")
     for line in info["ptxas"]:
         log(f"  {line}")
+    # the Hopper attention kernel keeps its accumulators in registers
+    lines = info["ptxas"]
+    props = [i for i, line in enumerate(lines)
+             if "Function properties" in line and "flash_wgmma" in line]
+    if not props or any(" 0 bytes spill stores, 0 bytes spill loads"
+                        not in " " + lines[i + 1] for i in props):
+        fail("the Hopper attention kernel spills (or ptxas reported no "
+             "spill line for it)")
 
     # -- 3. main path ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -726,8 +806,11 @@ def main() -> None:
     # -- 6. K5's path ---------------------------------------------------------
     rows.append(hist_phase(ops))
 
-    # -- 7. Qwen2.5-3B serving ------------------------------------------------
-    rows.append(lm_phase(ops, kind))
+    # -- 7. K6's edge shapes --------------------------------------------------
+    edge_errs = k6_edge_phase(ops)
+
+    # -- 8. Qwen2.5-3B serving ------------------------------------------------
+    rows.append(lm_phase(ops, kind, edge_errs))
     for row in rows[-2:]:
         log(f"kernel {row['name']} [{row['shape']}]: {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "

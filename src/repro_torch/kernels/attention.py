@@ -11,10 +11,13 @@ dtype before the product with ``v`` (float32 accumulation), the output is
 divided by ``max(l, 1e-30)`` and has ``q``'s dtype.  There are no padded
 keys: every key below ``Skv`` counts and no other does, causal or not.
 
-The CUDA kernel is ``csrc/attention.cu``.  The plain version below computes
-the same function in float32 chunks of query rows, so a ``[B, H, Sq, Skv]``
-score matrix is never held whole; :mod:`repro_torch.kernels.ops` routes
-between the two.
+The CUDA kernels are in ``csrc/attention.cu``: a Hopper kernel (TMA,
+``wgmma``, warp specialisation) for bf16 with ``hd == 128``, ``mma.sync``
+for bf16 with ``hd`` in {16, 32, 64}, and a CUDA-core kernel for the rest;
+:func:`flash_attention_route` names the one a call takes.  The plain
+version below computes the same function in float32 chunks of query rows,
+so a ``[B, H, Sq, Skv]`` score matrix is never held whole;
+:mod:`repro_torch.kernels.ops` routes between it and the kernels.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from . import build
 #: query rows per chunk of the plain version
 PLAIN_CHUNK = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry's route codes (``flash_attention_route`` in attention.cu)
+ROUTES = ("cuda-core", "mma.sync", "wgmma")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,3 +74,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed (cudaError {rc})")
     return out
+
+
+def flash_attention_route(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel that :func:`flash_attention_cuda` launches for
+    ``dtype`` and head dim ``hd``, as the C entry decides (loads, and if
+    need be builds, the kernels)."""
+    code = build.load().flash_attention_route(hd, _DTYPE_CODES[dtype])
+    if code < 0:
+        raise ValueError(f"flash_attention: no kernel for {dtype}, hd {hd}")
+    return ROUTES[code]

@@ -39,12 +39,14 @@ _SIGNATURES = {
                    _P],
     "flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "flash_attention_route": [_I64, ctypes.c_int],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: What the last build did: seconds, library path, and nvcc's ``-Xptxas -v``
-#: lines (registers, shared memory and spills per kernel).
+#: lines (registers and shared memory per kernel, each followed by its
+#: stack frame and spill line).
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -101,7 +103,7 @@ def build(force: bool = False) -> Path:
     for o in objs:
         o.unlink(missing_ok=True)
     ptxas = [line.strip() for out in outs for line in out.splitlines()
-             if "ptxas" in line]
+             if "ptxas" in line or "spill" in line]
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib_path),
                       ptxas=ptxas, cached=False)
     return lib_path

@@ -10,31 +10,53 @@
 // probabilities rounded to v's type before the P.V product, and the output
 // divided by max(l, 1e-30).  Keys at or past Skv never count, causal or
 // not (the TPU kernel zeroes its padded keys when causal is false and so
-// lets them into the normaliser; this kernel masks them).
+// lets them into the normaliser; these kernels mask them by index).
 //
 // Bound on this card: operations.  At the prefill's shape (B=4, S=4096,
 // H=16, Hkv=2, hd=128, causal) the two products are 2.75e11 flops against
-// 151 MB of q/k/v/out, so the tensor cores' bf16 rate sets the bound.
+// 151 MB of q/k/v/out: 0.278 ms at the tensor cores' 989 TFLOP/s bf16 rate,
+// against 0.045 ms for the bytes at 3.35 TB/s.  At the long prefill's
+// (B=1, S=32768) they are 4.4e12 flops, 4.45 ms.
 //
-// Design (simple first; no TMA, wgmma or warp specialisation yet):
-//  * bf16 with hd a multiple of 16 (16/32/64/128): one CTA of 4 warps per
-//    (64 query rows, head, batch).  The Q tile goes through shared memory
-//    into mma.sync A fragments that stay in registers.  Each 64-key tile of
-//    K and V is staged in shared memory (rows padded by 8 elements, so the
-//    fragment loads are free of bank conflicts); S = Q K^T and O += P V run
-//    on mma.sync m16n8k16 (bf16 in, float32 accumulate); V's B fragments
-//    come from ldmatrix.trans.  The online softmax (running max m, the
-//    normaliser l, the accumulator) lives in registers: S's accumulator
-//    layout is P's A-fragment layout, so P never leaves the registers.
+// Routes, chosen here by dtype and hd:
+//  * bf16, hd == 128 (the served models' head size): the Hopper kernel.
+//    One CTA of three warpgroups per (128 query rows, head, batch), issued
+//    heaviest query block first across all heads.  Warpgroup 0 is the
+//    producer: it gives its registers away (setmaxnreg) and one of its
+//    threads loads the Q tile once, then K and V in 128-key tiles through a
+//    two-stage ring, all by TMA (cp.async.bulk.tensor over 4-D tensor maps
+//    (hd, heads, seq, batch), so a box past the sequence's end is
+//    zero-filled within its own sequence) on full/empty mbarriers, K and V
+//    each with their own.  A tile of 128 rows x 128 dims is two boxes of 64
+//    dims with 128-byte swizzle.  Warpgroups 1 and 2 are consumers of 64
+//    query rows each: S = Q K^T is wgmma m64n128k16 with both operands in
+//    shared memory (K-major), the online softmax runs in registers in base
+//    2 with the scale folded in, masking only the tile that crosses the
+//    diagonal or holds Skv's ragged end, and P goes from S's accumulator
+//    straight into bf16 A fragments for O += P V, a wgmma with A in
+//    registers and V (stored [key][dim], N-major for this product) read
+//    through a transposed descriptor.  Tensor-core time is kept busy two
+//    ways: each consumer issues S of tile t with P V of tile t - 1 and runs
+//    tile t's softmax while P V is in flight, and the two consumers take
+//    turns issuing (named barriers), so one's softmax overlaps the other's
+//    products.  168 registers at launch, 40 for the producer and 232 for
+//    each consumer after setmaxnreg; 165 KB of shared memory; no spills.
+//  * bf16 with hd in {16, 32, 64}: one CTA of 4 warps per (64 query rows,
+//    head, batch), mma.sync m16n8k16 with Q fragments held in registers,
+//    64-key K/V tiles staged synchronously in shared memory (rows padded by
+//    8 elements against bank conflicts), V through ldmatrix.trans.
 //  * float32, or bf16 with another hd <= 128: a CUDA-core kernel, 16 query
 //    rows per CTA, one key per lane per 32-key tile staged in shared memory
-//    as float32; the same online softmax with expf.
-//  * Causal: key tiles wholly above the diagonal are never loaded, and the
-//    query blocks are issued heaviest first.  Offsets are 64-bit.
+//    as float32; the same online softmax with expf.  It exists for the
+//    float32 check, not for speed.
+// Every route skips key tiles wholly above the diagonal when causal.
 //
 // The kernels allocate nothing and launch on the caller's stream; the entry
-// point returns cudaGetLastError() after its launch.
+// point returns cudaGetLastError() after its launch.  The tensor-map
+// encoder is a driver function, fetched through the runtime's
+// cudaGetDriverEntryPoint, so nothing beyond the runtime is linked.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,7 +68,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
 
-// ------------------------------------------------ tensor-core path ---------
+// ------------------------------------------- mma.sync path (hd <= 64) ----
 
 constexpr int kMmaBQ = 64;   // query rows per CTA, 16 per warp
 constexpr int kMmaBK = 64;   // keys per shared-memory tile
@@ -239,6 +261,417 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------------- Hopper path (bf16, hd 128) ----
+
+constexpr int kHD = 128;            // head dim of this path
+constexpr int kBQ = 128;            // query rows per CTA, 64 per consumer
+constexpr int kBK = 128;            // keys per K/V tile
+constexpr int kStages = 2;          // depth of the K/V ring
+constexpr int kBoxCols = 64;        // 128-byte swizzle: 64 bf16 per box row
+constexpr int kBoxBytes = kBK * kBoxCols * 2;        // 16 KB
+constexpr int kTileBytes = 2 * kBoxBytes;            // 128 rows x 128 dims
+constexpr int kWsThreads = 384;     // producer + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kSmemBytes =          // Q, the K and V rings, slack, mbarriers
+    (1 + 2 * kStages) * kTileBytes + 1024 + 8 * (1 + 4 * kStages);
+static_assert(kBQ == kBK, "Q, K and V tiles share one box shape");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Arrive once and add `bytes` to the transaction count of this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands (Q,
+// K): `lbo` is unused and `sbo` is the stride of 8-row groups (1 KB).
+// N-major V: `lbo` is the stride between 64-column boxes, `sbo` that of
+// 8-key groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFFu) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads of an accumulator above the wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WG_ACC8(i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC64                                                       \
+  WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32),       \
+      WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+#define WG_REGS64                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, float32) = A B (+ d if accumulate): A 64 x 16 and B 16 x 128
+// both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B: A 64 x 16 in registers (the m16n8k16 A-fragment layout per
+// warp), B 16 x 128 from shared memory, N-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One tile of the online softmax, in registers.  S stays as the product
+// wrote it (only wgmma defines its registers): the row maxima are taken on
+// S itself and scaled into base-2 units (the scale is positive), and P =
+// exp2(S * scale2 - m) is one fma and one exp2.  `mask` (a tile that
+// crosses the diagonal or Skv's end) makes masked keys count as -1e30
+// logits, i.e. P = 0.  Rescales l by the returned `corr`, adds P in
+// float32 to l and writes P as bf16 A fragments (key step kk holds S's
+// 8-key blocks 2kk and 2kk + 1).
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile_impl(
+    const float (&sc)[64], uint32_t (&pf)[8][4], float (&m_row)[2],
+    float (&l_row)[2], float (&corr)[2], int k0, int skv, int causal,
+    int row_lo, int t4, float scale2) {
+  const auto masked = [&](int j, int e) {
+    const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+    return kMask && (key >= skv || (causal && key > row_lo + 8 * (e >> 1)));
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!masked(j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_row[i], mx[i] * scale2);
+    corr[i] = exp2f(m_row[i] - m_new);
+    m_row[i] = m_new;
+    l_row[i] *= corr[i];
+    neg_m[i] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[e] = masked(j, e) ? 0.f
+                          : exp2f(fmaf(sc[4 * j + e], scale2, neg_m[e >> 1]));
+    l_row[0] += p[0] + p[1];
+    l_row[1] += p[2] + p[3];
+    pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
+__device__ __forceinline__ void softmax_tile(
+    const float (&sc)[64], uint32_t (&pf)[8][4], float (&m_row)[2],
+    float (&l_row)[2], float (&corr)[2], bool mask, int k0, int skv,
+    int causal, int row_lo, int t4, float scale2) {
+  if (mask)
+    softmax_tile_impl<true>(sc, pf, m_row, l_row, corr, k0, skv, causal,
+                            row_lo, t4, scale2);
+  else
+    softmax_tile_impl<false>(sc, pf, m_row, l_row, corr, k0, skv, causal,
+                             row_lo, t4, scale2);
+}
+
+__device__ __forceinline__ void fence_frag(uint32_t (&pf)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pf[kk][r])::"memory");
+}
+
+// S = Q K^T over hd in 8 steps of 16 (steps 0-3 in the first box), issued
+// and committed as one group.
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t qa,
+                                         uint32_t ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss(sc, smem_desc(qa + off, 16, 1024),
+             smem_desc(ks + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V over 128 keys in 8 steps of 16 (2 KB of V each), one group.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         uint32_t (&pf)[8][4], uint32_t vs) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_rs(o, pf[kk], smem_desc(vs + kk * 2048, kBoxBytes, 1024));
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Named barriers over the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// Grid: one CTA per (query block, head, batch), flattened so that the
+// first H*B CTAs take the last (heaviest, when causal) query block.
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ out, int sq, int skv,
+                       int n_heads, int n_kv_heads, int n_hb, int causal,
+                       float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1 KB: tiles start on 1 KB boundaries
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_smem = q_smem + kTileBytes;                // + s * tile
+  const uint32_t v_smem = k_smem + kStages * kTileBytes;      // + s * tile
+  const uint32_t q_full = v_smem + kStages * kTileBytes;      // mbarriers:
+  const uint32_t k_full = q_full + 8;                         // + 8 * s
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+
+  const int n_qblocks = (sq + kBQ - 1) / kBQ;
+  const int hb = (int)(blockIdx.x % (unsigned)n_hb);
+  const int q0 = (n_qblocks - 1 - (int)(blockIdx.x / (unsigned)n_hb)) * kBQ;
+  const int h = hb % n_heads, b = hb / n_heads;
+  const int hk = h / (n_heads / n_kv_heads);
+  const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumerWarps);
+      mbar_init(v_empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kTileBytes);
+      tma_load(q_smem, &tq, q_full, 0, h, q0, b);
+      tma_load(q_smem + kBoxBytes, &tq, q_full, kBoxCols, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t round = (uint32_t)(t / kStages) & 1u;
+        const uint32_t ks = k_smem + s * kTileBytes;
+        const uint32_t vs = v_smem + s * kTileBytes;
+        const int k0 = t * kBK;
+        mbar_wait(k_empty + 8 * s, round ^ 1u);   // round 0 passes at once
+        mbar_expect_tx(k_full + 8 * s, kTileBytes);
+        tma_load(ks, &tk, k_full + 8 * s, 0, hk, k0, b);
+        tma_load(ks + kBoxBytes, &tk, k_full + 8 * s, kBoxCols, hk, k0, b);
+        mbar_wait(v_empty + 8 * s, round ^ 1u);
+        mbar_expect_tx(v_full + 8 * s, kTileBytes);
+        tma_load(vs, &tv, v_full + 8 * s, 0, hk, k0, b);
+        tma_load(vs + kBoxBytes, &tv, v_full + 8 * s, kBoxCols, hk, k0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t4 = lane & 3;
+    const int row_lo = q0 + cw * 64 + warp * 16 + (lane >> 2);  // and + 8
+    const int row_min = q0 + cw * 64;              // this warpgroup's first
+    const float scale2 = scale * kLog2e;           // softmax in base 2
+    // this warpgroup's 64 rows of Q in both boxes
+    const uint32_t qa = q_smem + cw * 64 * (kBoxCols * 2);
+    const auto needs_mask = [&](int k0) {
+      return k0 + kBK > skv || (causal && k0 + kBK - 1 > row_min);
+    };
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_row[2] = {kNegInf, kNegInf};   // running max, base-2 units
+    float l_row[2] = {0.f, 0.f};           // this thread's share of l
+    float corr[2];
+    float sc[64];
+    uint32_t pf[8][4];
+
+    const auto rescale_o = [&]() {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j + 0] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+    };
+    const auto release = [&](uint32_t bar) {   // this warp is done with it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    const auto round_of = [](int t) {
+      return (uint32_t)(t / kStages) & 1u;
+    };
+
+    // The two consumer warpgroups take turns issuing their products (named
+    // barrier 1 + cw is this one's turn), so one's softmax runs while the
+    // other's products do.  Within a warpgroup, tile 0's S and softmax come
+    // first; then each step issues S of tile t and P V of tile t - 1
+    // together and runs tile t's softmax while P V is in flight.  P
+    // alternates between two register sets, so no register of an
+    // in-flight product is written.
+    const int my_turn = 1 + cw, other_turn = 2 - cw;
+    const auto take_turn = [&]() { named_sync(my_turn); };
+    const auto pass_turn = [&]() { named_arrive(other_turn); };
+    uint32_t pg[8][4];
+    const auto step = [&](int t, uint32_t (&p_prev)[8][4],
+                          uint32_t (&p_next)[8][4]) {
+      const int s = t % kStages, sp = (t - 1) % kStages;
+      fence_acc(o);
+      fence_frag(p_prev);
+      mbar_wait(k_full + 8 * s, round_of(t));
+      mbar_wait(v_full + 8 * sp, round_of(t - 1));
+      take_turn();
+      issue_qk(sc, qa, k_smem + s * kTileBytes);
+      issue_pv(o, p_prev, v_smem + sp * kTileBytes);
+      pass_turn();
+      wgmma_wait<1>();                       // S of tile t is done
+      fence_acc(sc);
+      release(k_empty + 8 * s);
+      softmax_tile(sc, p_next, m_row, l_row, corr, needs_mask(t * kBK),
+                   t * kBK, skv, causal, row_lo, t4, scale2);
+      wgmma_wait<0>();                       // P V of tile t - 1 is done
+      fence_acc(o);
+      release(v_empty + 8 * sp);
+      rescale_o();
+    };
+
+    if (cw == 1) pass_turn();                // warpgroup 1 issues first
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full, 0);
+    take_turn();
+    issue_qk(sc, qa, k_smem);
+    pass_turn();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    release(k_empty);
+    softmax_tile(sc, pf, m_row, l_row, corr, needs_mask(0), 0, skv, causal,
+                 row_lo, t4, scale2);
+    for (int t = 1; t < n_tiles; t += 2) {
+      step(t, pf, pg);
+      if (t + 1 < n_tiles) step(t + 1, pg, pf);
+    }
+    const int last = n_tiles - 1, sl = last % kStages;
+    fence_acc(o);
+    fence_frag(pf);
+    fence_frag(pg);
+    mbar_wait(v_full + 8 * sl, round_of(last));
+    take_turn();
+    if (last % 2 == 0)
+      issue_pv(o, pf, v_smem + sl * kTileBytes);
+    else
+      issue_pv(o, pg, v_smem + sl * kTileBytes);
+    if (cw == 0) pass_turn();   // warpgroup 1 passed its extra turn first
+    wgmma_wait<0>();
+    fence_acc(o);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_row[i] += __shfl_xor_sync(0xffffffffu, l_row[i], 1);
+      l_row[i] += __shfl_xor_sync(0xffffffffu, l_row[i], 2);
+      l_row[i] = fmaxf(l_row[i], 1e-30f);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + 8 * i;
+      if (row >= sq) continue;
+      __nv_bfloat16* dst =
+          out + (((int64_t)b * sq + row) * n_heads + h) * kHD + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(
+            o[4 * j + 2 * i] / l_row[i], o[4 * j + 2 * i + 1] / l_row[i]);
+    }
+  }
+}
+
 // ---------------------------------------------------- CUDA-core path -------
 
 constexpr int kSimtBQ = 16;    // query rows per CTA, 4 per warp
@@ -382,7 +815,85 @@ void launch_simt(const void* q, const void* k, const void* v, void* out,
       n_kv_heads, hd, causal, scale);
 }
 
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A bf16 [batch, seq, heads, 128] tensor as a 4-D map (hd, heads, seq,
+// batch) with boxes of 64 dims x 1 head x 128 rows x 1 sequence: rows past
+// `seq` read as zeros from within their own sequence.
+bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
+              int64_t batch, int64_t seq, int64_t heads) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kHD, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)kHD * 2,
+                                 (cuuint64_t)(heads * kHD * 2),
+                                 (cuuint64_t)(seq * heads * kHD * 2)};
+  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1u, (cuuint32_t)kBQ, 1u};
+  const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
+                 int64_t n_kv_heads, int causal, float scale,
+                 cudaStream_t stream) {
+  const int64_t n_hb = n_heads * batch;
+  const int64_t blocks = (sq + kBQ - 1) / kBQ * n_hb;
+  if (sq > INT32_MAX || skv > INT32_MAX || blocks > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, q, batch, sq, n_heads) ||
+      !make_map(encode, &tk, k, batch, skv, n_kv_heads) ||
+      !make_map(encode, &tv, v, batch, skv, n_kv_heads))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_wgmma_kernel<<<(unsigned)blocks, kWsThreads, kSmemBytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, (int)sq, (int)skv, (int)n_heads,
+      (int)n_kv_heads, (int)n_hb, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The kernel that flash_attention launches: 2 = the Hopper kernel (bf16,
+// hd 128), 1 = mma.sync (bf16, hd 16/32/64), 0 = the CUDA-core kernel,
+// -1 = none (invalid dtype or hd).
+extern "C" int flash_attention_route(int64_t hd, int dtype) {
+  if (hd < 1 || hd > kMaxHD || (dtype != 0 && dtype != 1)) return -1;
+  if (dtype == 0) return 0;
+  if (hd == kHD) return 2;
+  return hd == 16 || hd == 32 || hd == 64 ? 1 : 0;
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, hd]; k, v [B, Skv, Hkv,
 // hd]; out [B, Sq, H, hd]; all contiguous, Hkv | H, 1 <= hd <= 128, Sq and
@@ -392,24 +903,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int64_t skv, int64_t n_heads,
                                int64_t n_kv_heads, int64_t hd, int causal,
                                int dtype, float scale, void* stream) {
-  if (hd < 1 || hd > kMaxHD || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
-      sq < 1 || skv < 1 || (dtype != 0 && dtype != 1))
+  const int route = flash_attention_route(hd, dtype);
+  if (route < 0 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 || sq < 1 ||
+      skv < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
-    switch (hd) {
-      case 16: launch_mma<16>(q, k, v, out, batch, sq, skv, n_heads,
-                              n_kv_heads, causal, scale, st); break;
-      case 32: launch_mma<32>(q, k, v, out, batch, sq, skv, n_heads,
-                              n_kv_heads, causal, scale, st); break;
-      case 64: launch_mma<64>(q, k, v, out, batch, sq, skv, n_heads,
-                              n_kv_heads, causal, scale, st); break;
-      case 128: launch_mma<128>(q, k, v, out, batch, sq, skv, n_heads,
-                                n_kv_heads, causal, scale, st); break;
-      default:
-        launch_simt<__nv_bfloat16>(q, k, v, out, batch, sq, skv, n_heads,
-                                   n_kv_heads, (int)hd, causal, scale, st);
-    }
+  if (route == 2)
+    return launch_wgmma(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+                        causal, scale, st);
+  if (route == 1) {
+    if (hd == 16)
+      launch_mma<16>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+                     causal, scale, st);
+    else if (hd == 32)
+      launch_mma<32>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+                     causal, scale, st);
+    else
+      launch_mma<64>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+                     causal, scale, st);
+  } else if (dtype == 1) {
+    launch_simt<__nv_bfloat16>(q, k, v, out, batch, sq, skv, n_heads,
+                               n_kv_heads, (int)hd, causal, scale, st);
   } else {
     launch_simt<float>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
                        (int)hd, causal, scale, st);

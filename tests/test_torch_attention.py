@@ -118,6 +118,34 @@ def test_flash_attention_bf16_rounds_probabilities_to_v_dtype():
         got.float().numpy(), rtol=2 ** -7, atol=2 ** -7)
 
 
+# The card's edge shapes (chip_smoke.py's phase 7: lengths either side of
+# the kernels' 64- and 128-row tiles, Sq != Skv), cut to B <= 2, H <= 4 and
+# S <= 300, at hd 128; the plain version, which is the card's oracle,
+# against the JAX package's oracle with the KV heads repeated for it.
+_EDGE_SHAPES = ([(s, s, c) for s in (1, 64, 127, 128, 129, 300)
+                 for c in (True, False)] + [(200, 300, False)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hk", [(1, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("sq,skv,causal", _EDGE_SHAPES)
+def test_flash_attention_edge_shapes_match_jax_oracle(sq, skv, causal, b, hk,
+                                                      dtype):
+    h, hd = 4, 128
+    q, k, v = _normal(sq + skv + hk, (b, sq, h, hd), (b, skv, hk, hd),
+                      (b, skv, hk, hd))
+    qt, kt, vt = _t(q, k, v)
+    if dtype == "bfloat16":    # the oracle sees the same rounded inputs
+        qt, kt, vt = (x.bfloat16() for x in (qt, kt, vt))
+        q, k, v = (x.float().numpy() for x in (qt, kt, vt))
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    kr, vr = (np.repeat(a, h // hk, axis=2) for a in (k, v))
+    want = np.asarray(jref.flash_attention_ref(*_j(q, kr, vr), causal))
+    tol = 2e-5 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
 def test_flash_attention_checks_shapes():
     q = torch.zeros(1, 8, 6, 16)
     with pytest.raises(ValueError):
