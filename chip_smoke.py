@@ -10,18 +10,22 @@ Phases (any failure exits non-zero before the last line is printed):
 2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
               and prints the build time and ``ptxas`` register, shared
               memory and spill lines; fails if the Hopper attention kernel
-              spills.
+              or K2's two kernels spill.
 3. main     — HYBRID model discovery over the sparse executor on the IMDb
               stand-in at full size (1.06M rows, 3 relationships), counting
               every kernel launch; its wall time and peak memory are read on
               this run alone.  The IMDb run is made once more under
               ``torch.profiler``: device busy time against wall time, and
-              the kernels that took most of it.  Then HYBRID pre-counting
-              alone on the VisualGenome stand-in (15.8M rows, 8
-              relationships, chains of 3, which take the dense-message
-              hop).  Checks that each kernel was launched and that every
-              single-relation positive table sums to its relation's edge
-              count.
+              the kernels that took most of it, K2's device time among
+              them.  Then HYBRID pre-counting alone on the VisualGenome
+              stand-in (15.8M rows, 8 relationships, chains of 3, which
+              take the dense-message hop), and once more keeping K2's
+              largest call and its largest in the direct regime (the
+              dense-message hop), each held bit for bit against its plain
+              version and timed.  Checks that each kernel was launched,
+              that K2 took both regimes (launch counts by regime printed),
+              and that every single-relation positive table sums to its
+              relation's edge count.
 4. kernels  — the IMDb run once more, keeping a copy of the inputs of each
               kernel's largest call; each kernel against its plain PyTorch
               version on those inputs: exact for the
@@ -31,14 +35,20 @@ Phases (any failure exits non-zero before the last line is printed):
               the kernel, the plain version and one PyTorch library call of
               the same function where there is one, beside the least time
               the card could take (bytes over 3.35 TB/s, float32 operations
-              over 67 TFLOP/s: NVIDIA H100 SXM data sheet).
+              over 67 TFLOP/s: NVIDIA H100 SXM data sheet), each twice: CUDA
+              events around back-to-back calls (``ms``, which also counts
+              host launch gaps) and device time under ``torch.profiler``
+              (``device_ms``, the calls' own device events over the reps).
+              K2 is also checked and timed in its other regime where the
+              wrapper chose the privatised one.
 5. parity   — model discovery on the full UW stand-in, HYBRID over sparse
               and over dense, on the card and on the CPU: edge-identical.
 6. hist     — K5's path: the weighted segment histogram at the three
               shapes of ``benchmarks/bench_kernels.py``'s ``bench_hist``,
               counting launches; each against its plain version
               (``rtol=1e-5, atol=1e-3``: float sums whose atomics land in
-              any order), the largest timed against ``index_add_``.
+              any order), the largest timed against ``index_add_`` (CUDA
+              events and device time).
 7. k6-edges — K6 against its plain version in bf16 (``K6_BF16_TOL``) on a
               grid of small shapes that reach every edge of its tiles:
               ``Sq = Skv`` in ``K6_EDGE_LENGTHS``, causal and not, and
@@ -61,8 +71,18 @@ Phases (any failure exits non-zero before the last line is printed):
               its plain version on layer 0's q, k, v of the main prefill,
               in bf16 and in float32, and of the long prefill in bf16;
               timed at both shapes against PyTorch's
-              ``scaled_dot_product_attention``, with K6's share of each
-              prefill (launches x ms / wall).
+              ``scaled_dot_product_attention`` (CUDA events and device
+              time), with K6's share of each prefill (launches x ms /
+              wall).
+9. k2-edges — K2 bit for bit against its plain version on a grid of shapes
+              that reaches both regimes and every edge: ``D`` in
+              ``K2_EDGE_WIDTHS``, ``P`` in ``K2_EDGE_SEGMENTS`` and the
+              privatisation limit and either side of it, ``E`` in
+              ``K2_EDGE_EDGES``; ids -1 and P mixed in, a non-zero ``out``
+              to add into, fresh inputs and 4-byte-offset views, and the
+              direct regime too where the wrapper chose the privatised one.
+              One line per shape with the regime chosen; the phase's
+              seconds.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -86,6 +106,7 @@ FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor cores
 LGAMMA_OPS = 70                    # float32 operations per lgamma_f32 call
                                    # (count of bdeu.cu's lgamma_f32 + log_f32)
+PROFILE_PAUSE_S = 0.1              # host pause before a kept profiler step
 
 # Database sizes (``paper_benchmark_db`` scale): all full size, none cut.
 IMDB_SCALE = 1.0
@@ -94,6 +115,21 @@ UW_SCALE = 1.0
 
 # The counting path's kernels (phases 3-4); K5 and K6 have paths of their own.
 COUNTING_KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu")
+# K2's CUDA kernels (csrc/segsum.cu), by the names ptxas and the profiler
+# give them.
+K2_KERNEL_NAMES = ("rows_private_kernel", "rows_direct_kernel")
+# K2's edge shapes (phase 9): widths at and either side of its 4-column
+# quads, one past a warp's 128 and a tile's 256 columns, and the IMDb
+# root combine's; segment counts besides the privatisation limit and
+# either side of it (which the phase adds); edge counts either side of a
+# block's 256 staged ids.  A shape whose rows
+# pass K2_EDGE_ROWS_MAX floats or whose table passes K2_EDGE_CELLS_MAX
+# cells is left out (D = 11,664 with E = 100,000 or P = 10^6).
+K2_EDGE_WIDTHS = (1, 3, 4, 5, 64, 257, 11664)
+K2_EDGE_SEGMENTS = (1, 27, 1024, 10 ** 6)
+K2_EDGE_EDGES = (1, 255, 256, 257, 100_000)
+K2_EDGE_ROWS_MAX = 2 ** 25
+K2_EDGE_CELLS_MAX = 2 ** 28
 
 # Qwen2.5-3B serving (phase 7): the main run and the long prefill.
 LM_ARCH = "qwen2.5-3b"
@@ -154,6 +190,77 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(prof) -> list:
+    """A trace's device events by name, without the spans that annotate()
+    draws over them."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3):
+    """Device time of one ``fn()`` in ms: the self device time of every
+    device event of ``reps`` calls under ``torch.profiler``, over
+    ``reps``; host launch gaps do not count.  The profiler drops device
+    events from the start of a trace (on the H100 machines, the first
+    calls' kernels), so ``reps`` calls run in a warm-up step of its
+    schedule, and ``reps`` more, after a pause of ``PROFILE_PAUSE_S``, in
+    the step it keeps.  Every call launches the same device work, so a
+    trace in which some event's count is not a multiple of ``reps`` still
+    lost events: it is taken again, up to ``tries`` times.  ``None`` (not
+    measured) if no trace holds every call's device events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for step in range(2):
+                if step:
+                    time.sleep(PROFILE_PAUSE_S)
+                for _ in range(reps):
+                    fn()
+                sync()
+                prof.step()
+        on_card = device_events(prof)
+        short = {e.key[:60]: e.count for e in on_card if e.count % reps}
+        if on_card and not short:
+            return sum(e.self_device_time_total for e in on_card) / reps / 1e3
+        log(f"device_ms: a trace of {reps} calls held "
+            f"{'no device events' if not on_card else short}")
+    return None
+
+
+def timings(kernel, plain, library, plain_reps: int = 20) -> dict:
+    """A kernels-line row's times: CUDA events around back-to-back calls
+    (``ms``, ``plain_ms``, ``library_ms``) and device time
+    (``device_ms``, ``plain_device_ms``, ``library_device_ms``) of the
+    kernel's call, its plain version's and the library call's (``None``
+    where there is none)."""
+    return dict(
+        ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=plain_reps),
+        library_ms=cuda_ms(library) if library else None,
+        device_ms=device_ms(kernel),
+        plain_device_ms=device_ms(plain, reps=plain_reps),
+        library_device_ms=device_ms(library) if library else None)
+
+
+def check_no_spills(lines, name: str) -> None:
+    """Fail unless ptxas reported every instance of kernel ``name`` with 0
+    bytes spilled; print each one's registers, shared memory and spills."""
+    props = [i for i, line in enumerate(lines)
+             if "Function properties" in line and name in line]
+    if not props or any(" 0 bytes spill stores, 0 bytes spill loads"
+                        not in " " + lines[i + 1] for i in props):
+        fail(f"{name} spills (or ptxas reported no spill line for it)")
+    for i in props:
+        used = next((line for line in lines[i + 2:i + 4] if "Used" in line),
+                    "no register line")
+        log(f"ptxas {name}: {used.split(':', 1)[-1].strip()}; "
+            f"{lines[i + 1].strip()}")
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -164,12 +271,13 @@ def bound_ms(n_bytes: float, n_ops: float,
 
 class Spy:
     """Wraps the ``ops`` wrappers during a run and keeps a copy of the
-    positional inputs of each kernel's largest call (by input elements).
-    An ``out`` that a call adds into is not kept: the comparison sums
-    into a zeroed table."""
+    positional inputs of each kernel's largest call (by input elements),
+    under the kernel's name and under each extra key that ``tags(name,
+    args, kwargs)`` gives the call.  An ``out`` that a call adds into is not
+    kept: the comparison sums into a zeroed table."""
 
-    def __init__(self, ops, names):
-        self.ops, self.orig, self.big = ops, {}, {}
+    def __init__(self, ops, names, tags=lambda name, args, kwargs: ()):
+        self.ops, self.orig, self.big, self.tags = ops, {}, {}, tags
         for name in names:
             self.orig[name] = getattr(ops, name)
             setattr(ops, name, self._wrap(name, self.orig[name]))
@@ -177,9 +285,11 @@ class Spy:
     def _wrap(self, name, fn):
         def spy(*args, **kwargs):
             size = sum(a.numel() for a in args if torch.is_tensor(a))
-            if size > self.big.get(name, (0,))[0]:
-                self.big[name] = (size, tuple(
-                    a.clone() if torch.is_tensor(a) else a for a in args))
+            for key in (name, *self.tags(name, args, kwargs)):
+                if size > self.big.get(key, (0,))[0]:
+                    self.big[key] = (size, tuple(
+                        a.clone() if torch.is_tensor(a) else a
+                        for a in args))
             return fn(*args, **kwargs)
         return spy
 
@@ -210,7 +320,6 @@ def check_positive_invariant(strategy, db, label: str) -> None:
 def profile_main_path(db, discover_model, make_strategy) -> None:
     """The main path once more under ``torch.profiler``: the device's busy
     time against the wall time, and the kernels that took most of it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
     t0 = time.perf_counter()
@@ -220,10 +329,7 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
                        max_chain_length=2, max_parents=3)
         sync()
     wall = time.perf_counter() - t0
-    # device events, without the spans that annotate() draws over them
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    on_card = device_events(prof)
     if not on_card:
         log(f"profile: {wall:.3f} s wall under the profiler; device time "
             f"not measured (the trace holds no device events)")
@@ -235,12 +341,78 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:100]}")
+    k2 = [e for e in on_card if any(k in e.key for k in K2_KERNEL_NAMES)]
+    log(f"profile: K2 (the row scatter) "
+        f"{sum(e.self_device_time_total for e in k2) / 1e3:.3f} ms of device "
+        f"time in {sum(e.count for e in k2)} launches")
+
+
+def k2_reading(ops, seg, r, p) -> dict:
+    """K2 at one call's inputs: bit for bit against its plain version in
+    the regime the wrapper chose and, where that was the privatised one,
+    in the direct regime too; times of the kernel, its plain version and
+    ``index_add_`` (on the ids in range, masked beforehand), the direct
+    regime's device time where it was not chosen, and the bound."""
+    from repro_torch.kernels.segsum import (card_of, direct_plan, rows_plan,
+                                            segsum_rows_cuda,
+                                            segsum_rows_plain)
+    e, d = r.shape
+    card = card_of(r.device)
+    plan = rows_plan(e, d, p, card)
+    want = segsum_rows_plain(seg, r, p)
+    err = float((ops.segsum_rows(seg, r, p) - want).abs().max())
+    if err != 0.0:
+        fail(f"segsum_rows ({plan.regime}) differs from its plain version "
+             f"by {err} at E={e} D={d} P={p}")
+    keep = (seg >= 0) & (seg < p)
+    seg_l, r_kept = seg[keep].long(), r[keep]
+    b_ms, b_by = bound_ms(4.0 * e + 4.0 * e * d + 4.0 * p * d, e * d)
+    reading = dict(
+        shape=f"E={e} D={d} P={p}", regime=plan.regime, plan=list(plan),
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.segsum_rows(seg, r, p),
+                  lambda: segsum_rows_plain(seg, r, p),
+                  lambda: torch.zeros((p, d), device=r.device)
+                  .index_add_(0, seg_l, r_kept)))
+    if plan.regime == "private":
+        direct = direct_plan(e, d, card)
+
+        def run_direct():
+            return segsum_rows_cuda(seg, r, p, torch.zeros(
+                (p, d), device=r.device), direct)
+        err_direct = float((run_direct() - want).abs().max())
+        if err_direct != 0.0:
+            fail(f"segsum_rows (direct) differs from its plain version by "
+                 f"{err_direct} at E={e} D={d} P={p}")
+        reading["direct_device_ms"] = device_ms(run_direct)
+    return reading
+
+
+def log_row(row: dict) -> None:
+    log(f"kernel {row['name']} [{row['shape']}]: {row['ms']:.4f} ms "
+        f"(device {row['device_ms']}), plain {row['plain_ms']:.4f} ms "
+        f"(device {row['plain_device_ms']}), library {row['library_ms']} ms "
+        f"(device {row['library_device_ms']}), bound {row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']}), max_abs_err {row['max_abs_err']}")
+
+
+def log_k2(label: str, k: dict) -> None:
+    log(f"K2 {label} [{k['shape']}]: {k['regime']} {k['plan']}, "
+        f"max_abs_err {k['max_abs_err']}; device {k['device_ms']} ms "
+        f"(events {k['ms']:.4f}), index_add_ device "
+        f"{k['library_device_ms']} ms (events {k['library_ms']:.4f}), plain "
+        f"device {k['plain_device_ms']} ms, direct regime device "
+        f"{k.get('direct_device_ms')} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bound_by']})")
 
 
 def hist_phase(ops) -> dict:
     """K5's path: ``bench_hist``'s three shapes (N, P, D), counted; each
-    checked against its plain version, the largest timed."""
-    from repro_torch.kernels.segsum import segment_hist_plain
+    checked against its plain version, the largest timed (and its direct
+    regime's device time where the wrapper chose the privatised one)."""
+    from repro_torch.kernels.segsum import (card_of, direct_plan, rows_plan,
+                                            segment_hist_plain,
+                                            segsum_rows_cuda)
     gen = torch.Generator(device="cuda").manual_seed(1)
     inputs = [(torch.randint(0, p, (n,), generator=gen, device="cuda",
                              dtype=torch.int32),
@@ -253,8 +425,10 @@ def hist_phase(ops) -> dict:
     outs = [ops.segment_hist(*args) for args in inputs]
     sync()
     launches = ops.LAUNCHES["segment_hist"]
+    regimes = dict(ops.ROW_REGIMES)
     log(f"hist path (bench_hist shapes): {time.perf_counter() - t0:.4f} s "
-        f"wall, {launches} segment_hist launches")
+        f"wall, {launches} segment_hist launches, by regime "
+        f"{json.dumps(regimes)}")
     if launches != len(inputs):
         fail(f"segment_hist launched {launches} times, not {len(inputs)}")
     errs = []
@@ -272,23 +446,28 @@ def hist_phase(ops) -> dict:
     n, d = vals.shape
     codes_l = codes.long()
     b_ms, b_by = bound_ms(4.0 * n + 4.0 * n * d + 4.0 * p * d, n * d)
+    plan = rows_plan(n, d, p, card_of(vals.device))
+    direct = direct_plan(n, d, card_of(vals.device))
     return dict(
         name="segment_hist", route="cuda",
         source="src/repro_torch/kernels/csrc/segsum.cu",
         replaces="src/repro/kernels/hist_kernel.py:37",
-        launches=launches, max_abs_err=err,
-        ms=cuda_ms(lambda: ops.segment_hist(codes, vals, p)),
-        plain_ms=cuda_ms(lambda: segment_hist_plain(codes, vals, p)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.zeros((p, d), device=vals.device)
-                           .index_add_(0, codes_l, vals)),
+        launches=launches, launches_by_regime=regimes, max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by, regime=plan.regime, plan=list(plan),
+        **timings(lambda: ops.segment_hist(codes, vals, p),
+                  lambda: segment_hist_plain(codes, vals, p),
+                  lambda: torch.zeros((p, d), device=vals.device)
+                  .index_add_(0, codes_l, vals)),
+        direct_device_ms=None if plan == direct else device_ms(
+            lambda: segsum_rows_cuda(codes, vals, p, torch.zeros(
+                (p, d), device=vals.device), direct)),
         shape=f"N={n} P={p} D={d}; max_abs_err over the three shapes")
 
 
-def sdpa_ms(q, k, v) -> float:
+def sdpa_call(q, k, v):
     """One PyTorch library call of the same attention (the yardstick; the
-    port never calls it).  KV heads are repeated beforehand where this
-    PyTorch has no ``enable_gqa``."""
+    port never calls it), as a function of no arguments.  KV heads are
+    repeated beforehand where this PyTorch has no ``enable_gqa``."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     try:
@@ -299,7 +478,7 @@ def sdpa_ms(q, k, v) -> float:
         rep = q.shape[2] // k.shape[2]
         kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
         kw = dict(is_causal=True)
-    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
 def lm_consistency(model, ops) -> None:
@@ -393,12 +572,77 @@ def k6_edge_phase(ops) -> dict:
     return by_route
 
 
+def k2_edge_phase(ops) -> dict:
+    """9. K2 bit for bit against its plain version on the edge shapes, each
+    with ids -1 and P mixed in and a non-zero ``out`` to add into: fresh
+    (16-byte aligned) inputs in the regime the wrapper chooses, the same
+    values as 4-byte-offset views of ``seg`` and ``rows`` (the scalar
+    path), and, where the wrapper chose the privatised regime, both again
+    in the direct one.  One line per shape; returns the launches by
+    regime of the wrapper's calls."""
+    from repro_torch.kernels.segsum import (card_of, direct_plan,
+                                            privatisation_limit, rows_plan,
+                                            segsum_rows_cuda,
+                                            segsum_rows_plain)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    card = card_of(torch.device("cuda"))
+    limit = privatisation_limit(card)
+    segments = sorted({*K2_EDGE_SEGMENTS, limit - 1, limit, limit + 1})
+    ops.reset_counts()
+    n_shapes = n_checks = 0
+    for d in K2_EDGE_WIDTHS:
+        for p in segments:
+            for e in K2_EDGE_EDGES:
+                if e * d > K2_EDGE_ROWS_MAX or p * d > K2_EDGE_CELLS_MAX:
+                    continue
+                seg_buf = torch.randint(0, p, (e + 1,), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+                seg_buf[::7] = -1
+                seg_buf[3::11] = p
+                row_buf = torch.randint(0, 9, (e * d + 1,), generator=gen,
+                                        device="cuda").float()
+                out0 = torch.randint(0, 5, (p, d), generator=gen,
+                                     device="cuda").float()
+                views = {"aligned": (seg_buf[:e].clone(),
+                                     row_buf[:e * d].clone().view(e, d)),
+                         "offset": (seg_buf[1:], row_buf[1:].view(e, d))}
+                plan = rows_plan(e, d, p, card)
+                errs = {}
+                for name, (seg, rows) in views.items():
+                    want = segsum_rows_plain(seg, rows, p, out0.clone())
+                    got = ops.segsum_rows(seg, rows, p, out=out0.clone())
+                    errs[name] = float((got - want).abs().max())
+                    if plan.regime == "private":
+                        got = segsum_rows_cuda(seg, rows, p, out0.clone(),
+                                               direct_plan(e, d, card))
+                        errs[f"{name}, direct"] = float(
+                            (got - want).abs().max())
+                    del want, got
+                n_shapes += 1
+                n_checks += len(errs)
+                log(f"k2 edge E={e} D={d} P={p}: {plan.regime} "
+                    f"{list(plan)}; max_abs_err {errs}")
+                if any(errs.values()):
+                    fail(f"K2 differs from its plain version at E={e} D={d} "
+                         f"P={p}: {errs}")
+                del seg_buf, row_buf, out0, views
+    sync()
+    regimes = dict(ops.ROW_REGIMES)
+    log(f"k2 edges: {n_shapes} shapes, {n_checks} checks, all bit for bit "
+        f"(privatisation limit {limit} segments on this card); wrapper "
+        f"launches by regime {json.dumps(regimes)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if ops.LAUNCHES["segsum_rows"] != 2 * n_shapes or min(regimes.values()) \
+            <= 0:
+        fail(f"k2 edges: {ops.LAUNCHES['segsum_rows']} launches for "
+             f"{n_shapes} shapes, by regime {regimes}")
+    return regimes
+
+
 def log_profile(label: str, prof, wall: float) -> None:
     """Device busy time against wall time, K6's share, the top kernels."""
-    from torch.autograd import DeviceType
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    on_card = device_events(prof)
     if not on_card:
         log(f"{label}: device time not measured (the trace holds no device "
             f"events)")
@@ -528,7 +772,10 @@ def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
         f"(B=1 S={LM_LONG}): bf16 max_abs_err {err_long} (tolerance "
         f"{K6_BF16_TOL})")
     long_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    long_sdpa = sdpa_ms(q, k, v)
+    long_sdpa = cuda_ms(sdpa_call(q, k, v))
+    long_dev = device_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                         reps=5)
+    long_sdpa_dev = device_ms(sdpa_call(q, k, v), reps=5)
     long_bound, _ = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
                              4.0 * q.shape[2] * q.shape[3] * LM_LONG
                              * (LM_LONG + 1) / 2, BF16_OPS_PER_S)
@@ -536,7 +783,8 @@ def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
         f"= {long_launches * long_ms / 1e3:.4f} s of {t_long:.4f} s "
         f"({100 * long_launches * long_ms / 1e3 / t_long:.2f} %); K6 "
         f"{long_ms:.4f} ms, SDPA {long_sdpa:.4f} ms, bound {long_bound:.4f} "
-        f"ms at B=1 S={LM_LONG} on {kind}")
+        f"ms at B=1 S={LM_LONG} on {kind}; device time K6 {long_dev} ms, "
+        f"SDPA {long_sdpa_dev} ms")
     del q, k, v, long_tokens
 
     # the main prefill once more under the profiler: where its time goes
@@ -580,10 +828,10 @@ def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
         replaces="src/repro/kernels/attention_kernel.py:66",
         launches=k6_launches, max_abs_err=max(by_route.values()),
         max_abs_err_by_route=by_route,
-        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, True),
-                         reps=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms(q, k, v),
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.flash_attention(q, k, v, causal=True),
+                  lambda: flash_attention_plain(q, k, v, True),
+                  sdpa_call(q, k, v), plain_reps=3),
         shape=f"B={b} S={s} H={h} Hkv={hk} hd={hd} causal bf16; "
               f"max_abs_err over this shape, 1 x {LM_LONG} and the edge "
               f"shapes (bf16), by route {by_route}")
@@ -608,8 +856,8 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.bdeu import bdeu_plain
     from repro_torch.kernels.mobius import mobius_matrix, mobius_plain
-    from repro_torch.kernels.segsum import (segsum_ones_plain,
-                                            segsum_rows_plain)
+    from repro_torch.kernels.segsum import (card_of, rows_plan,
+                                            segsum_ones_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -627,14 +875,10 @@ def main() -> None:
         f"{info['seconds']:.2f} s -> {info['path']}")
     for line in info["ptxas"]:
         log(f"  {line}")
-    # the Hopper attention kernel keeps its accumulators in registers
-    lines = info["ptxas"]
-    props = [i for i, line in enumerate(lines)
-             if "Function properties" in line and "flash_wgmma" in line]
-    if not props or any(" 0 bytes spill stores, 0 bytes spill loads"
-                        not in " " + lines[i + 1] for i in props):
-        fail("the Hopper attention kernel spills (or ptxas reported no "
-             "spill line for it)")
+    # the Hopper attention kernel keeps its accumulators in registers, and
+    # K2's kernels stream rows through registers into shared memory
+    for name in ("flash_wgmma",) + K2_KERNEL_NAMES:
+        check_no_spills(info["ptxas"], name)
 
     # -- 3. main path ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -651,6 +895,7 @@ def main() -> None:
     sync()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    imdb_regimes = dict(ops.ROW_REGIMES)
     peak = torch.cuda.max_memory_allocated()
     st = strategy.stats.as_dict()
     log(f"main path (IMDb, HYBRID/sparse, chains <= 2, parents <= 3): "
@@ -660,7 +905,8 @@ def main() -> None:
         "time_positive", "time_negative", "peak_bytes")}))
     log(f"  max_memory_allocated: {peak} B; "
         f"learned edges: {sum(len(m.edges()) for m in models.values())}; "
-        f"launches: {json.dumps(launches)}")
+        f"launches: {json.dumps(launches)}; K2 launches by regime: "
+        f"{json.dumps(imdb_regimes)}")
     if any(launches[k] <= 0 for k in COUNTING_KERNELS):
         fail(f"a kernel of the main path was not launched: {launches}")
     if any(ops.PLAIN_CALLS[k] for k in ops.KERNELS):
@@ -690,8 +936,26 @@ def main() -> None:
         f"{json.dumps(ops.LAUNCHES)}")
     if ops.LAUNCHES["segsum_rows"] <= 0:
         fail("the dense-message hop did not launch segsum_rows")
+    if ops.ROW_REGIMES["direct"] <= 0:
+        fail("the dense-message hop did not take K2's direct regime")
+    log(f"  K2 launches by regime: {json.dumps(ops.ROW_REGIMES)}")
     check_positive_invariant(vg_strategy, vg, "VisualGenome")
-    del vg_strategy, vg
+    del vg_strategy
+    # once more, keeping K2's largest call and its largest in the direct
+    # regime (the dense-message hop)
+    vg_spy = Spy(ops, ("segsum_rows",), tags=lambda name, args, kwargs: (
+        ("direct",) if rows_plan(args[1].shape[0], args[1].shape[1], args[2],
+                                 card_of(args[1].device)).regime == "direct"
+        else ()))
+    make_strategy("HYBRID", executor="sparse").prepare(
+        vg, build_lattice(vg.schema, 3))
+    vg_spy.remove()
+    del vg
+    vg_k2 = {key: k2_reading(ops, *vg_spy.big[big][1])
+             for key, big in (("largest", "segsum_rows"), ("hop", "direct"))}
+    for key, reading in vg_k2.items():
+        log_k2(f"VisualGenome {key}", reading)
+    del vg_spy
 
     # -- 4. kernels against their plain versions ------------------------------
     spy = Spy(ops, COUNTING_KERNELS)
@@ -711,34 +975,24 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/segsum.cu",
         replaces="src/repro/kernels/segsum_kernel.py:103",
         launches=launches["segsum_ones"], max_abs_err=err,
-        ms=cuda_ms(lambda: ops.segsum_ones(seg, w, p)),
-        plain_ms=cuda_ms(lambda: segsum_ones_plain(seg, w, p)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.zeros(p, device=seg.device)
-                           .index_add_(0, seg_l, w)),
+        **timings(lambda: ops.segsum_ones(seg, w, p),
+                  lambda: segsum_ones_plain(seg, w, p),
+                  lambda: torch.zeros(p, device=seg.device)
+                  .index_add_(0, seg_l, w)),
         shape=f"E={e} P={p}"))
     if err != 0.0:
         fail(f"segsum_ones differs from its plain version by {err}")
 
-    seg, r, p = spy.big["segsum_rows"][1]
-    e, d = r.shape
-    got, want = ops.segsum_rows(seg, r, p), segsum_rows_plain(seg, r, p)
-    err = float((got - want).abs().max())
-    seg_l = seg.long()
-    b_ms, b_by = bound_ms(4.0 * e + 4.0 * e * d + 4.0 * p * d, e * d)
+    reading = k2_reading(ops, *spy.big["segsum_rows"][1])
+    log_k2("IMDb", reading)
     rows.append(dict(
         name="segsum_rows", route="cuda",
         source="src/repro_torch/kernels/csrc/segsum.cu",
         replaces="src/repro/kernels/segsum_kernel.py:71",
-        launches=launches["segsum_rows"], max_abs_err=err,
-        ms=cuda_ms(lambda: ops.segsum_rows(seg, r, p)),
-        plain_ms=cuda_ms(lambda: segsum_rows_plain(seg, r, p)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.zeros((p, d), device=r.device)
-                           .index_add_(0, seg_l, r)),
-        shape=f"E={e} D={d} P={p}"))
-    if err != 0.0:
-        fail(f"segsum_rows differs from its plain version by {err}")
+        launches=launches["segsum_rows"],
+        launches_by_regime=imdb_regimes, **reading,
+        visualgenome=vg_k2))
 
     (x,) = spy.big["mobius"][1]
     bsz, height, d = x.shape
@@ -752,10 +1006,9 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/mobius.cu",
         replaces="src/repro/kernels/mobius_kernel.py:41",
         launches=launches["mobius"], max_abs_err=err,
-        ms=cuda_ms(lambda: ops.mobius(x)),
-        plain_ms=cuda_ms(lambda: mobius_plain(x)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.matmul(tmat, x)),
+        **timings(lambda: ops.mobius(x), lambda: mobius_plain(x),
+                  lambda: torch.matmul(tmat, x)),
         shape=f"B={bsz} 2^k={height} D={d}"))
     if err != 0.0:
         fail(f"mobius differs from its plain version by {err}")
@@ -773,19 +1026,16 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/bdeu.cu",
         replaces="src/repro/kernels/bdeu_kernel.py:40",
         launches=launches["bdeu"], max_abs_err=err,
-        ms=cuda_ms(lambda: ops.bdeu(nijk, ess)),
-        plain_ms=cuda_ms(lambda: bdeu_plain(nijk, ess)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.bdeu(nijk, ess),
+                  lambda: bdeu_plain(nijk, ess), None),
         shape=f"B={bsz} q={q} r={rr}"))
     if err != 0.0:
         fail(f"bdeu is not bit-identical to its plain version ({err})")
     for row in rows:
-        log(f"kernel {row['name']} [{row['shape']}]: {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"max_abs_err {row['max_abs_err']}")
+        log_row(row)
     # the LM phase reads its memory with no earlier tensors held
-    del spy, seg, seg_l, w, r, x, tmat, nijk, got, want
+    del spy, seg, seg_l, w, x, tmat, nijk, got, want
 
     # -- 5. card against CPU -------------------------------------------------
     uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
@@ -812,10 +1062,10 @@ def main() -> None:
     # -- 8. Qwen2.5-3B serving ------------------------------------------------
     rows.append(lm_phase(ops, kind, edge_errs))
     for row in rows[-2:]:
-        log(f"kernel {row['name']} [{row['shape']}]: {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"max_abs_err {row['max_abs_err']}")
+        log_row(row)
+
+    # -- 9. K2's edge shapes --------------------------------------------------
+    k2_edge_phase(ops)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

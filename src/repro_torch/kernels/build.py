@@ -32,7 +32,9 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "segsum_ones": [_P, _P, _P, _I64, _I64, _P],
-    "segsum_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "segsum_rows": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _I64,
+                    _I64, _P],
+    "segsum_card": [ctypes.c_int],
     "mobius_batch": [_P, _P, _I64, ctypes.c_int, _I64, _P],
     "mobius_max_bits": [],
     "bdeu_batch": [_P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float,

@@ -1,8 +1,8 @@
-// Segment sums by atomic scatter-add: the sparse executor's hop primitive.
+// Segment sums by scatter-add: the sparse executor's hop primitive.
 //
 // Replaces the TPU kernels
 //   segsum_ones  <- segment_sum_ones_pallas   out[p]    = sum_{e: seg[e]=p} w[e]
-//   segsum_rows  <- segment_sum_rows_pallas   out[p, d] = sum_{e: seg[e]=p} rows[e, d]
+//   segsum_rows  <- segment_sum_rows_pallas   out[p, d] += sum_{e: seg[e]=p} rows[e, d]
 // in src/repro/kernels/segsum_kernel.py, and
 //   segment_hist <- segment_hist_pallas       out[p, d] = sum_{n: codes[n]=p} values[n, d]
 // in src/repro/kernels/hist_kernel.py, which has segsum_rows' contract and
@@ -14,20 +14,51 @@
 // segsum_rows (and segment_hist) 4E + 4ED + 4PD; each edge does one add.
 // The TPU kernels recast the scatter as a one-hot contraction on the
 // matrix unit, which costs O(E x P) and is why the JAX package caps the
-// segment sums at 32k segments.  Here
-// every element is one atomicAdd into device memory (resolved in L2), so
-// the cost is O(E) or O(E x D) whatever P is, and there is no cap.
+// segment sums at 32k segments.  Here the cost is O(E) or O(E x D)
+// whatever P is, and there is no cap.
 //
-// Design: a grid-stride loop over edges (segsum_ones) or over (edge,
-// column) pairs with the column fastest, so a warp reads contiguous row
-// bytes (segsum_rows).  Offsets are 64-bit: dense-message hops of long
-// chains reach hundreds of millions of cells.  Counts are integers in
-// float32 below 2^24 per cell on the counting path, so the atomics give
-// the exact sum in any order.  The histogram's values are any float32, so
-// its sums round in the order the atomics land and are not bit-exact.
+// segsum_ones: a grid-stride loop over edges, one atomicAdd into device
+// memory (resolved in L2) per edge.
+//
+// segsum_rows runs in one of two regimes, which the caller chooses
+// (repro_torch.kernels.segsum.rows_plan, from E, D, P and the card's
+// shared memory) and passes in:
+//  * privatised, when every segment's partial sums fit in shared memory
+//    (few segments, many edges each: the root combine, P = 27 at IMDb, 3
+//    at VisualGenome).  A block owns a column tile of T = 4 x 2^k <= 1024
+//    columns and a range of edges, stages the range's ids in shared memory
+//    256 at a time, and streams the rows in with 16-byte loads, eight rows
+//    in flight per thread.  Each thread owns four columns of the tile (a
+//    slot) in one lane: with T = 1024 there is one lane and each thread is
+//    the only writer of its columns; a narrower tile leaves 1024 / T lanes
+//    that take turns over the edges, each with a [P, T] table of its own.
+//    So no two threads ever add into one shared address and no atomics
+//    are needed (one table shared by the lanes through shared-memory
+//    float atomics, the first design, ran slower on an H100 than the
+//    direct regime at bench_hist's shape).  The tables take 4 KB per
+//    segment whatever T is.  At the end the block sums its lanes' tables
+//    and adds each non-zero sum into out with one 16-byte vector
+//    reduction (red.global.add.v4.f32).  Device-memory reductions fall
+//    from E x D to about splits x P x D.
+//  * direct, otherwise (many segments: the dense-message hops, and
+//    bench_hist's 1,024 segments).  A group of 2^k <= 32 threads takes an
+//    edge row, reads its id once, and walks the row's columns in steps of
+//    four with int32 offsets, adding each non-zero quad into out with one
+//    vector reduction; each thread keeps four rows' ids and then their
+//    values in flight.  A row with an out-of-range id skips its loads.
+// Both regimes take 16-byte loads and reductions when D % 4 == 0 and rows
+// and out are 16-byte aligned, and otherwise the scalar path of the same
+// kernel (4-byte loads and atomicAdd; the executors pass views at any
+// offset).  No per-element division: offsets come from shifts and one
+// 64-bit multiply per row.  Counts are integers in float32 below 2^24 per
+// cell on the counting path, so any order of addition gives the exact sum;
+// adding a partial sum of zero is skipped, which changes nothing but the
+// sign of a zero.  The histogram's values are any float32, so its sums
+// round in the order the additions land and are not bit-exact.
 //
 // The kernels allocate nothing and launch on the caller's stream; each
-// entry point returns cudaGetLastError() after its launch.
+// entry point returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for a plan it cannot run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +67,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 32;
+constexpr int kUnroll = 8;          // rows in flight per thread (privatised)
+constexpr int kRows = 4;            // rows in flight per thread (direct)
+constexpr int kMaxSlotsLog2 = 8;    // kThreads slots of 4 columns
+constexpr int kMaxGroupLog2 = 5;    // a warp per row (direct)
 
 __global__ void segsum_ones_kernel(const int32_t* __restrict__ seg,
                                    const float* __restrict__ w,
@@ -49,20 +84,143 @@ __global__ void segsum_ones_kernel(const int32_t* __restrict__ seg,
   }
 }
 
-__global__ void segsum_rows_kernel(const int32_t* __restrict__ seg,
-                                   const float* __restrict__ rows,
-                                   float* __restrict__ out,
-                                   int64_t n_edges, int64_t width,
-                                   int64_t n_segments) {
-  const int64_t total = n_edges * width;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const int64_t e = i / width;
-    const int64_t d = i - e * width;
-    const int32_t s = seg[e];
-    if (s >= 0 && (int64_t)s < n_segments)
-      atomicAdd(out + (int64_t)s * width + d, rows[i]);
+// Four columns [p, p + 4) of a row, streamed (read once); on the scalar
+// path only the first `left` of them exist.
+__device__ __forceinline__ float4 load4(const float* p, bool vec, int left) {
+  if (vec) return __ldcs(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (left > 0) v.x = __ldcs(p);
+  if (left > 1) v.y = __ldcs(p + 1);
+  if (left > 2) v.z = __ldcs(p + 2);
+  if (left > 3) v.w = __ldcs(p + 3);
+  return v;
+}
+
+// out[p, p + 4) += v in device memory, skipping zeros; one 16-byte
+// reduction on the vector path.
+__device__ __forceinline__ void red4(float* p, float4 v, bool vec, int left) {
+  if (vec) {
+    if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+      atomicAdd(reinterpret_cast<float4*>(p), v);
+    return;
+  }
+  if (left > 0 && v.x != 0.f) atomicAdd(p, v.x);
+  if (left > 1 && v.y != 0.f) atomicAdd(p + 1, v.y);
+  if (left > 2 && v.z != 0.f) atomicAdd(p + 2, v.z);
+  if (left > 3 && v.w != 0.f) atomicAdd(p + 3, v.w);
+}
+
+// Privatised regime.  Grid (column tiles, edge splits); dynamic shared
+// memory: one [n_segments, 1 << slots_log2] table of float4 partial sums
+// per lane, kThreads x n_segments float4 in all.
+__global__ void __launch_bounds__(kThreads)
+rows_private_kernel(const int32_t* __restrict__ seg,
+                    const float* __restrict__ rows, float* __restrict__ out,
+                    int64_t n_edges, int32_t width, int32_t n_segments,
+                    int32_t slots_log2, int64_t edges_per_block, bool vec) {
+  extern __shared__ float4 acc[];
+  __shared__ int32_t ids[kThreads];
+  const int slots = 1 << slots_log2;
+  const int slot = threadIdx.x & (slots - 1);
+  const int lane = threadIdx.x >> slots_log2;
+  const int lanes = kThreads >> slots_log2;
+  const int table = n_segments << slots_log2;   // float4s in a lane's table
+  const int col0 = (int)(blockIdx.x << (slots_log2 + 2));
+  const int left = width - col0 - (slot << 2);
+  const int64_t e_begin = (int64_t)blockIdx.y * edges_per_block;
+  const int64_t e_end = min(n_edges, e_begin + edges_per_block);
+  float4* mine = acc + lane * table + slot;
+
+  for (int i = threadIdx.x; i < lanes * table; i += kThreads)
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int64_t base = e_begin; base < e_end; base += kThreads) {
+    const int n = (int)min((int64_t)kThreads, e_end - base);
+    if ((int)threadIdx.x < n) {
+      const int32_t s = seg[base + threadIdx.x];
+      ids[threadIdx.x] = (s >= 0 && s < n_segments) ? s : -1;
+    }
+    __syncthreads();   // ids staged (and, the first time, the tables zeroed)
+    if (left > 0) {
+      const float* src = rows + base * width + col0 + (slot << 2);
+      for (int i0 = lane; i0 < n; i0 += kUnroll * lanes) {
+        float4 v[kUnroll];
+        int s[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * lanes;
+          s[u] = i < n ? ids[i] : -1;
+          v[u] = s[u] >= 0 ? load4(src + (int64_t)i * width, vec, left)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (s[u] < 0) continue;
+          float4* a = mine + (s[u] << slots_log2);   // this thread's alone
+          float4 t = *a;
+          t.x += v[u].x;
+          t.y += v[u].y;
+          t.z += v[u].z;
+          t.w += v[u].w;
+          *a = t;
+        }
+      }
+    }
+    __syncthreads();   // ids read (and, the last time, the tables complete)
+  }
+  // sum the lanes' tables, in lane order, and add the sums into out
+  for (int c = threadIdx.x; c < table; c += kThreads) {
+    const int col = col0 + ((c & (slots - 1)) << 2);
+    if (col >= width) continue;
+    float4 sum = acc[c];
+    for (int l = 1; l < lanes; ++l) {
+      const float4 x = acc[l * table + c];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    red4(out + (int64_t)(c >> slots_log2) * width + col, sum, vec,
+         width - col);
+  }
+}
+
+// Direct regime.  A group of 1 << group_log2 threads per edge row, a
+// grid-stride loop over rows, kRows rows at a time so that their ids and
+// then their values are in flight together.
+__global__ void __launch_bounds__(kThreads)
+rows_direct_kernel(const int32_t* __restrict__ seg,
+                   const float* __restrict__ rows, float* __restrict__ out,
+                   int64_t n_edges, int32_t width, int32_t n_segments,
+                   int32_t group_log2, bool vec) {
+  const int g = threadIdx.x & ((1 << group_log2) - 1);
+  const int step = 4 << group_log2;
+  const int64_t per_block = kThreads >> group_log2;
+  const int64_t stride = (int64_t)gridDim.x * per_block;
+  for (int64_t e0 = (int64_t)blockIdx.x * per_block
+                    + (threadIdx.x >> group_log2);
+       e0 < n_edges; e0 += kRows * stride) {
+    int32_t s[kRows];
+    const float* src[kRows];
+    float* dst[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int64_t e = e0 + u * stride;
+      s[u] = e < n_edges ? __ldg(seg + e) : -1;
+      if (s[u] >= n_segments) s[u] = -1;
+      src[u] = rows + e * width;
+      dst[u] = out + (int64_t)max(s[u], 0) * width;
+    }
+    for (int c = g << 2; c < width; c += step) {
+      float4 v[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u)
+        v[u] = s[u] >= 0 ? load4(src[u] + c, vec, width - c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kRows; ++u)
+        if (s[u] >= 0) red4(dst[u] + c, v[u], vec, width - c);
+    }
   }
 }
 
@@ -70,6 +228,13 @@ int64_t grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return blocks < 1 ? 1 : blocks;
+}
+
+int log2_of(int64_t x) {   // log2 of a power of two, else -1
+  if (x < 1 || (x & (x - 1))) return -1;
+  int k = 0;
+  while ((int64_t)1 << k < x) ++k;
+  return k;
 }
 
 }  // namespace
@@ -84,12 +249,61 @@ extern "C" int segsum_ones(const void* seg, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
+// out[P, D] += segment sums of rows[E, D] by seg[E], in the regime the
+// caller chose: regime 1 (privatised) with `tile` columns per block
+// (4 x 2^k <= 1024) over `blocks` edge splits, or regime 0 (direct) with
+// `tile` threads per row (2^k <= 32) on `blocks` blocks.
 extern "C" int segsum_rows(const void* seg, const void* rows, void* out,
                            int64_t n_edges, int64_t width,
-                           int64_t n_segments, void* stream) {
-  segsum_rows_kernel<<<(unsigned)grid_for(n_edges * width), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const int32_t*)seg, (const float*)rows, (float*)out, n_edges, width,
-      n_segments);
+                           int64_t n_segments, int regime, int64_t tile,
+                           int64_t blocks, void* stream) {
+  if (n_edges < 0 || width < 1 || width > (1 << 30) || n_segments < 1
+      || n_segments > INT32_MAX || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n_edges == 0) return (int)cudaSuccess;
+  const bool vec = width % 4 == 0 && (uintptr_t)rows % 16 == 0
+                   && (uintptr_t)out % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (regime == 1) {
+    const int slots_log2 = log2_of(tile / 4);
+    const int64_t smem = n_segments * kThreads * (int64_t)sizeof(float4);
+    if (tile % 4 || slots_log2 < 0 || slots_log2 > kMaxSlotsLog2
+        || blocks > 65535 || smem > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          rows_private_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int64_t per_block = (n_edges + blocks - 1) / blocks;
+    const dim3 grid((unsigned)((width + tile - 1) / tile),
+                    (unsigned)((n_edges + per_block - 1) / per_block));
+    rows_private_kernel<<<grid, kThreads, (size_t)smem, st>>>(
+        (const int32_t*)seg, (const float*)rows, (float*)out, n_edges,
+        (int32_t)width, (int32_t)n_segments, slots_log2, per_block, vec);
+  } else if (regime == 0) {
+    const int group_log2 = log2_of(tile);
+    if (group_log2 < 0 || group_log2 > kMaxGroupLog2 || blocks > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    rows_direct_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const int32_t*)seg, (const float*)rows, (float*)out, n_edges,
+        (int32_t)width, (int32_t)n_segments, group_log2, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+// The card's limits that the regime choice reads: 0 the number of SMs,
+// 1 the shared memory a block can opt into, 2 the shared memory of an SM.
+extern "C" int segsum_card(int what) {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  const cudaDeviceAttr attr =
+      what == 0 ? cudaDevAttrMultiProcessorCount
+      : what == 1 ? cudaDevAttrMaxSharedMemoryPerBlockOptin
+                  : cudaDevAttrMaxSharedMemoryPerMultiprocessor;
+  if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) return -1;
+  return v;
 }

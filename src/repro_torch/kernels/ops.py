@@ -25,16 +25,20 @@ import torch
 from .attention import flash_attention_cuda, flash_attention_plain
 from .bdeu import bdeu_cuda, bdeu_plain
 from .mobius import mobius_cuda, mobius_plain
-from .segsum import (segment_hist_plain, segsum_ones_cuda, segsum_ones_plain,
-                     segsum_rows_cuda, segsum_rows_plain)
+from .segsum import (REGIMES, card_of, rows_plan, segment_hist_plain,
+                     segsum_ones_cuda, segsum_ones_plain, segsum_rows_cuda,
+                     segsum_rows_plain)
 
 KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu", "segment_hist",
            "flash_attention")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
+#: Launches of the row scatter (K2 and K5 together) by regime.
+ROW_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
 
 _INT32_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535                  # CUDA's limit on gridDim.y and .z
+_ROW_WIDTH_MAX = 2 ** 30           # the row scatter's int32 column offsets
 
 
 def reset_counts() -> None:
@@ -42,6 +46,8 @@ def reset_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
         PLAIN_CALLS[name] = 0
+    for regime in REGIMES:
+        ROW_REGIMES[regime] = 0
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -77,6 +83,8 @@ def _check_rows(name: str, seg: torch.Tensor, rows: torch.Tensor,
     _check(name, rows, torch.float32, 2)
     if rows.shape[0] != seg.shape[0]:
         raise ValueError(f"{name}: ids and rows differ in length")
+    if rows.shape[1] > _ROW_WIDTH_MAX:
+        raise ValueError(f"{name}: rows wider than {_ROW_WIDTH_MAX}")
     if not 0 <= num_segments <= _INT32_MAX:
         raise ValueError(f"{name}: segment space exceeds int32")
 
@@ -121,9 +129,18 @@ def segsum_rows(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
         out = torch.zeros(shape, dtype=torch.float32, device=rows.device)
     if rows.numel() == 0 or num_segments == 0:
         return out
-    segsum_rows_cuda(seg, rows, num_segments, out)
+    _row_scatter(seg, rows, num_segments, out)
     LAUNCHES["segsum_rows"] += 1
     return out
+
+
+def _row_scatter(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
+                 out: torch.Tensor) -> None:
+    """K2's kernel in the regime :func:`.segsum.rows_plan` picks."""
+    plan = rows_plan(rows.shape[0], rows.shape[1], num_segments,
+                     card_of(rows.device))
+    segsum_rows_cuda(seg, rows, num_segments, out, plan)
+    ROW_REGIMES[plan.regime] += 1
 
 
 def mobius(x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +180,7 @@ def segment_hist(codes: torch.Tensor, values: torch.Tensor,
                       device=values.device)
     if values.numel() == 0 or num_segments == 0:
         return out
-    segsum_rows_cuda(codes, values, num_segments, out)
+    _row_scatter(codes, values, num_segments, out)
     LAUNCHES["segment_hist"] += 1
     return out
 

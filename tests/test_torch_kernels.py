@@ -47,12 +47,23 @@ def test_segsum_ones_matches_jax(n, p):
                                  p).numpy(), got.numpy())
 
 
+# The card's regime edges at small size: one segment, widths not a multiple
+# of 4, 49/50/51 segments either side of the privatisation limit (50 on an
+# H100), and 4-byte-offset views of the ids and rows (``offset``), which
+# take the kernel's scalar path on the card.
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("n,d,p", [(1, 1, 1), (40, 3, 7), (600, 17, 129),
-                                   (1500, 40, 33)])
-def test_segsum_rows_matches_jax(n, d, p):
-    rng, seg = _seg_inputs(n * d + p, n, p)
-    rows = rng.integers(0, 9, size=(n, d)).astype(np.float32)
-    got = ops.segsum_rows(torch.from_numpy(seg), torch.from_numpy(rows), p)
+                                   (1500, 40, 33), (300, 5, 1),
+                                   (257, 6, 49), (256, 4, 50),
+                                   (255, 257, 51)])
+def test_segsum_rows_matches_jax(n, d, p, offset):
+    rng, seg = _seg_inputs(n * d + p, n + offset, p)
+    rows = rng.integers(0, 9, size=(n + offset, d)).astype(np.float32)
+    seg_t, rows_t = torch.from_numpy(seg)[offset:], \
+        torch.from_numpy(rows)[offset:]
+    seg, rows = seg[offset:], rows[offset:]
+    assert rows_t.is_contiguous() and seg_t.shape == (n,)
+    got = ops.segsum_rows(seg_t, rows_t, p)
     want_ref = jref.edge_segment_sum_ref(jnp.asarray(seg),
                                          jnp.asarray(rows), p)
     want_pl = jops.edge_segment_sum(jnp.asarray(seg), jnp.asarray(rows), p,
@@ -66,13 +77,16 @@ def test_segsum_rows_matches_jax(n, d, p):
         got.numpy())
 
 
-def test_segsum_rows_accumulates_into_out():
+@pytest.mark.parametrize("start", ["zeros", "counts"])
+def test_segsum_rows_accumulates_into_out(start):
     """The root combine's chunks all add into one table: equal to the sum
-    of the JAX package's per-chunk segment sums."""
+    of the JAX package's per-chunk segment sums, on top of what the table
+    held (zeros, or counts already there)."""
     rng, seg = _seg_inputs(5, 900, 27)
     rows = rng.integers(0, 9, size=(900, 12)).astype(np.float32)
-    out = torch.zeros((27, 12))
-    want = np.zeros((27, 12), np.float32)
+    want = (np.zeros((27, 12), np.float32) if start == "zeros" else
+            rng.integers(0, 5, size=(27, 12)).astype(np.float32))
+    out = torch.from_numpy(want.copy())
     for s in range(0, 900, 256):
         got = ops.segsum_rows(torch.from_numpy(seg[s:s + 256]),
                               torch.from_numpy(rows[s:s + 256]), 27, out=out)
@@ -83,6 +97,44 @@ def test_segsum_rows_accumulates_into_out():
     with pytest.raises(ValueError):
         ops.segsum_rows(torch.from_numpy(seg), torch.from_numpy(rows), 27,
                         out=torch.zeros((27, 11)))
+
+
+def test_rows_plan_regimes():
+    """K2's regime chooser: the IMDb root combine privatises in one-lane
+    1,024-column tiles, many segments go direct, and the privatisation
+    limit falls where the card's shared memory puts it."""
+    from repro_torch.kernels.segsum import (H100, REGIMES, Card, RowsPlan,
+                                            direct_plan,
+                                            privatisation_limit, rows_plan)
+    assert REGIMES == ("direct", "private")     # the C entry's codes
+    assert rows_plan(2743, 11664, 27) == RowsPlan("private", 1024, 22)
+    assert rows_plan(18518, 1728, 3).regime == "private"
+    assert rows_plan(100_000, 108, 27) == RowsPlan("private", 128, 264)
+    assert rows_plan(10 ** 7, 12, 10 ** 6).regime == "direct"
+    assert rows_plan(262144, 64, 1024) == RowsPlan("direct", 16, 1056)
+    # 200 KB of tables at 4 KB a segment (256 threads x one float4)
+    limit = privatisation_limit(H100)
+    assert limit == 200 * 1024 // 4096 == 50
+    assert rows_plan(10 ** 6, 64, limit).regime == "private"
+    assert rows_plan(10 ** 6, 64, limit + 1).regime == "direct"
+    # fewer than 4 edges a segment do not pay for the tables' flush
+    assert rows_plan(4 * 27, 64, 27).regime == "private"
+    assert rows_plan(4 * 27 - 1, 64, 27).regime == "direct"
+    # a card with 48 KB per block has room for 11 segments
+    small = Card(sms=132, smem_block=48 * 1024, smem_sm=100 * 1024)
+    assert privatisation_limit(small) == 11
+    assert rows_plan(10 ** 6, 64, 12, small).regime == "direct"
+    # tiles cover D in quads; the direct regime takes up to a warp a row
+    assert [rows_plan(10 ** 5, d, 3).tile for d in (1, 4, 5, 12, 257)] \
+        == [4, 4, 8, 16, 512]
+    assert [direct_plan(10 ** 5, d).tile for d in (1, 3, 5, 12, 64, 257)] \
+        == [1, 1, 2, 4, 16, 32]
+    assert direct_plan(1, 11664) == RowsPlan("direct", 32, 1)
+    assert direct_plan(10 ** 8, 1).blocks == 8 * H100.sms
+    # the ops wrapper counts launches by regime, and reset_counts zeroes it
+    ops.ROW_REGIMES["direct"] = 3
+    ops.reset_counts()
+    assert ops.ROW_REGIMES == {"direct": 0, "private": 0}
 
 
 def test_segsum_empty_inputs():
