@@ -9,17 +9,21 @@ Phases (any failure exits non-zero before the last line is printed):
               ``nvidia-smi`` name / power limit.
 2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
               and prints the build time and ``ptxas`` register, shared
-              memory and spill lines; fails if the Hopper attention kernel
-              or K2's two kernels spill.
+              memory and spill lines; fails if the Hopper attention kernel,
+              K2's two kernels, K1's four or K4's spill
+              (``NO_SPILL_KERNELS``), or if K4's branch-free division or
+              frexp gives other bits than the correctly rounded operation
+              anywhere in its domain (``bdeu.check_division``, exhaustive).
 3. main     — HYBRID model discovery over the sparse executor on the IMDb
               stand-in at full size (1.06M rows, 3 relationships), counting
               every kernel launch; its wall time and peak memory are read on
               this run alone.  The IMDb run is made once more under
               ``torch.profiler``: device busy time against wall time, and
-              the kernels that took most of it, K2's device time among
-              them.  Then HYBRID pre-counting alone on the VisualGenome
-              stand-in (15.8M rows, 8 relationships, chains of 3, which
-              take the dense-message hop), and once more keeping K2's
+              the kernels that took most of it, and K1's, K2's and K4's
+              device time by kernel name.  Then HYBRID pre-counting alone
+              on the VisualGenome stand-in (15.8M rows, 8 relationships,
+              chains of 3, which take the dense-message hop), and once
+              more keeping K2's
               largest call and its largest in the direct regime (the
               dense-message hop), each held bit for bit against its plain
               version and timed.  Checks that each kernel was launched,
@@ -40,7 +44,13 @@ Phases (any failure exits non-zero before the last line is printed):
               host launch gaps) and device time under ``torch.profiler``
               (``device_ms``, the calls' own device events over the reps).
               K2 is also checked and timed in its other regime where the
-              wrapper chose the privatised one.
+              wrapper chose the privatised one; K1 at its largest call and
+              at its largest privatised one (an entity histogram), each
+              also in its other plans (``ones_alternatives``: the direct
+              regime sliced and not, the privatised one where P allows
+              it), its device time split by event (the zeroing apart from
+              the scatter); K4 also
+              at ``K4_SCALING``, where its lgammas bind.
 5. parity   — model discovery on the full UW stand-in, HYBRID over sparse
               and over dense, on the card and on the CPU: edge-identical.
 6. hist     — K5's path: the weighted segment histogram at the three
@@ -83,6 +93,19 @@ Phases (any failure exits non-zero before the last line is printed):
               direct regime too where the wrapper chose the privatised one.
               One line per shape with the regime chosen; the phase's
               seconds.
+10. k1k4-edges — K4 bit for bit against its plain version on a grid of
+              shapes (``K4_EDGE_*``: q either side of a warp, of its 256
+              lanes and past one chunk, r up to a chunk too wide for 256
+              rows, 1, 9 and 200 families, ess 1 and 10) mixing all-zero
+              families, counts of a few, counts above 2^20 and counts
+              above 2^100 (lgamma's slow path); and K1
+              exactly against its plain version on its grid (``K1_EDGE_*``,
+              P at the privatisation limit and either side of it), ids -1
+              and P mixed in, weights 0 to 3, fresh and 4-byte-offset
+              inputs, through the wrapper and in each of K1's other plans
+              (``ones_alternatives``).  One
+              line per shape (K1's with the regime chosen); the phase's
+              seconds.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -118,6 +141,31 @@ COUNTING_KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu")
 # K2's CUDA kernels (csrc/segsum.cu), by the names ptxas and the profiler
 # give them.
 K2_KERNEL_NAMES = ("rows_private_kernel", "rows_direct_kernel")
+# K1's and K4's CUDA kernels (csrc/segsum.cu, csrc/bdeu.cu), by the
+# prefixes of the names ptxas and the profiler give them, and the kernels
+# phase 2 holds to 0 bytes spilled.
+K1_KERNEL_NAMES = ("segsum_ones",)
+K4_KERNEL_NAMES = ("bdeu_",)
+NO_SPILL_KERNELS = ("flash_wgmma", "rows_private_kernel",
+                    "rows_direct_kernel", "segsum_ones_direct_kernel",
+                    "segsum_ones_sliced_kernel", "segsum_ones_private_kernel",
+                    "segsum_ones_zero_kernel", "bdeu_chunk_kernel")
+# K4's edge shapes (phase 10): q either side of a warp, of the 256 lanes
+# and past one chunk; r from one column to a chunk that no longer fits
+# 256 rows' lgammas (33); B of one family, the IMDb largest call's 9 and
+# 200; both equivalent sample sizes the tests use.  K4_EDGE_SCALING is
+# the shape where the lgammas themselves bind, timed in phase 4.
+K4_EDGE_Q = (1, 2, 31, 32, 33, 255, 256, 257, 1000, 4096)
+K4_EDGE_R = (1, 2, 3, 8, 33)
+K4_EDGE_B = (1, 9, 200)
+K4_EDGE_ESS = (1.0, 10.0)
+K4_SCALING = (64, 4096, 4)
+# K1's edge shapes (phase 10): segment counts besides the privatisation
+# limit and either side of it (which the phase adds), up to the IMDb hops'
+# 10.8M; edge counts either side of a block's 256 threads and the IMDb
+# largest call's 400,000.
+K1_EDGE_SEGMENTS = (1, 1024, 10_800_000)
+K1_EDGE_EDGES = (1, 255, 256, 257, 400_000)
 # K2's edge shapes (phase 9): widths at and either side of its 4-column
 # quads, one past a warp's 128 and a tile's 256 columns, and the IMDb
 # root combine's; segment counts besides the privatisation limit and
@@ -199,9 +247,9 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3):
-    """Device time of one ``fn()`` in ms: the self device time of every
-    device event of ``reps`` calls under ``torch.profiler``, over
+def device_events_ms(fn, reps: int = 20, tries: int = 3):
+    """Device time of one ``fn()`` in ms by event name: the self device time
+    of each device event of ``reps`` calls under ``torch.profiler``, over
     ``reps``; host launch gaps do not count.  The profiler drops device
     events from the start of a trace (on the H100 machines, the first
     calls' kernels), so ``reps`` calls run in a warm-up step of its
@@ -226,10 +274,18 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
         on_card = device_events(prof)
         short = {e.key[:60]: e.count for e in on_card if e.count % reps}
         if on_card and not short:
-            return sum(e.self_device_time_total for e in on_card) / reps / 1e3
+            return {e.key: e.self_device_time_total / reps / 1e3
+                    for e in on_card}
         log(f"device_ms: a trace of {reps} calls held "
             f"{'no device events' if not on_card else short}")
     return None
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3):
+    """Device time of one ``fn()`` in ms, all its events together
+    (:func:`device_events_ms`); ``None`` if not measured."""
+    events = device_events_ms(fn, reps, tries)
+    return None if events is None else sum(events.values())
 
 
 def timings(kernel, plain, library, plain_reps: int = 20) -> dict:
@@ -341,10 +397,13 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:100]}")
-    k2 = [e for e in on_card if any(k in e.key for k in K2_KERNEL_NAMES)]
-    log(f"profile: K2 (the row scatter) "
-        f"{sum(e.self_device_time_total for e in k2) / 1e3:.3f} ms of device "
-        f"time in {sum(e.count for e in k2)} launches")
+    for label, names in (("K1 (segsum_ones)", K1_KERNEL_NAMES),
+                         ("K2 (the row scatter)", K2_KERNEL_NAMES),
+                         ("K4 (bdeu)", K4_KERNEL_NAMES)):
+        mine = [e for e in on_card if any(k in e.key for k in names)]
+        log(f"profile: {label} "
+            f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms of "
+            f"device time in {sum(e.count for e in mine)} launches")
 
 
 def k2_reading(ops, seg, r, p) -> dict:
@@ -385,6 +444,93 @@ def k2_reading(ops, seg, r, p) -> dict:
             fail(f"segsum_rows (direct) differs from its plain version by "
                  f"{err_direct} at E={e} D={d} P={p}")
         reading["direct_device_ms"] = device_ms(run_direct)
+    return reading
+
+
+def ones_alternatives(plan, e: int, p: int, card) -> list:
+    """K1's plans for ``E`` edges into ``P`` segments other than ``plan``:
+    the direct regime sliced (one cooperative launch) and not (a zero
+    kernel first), and the privatised regime where ``P`` allows it."""
+    from repro_torch.kernels.segsum import (ONES_BLOCKS_PER_SM,
+                                            ONES_SLICE_BYTES, OnesPlan,
+                                            ones_privatisation_limit)
+    blocks = max(1, min(ONES_BLOCKS_PER_SM * card.sms, -(-e // 1024)))
+    plans = [OnesPlan("direct", card.sms,
+                      max(1, -(-4 * p // ONES_SLICE_BYTES))),
+             OnesPlan("direct", blocks, 0)]
+    if p <= ones_privatisation_limit(card):
+        plans.append(OnesPlan("private", blocks, 0))
+    return [x for x in plans if x != plan]
+
+
+def k1_reading(ops, seg, w, p) -> dict:
+    """K1 at one call's inputs: exact against its plain version in the
+    plan the wrapper chose and in each of :func:`ones_alternatives`;
+    device time by event (the zeroing apart from the scatter); times of
+    the kernel, its plain version and ``index_add_`` (on the ids in range,
+    masked beforehand) beside the bound, and each alternative's device
+    time."""
+    from repro_torch.kernels.segsum import (card_of, ones_plan,
+                                            segsum_ones_cuda,
+                                            segsum_ones_plain)
+    e = seg.shape[0]
+    card = card_of(seg.device)
+    plan = ones_plan(e, p, card)
+    others = ones_alternatives(plan, e, p, card)
+    want = segsum_ones_plain(seg, w, p)
+    errs = [float((got - want).abs().max()) for got in (
+        ops.segsum_ones(seg, w, p),
+        *(segsum_ones_cuda(seg, w, p, x) for x in others))]
+    if any(errs):
+        fail(f"segsum_ones differs from its plain version by {errs} "
+             f"({plan}, then {others}) at E={e} P={p}")
+    keep = (seg >= 0) & (seg < p)
+    seg_l, w_kept = seg[keep].long(), w[keep]
+    b_ms, b_by = bound_ms(8.0 * e + 4.0 * p, e)
+    events = device_events_ms(lambda: ops.segsum_ones(seg, w, p))
+    return dict(
+        shape=f"E={e} P={p}", regime=plan.regime, plan=list(plan),
+        max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.segsum_ones(seg, w, p),
+                  lambda: segsum_ones_plain(seg, w, p),
+                  lambda: torch.zeros(p, device=seg.device)
+                  .index_add_(0, seg_l, w_kept)),
+        device_ms_by_event=events and {k[:60]: v for k, v in events.items()},
+        other_plans_device_ms={str(list(x)): device_ms(
+            lambda x=x: segsum_ones_cuda(seg, w, p, x)) for x in others})
+
+
+def log_k1(label: str, k: dict) -> None:
+    log(f"K1 {label} [{k['shape']}]: {k['regime']} {k['plan']}, "
+        f"max_abs_err {k['max_abs_err']}; device {k['device_ms']} ms "
+        f"(events {k['ms']:.4f}; by event {k['device_ms_by_event']}), "
+        f"index_add_ device {k['library_device_ms']} ms (events "
+        f"{k['library_ms']:.4f}), plain device {k['plain_device_ms']} ms, "
+        f"other plans {k['other_plans_device_ms']} ms, bound "
+        f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
+
+
+def k4_scaling_reading(ops) -> dict:
+    """K4 at ``K4_SCALING``, where the lgammas bind: bit for bit against
+    its plain version, its device time beside the bound."""
+    from repro_torch.kernels.bdeu import bdeu_plain
+    b, q, r = K4_SCALING
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nijk = torch.randint(0, 50, (b, q, r), generator=gen,
+                         device="cuda").float()
+    got, want = ops.bdeu(nijk, 1.0), bdeu_plain(nijk, 1.0)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"bdeu at B={b} q={q} r={r} is not bit-identical to its plain "
+             f"version")
+    b_ms, b_by = bound_ms(4.0 * nijk.numel() + 4.0 * b,
+                          b * ((q * r + q) * LGAMMA_OPS + 4 * q * r + 4 * q))
+    reading = dict(shape=f"B={b} q={q} r={r}", max_abs_err=0.0,
+                   device_ms=device_ms(lambda: ops.bdeu(nijk, 1.0)),
+                   ms=cuda_ms(lambda: ops.bdeu(nijk, 1.0)),
+                   bound_ms=b_ms, bound_by=b_by)
+    log(f"K4 where the lgammas bind [{reading['shape']}]: bit for bit; "
+        f"device {reading['device_ms']} ms (events {reading['ms']:.4f}), "
+        f"bound {b_ms:.4f} ms ({b_by})")
     return reading
 
 
@@ -640,6 +786,107 @@ def k2_edge_phase(ops) -> dict:
     return regimes
 
 
+def k4_family(kind: int, q: int, r: int, gen) -> torch.Tensor:
+    """One family of phase 10: all zeros (0), counts of a few with zero
+    cells (1), counts above 2^20 with zero cells (2), or counts in [2^100,
+    2^101) with zero cells (3), which take lgamma's slow path (the
+    correctly rounded division and frexp)."""
+    if kind == 0:
+        return torch.zeros((q, r), device="cuda")
+    lo, hi = (0, 9) if kind == 1 else (2 ** 20, 2 ** 24)
+    x = torch.randint(lo, hi, (q, r), generator=gen, device="cuda").float()
+    if kind == 3:
+        x = (x / 2 ** 24 + 1) * 2.0 ** 100
+    return x * (torch.rand((q, r), generator=gen, device="cuda") < 0.7)
+
+
+def k1k4_edge_phase(ops) -> dict:
+    """10. K4 bit for bit against its plain version on the edge shapes
+    (``K4_EDGE_*``: family i of a shape is of kind (i + shape) % 4 of
+    :func:`k4_family`), and K1 exactly against its plain version on its
+    edge shapes (``K1_EDGE_*`` and the privatisation limit either side),
+    with ids -1 and P mixed in and weights 0 to 3: fresh (16-byte aligned)
+    inputs and 4-byte-offset views (the scalar path), through the wrapper
+    and in each of :func:`ones_alternatives`.  One line per shape (K1's
+    with the regime chosen); returns K1's wrapper launches by regime."""
+    from repro_torch.kernels.bdeu import bdeu_plain
+    from repro_torch.kernels.segsum import (card_of, ones_plan,
+                                            ones_privatisation_limit,
+                                            segsum_ones_cuda,
+                                            segsum_ones_plain)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ops.reset_counts()
+    n_k4 = 0
+    for b in K4_EDGE_B:
+        for q in K4_EDGE_Q:
+            for r in K4_EDGE_R:
+                nijk = torch.stack([k4_family((i + n_k4) % 4, q, r, gen)
+                                    for i in range(b)])
+                for ess in K4_EDGE_ESS:
+                    got, want = ops.bdeu(nijk, ess), bdeu_plain(nijk, ess)
+                    same = torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32))
+                    log(f"k4 edge B={b} q={q} r={r} ess={ess}: "
+                        f"{'bit for bit' if same else 'DIFFERS'}, max_abs_err "
+                        f"{float((got - want).abs().max())}")
+                    if not same:
+                        fail(f"K4 differs from its plain version at B={b} "
+                             f"q={q} r={r} ess={ess}")
+                n_k4 += 1
+                del nijk
+    if ops.LAUNCHES["bdeu"] != n_k4 * len(K4_EDGE_ESS):
+        fail(f"k4 edges: {ops.LAUNCHES['bdeu']} launches for "
+             f"{n_k4 * len(K4_EDGE_ESS)} checks")
+    t_k4 = time.perf_counter() - t0
+    card = card_of(torch.device("cuda"))
+    limit = ones_privatisation_limit(card)
+    segments = sorted({*K1_EDGE_SEGMENTS, limit - 1, limit, limit + 1})
+    n_shapes = n_checks = 0
+    for p in segments:
+        for e in K1_EDGE_EDGES:
+            seg_buf = torch.randint(0, p, (e + 1,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+            seg_buf[::7] = -1
+            seg_buf[3::11] = p
+            w_buf = torch.randint(0, 4, (e + 1,), generator=gen,
+                                  device="cuda").float()
+            views = {"aligned": (seg_buf[:e].clone(), w_buf[:e].clone()),
+                     "offset": (seg_buf[1:], w_buf[1:])}
+            plan = ones_plan(e, p, card)
+            others = ones_alternatives(plan, e, p, card)
+            errs = {}
+            for name, (seg, w) in views.items():
+                want = segsum_ones_plain(seg, w, p)
+                errs[name] = float((ops.segsum_ones(seg, w, p) - want)
+                                   .abs().max())
+                for other in others:
+                    got = segsum_ones_cuda(seg, w, p, other)
+                    errs[f"{name}, {list(other)}"] = float(
+                        (got - want).abs().max())
+                del want, got
+            n_shapes += 1
+            n_checks += len(errs)
+            log(f"k1 edge E={e} P={p}: {plan.regime} {list(plan)}; "
+                f"max_abs_err {errs}")
+            if any(errs.values()):
+                fail(f"K1 differs from its plain version at E={e} P={p}: "
+                     f"{errs}")
+            del seg_buf, w_buf, views
+    sync()
+    regimes = dict(ops.ONES_REGIMES)
+    log(f"k1k4 edges: K4 {n_k4} shapes x {len(K4_EDGE_ESS)} ess, all bit "
+        f"for bit ({t_k4:.1f} s); K1 {n_shapes} shapes, {n_checks} checks, "
+        f"all exact (privatisation limit {limit} segments on this card), "
+        f"wrapper launches by regime {json.dumps(regimes)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if ops.LAUNCHES["segsum_ones"] != 2 * n_shapes or min(regimes.values()) \
+            <= 0:
+        fail(f"k1 edges: {ops.LAUNCHES['segsum_ones']} launches for "
+             f"{n_shapes} shapes, by regime {regimes}")
+    return regimes
+
+
 def log_profile(label: str, prof, wall: float) -> None:
     """Device busy time against wall time, K6's share, the top kernels."""
     on_card = device_events(prof)
@@ -854,10 +1101,9 @@ def main() -> None:
     from repro_torch.core import (build_lattice, discover_model,
                                   make_strategy, paper_benchmark_db)
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.bdeu import bdeu_plain
+    from repro_torch.kernels.bdeu import bdeu_plain, check_division
     from repro_torch.kernels.mobius import mobius_matrix, mobius_plain
-    from repro_torch.kernels.segsum import (card_of, rows_plan,
-                                            segsum_ones_plain)
+    from repro_torch.kernels.segsum import card_of, ones_plan, rows_plan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -877,8 +1123,18 @@ def main() -> None:
         log(f"  {line}")
     # the Hopper attention kernel keeps its accumulators in registers, and
     # K2's kernels stream rows through registers into shared memory
-    for name in ("flash_wgmma",) + K2_KERNEL_NAMES:
+    for name in NO_SPILL_KERNELS:
         check_no_spills(info["ptxas"], name)
+    # K4's lgamma takes a branch-free division and frexp: over their whole
+    # domain they must give the correctly rounded operations' bits
+    t0 = time.perf_counter()
+    bad = check_division(torch.device("cuda"))
+    log(f"K4 fast path against the correctly rounded operations over its "
+        f"whole domain (Lanczos divisions, log's quotient, frexp): "
+        f"{bad} operands differ ({time.perf_counter() - t0:.2f} s)")
+    if any(bad):
+        fail(f"K4's branch-free division or frexp differs from the correctly "
+             f"rounded one on {bad} operands")
 
     # -- 3. main path ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -896,6 +1152,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     imdb_regimes = dict(ops.ROW_REGIMES)
+    imdb_ones_regimes = dict(ops.ONES_REGIMES)
     peak = torch.cuda.max_memory_allocated()
     st = strategy.stats.as_dict()
     log(f"main path (IMDb, HYBRID/sparse, chains <= 2, parents <= 3): "
@@ -906,7 +1163,8 @@ def main() -> None:
     log(f"  max_memory_allocated: {peak} B; "
         f"learned edges: {sum(len(m.edges()) for m in models.values())}; "
         f"launches: {json.dumps(launches)}; K2 launches by regime: "
-        f"{json.dumps(imdb_regimes)}")
+        f"{json.dumps(imdb_regimes)}; K1 launches by regime: "
+        f"{json.dumps(imdb_ones_regimes)}")
     if any(launches[k] <= 0 for k in COUNTING_KERNELS):
         fail(f"a kernel of the main path was not launched: {launches}")
     if any(ops.PLAIN_CALLS[k] for k in ops.KERNELS):
@@ -958,31 +1216,28 @@ def main() -> None:
     del vg_spy
 
     # -- 4. kernels against their plain versions ------------------------------
-    spy = Spy(ops, COUNTING_KERNELS)
+    # (K1's largest call, and its largest in the privatised regime: an
+    # entity histogram)
+    spy = Spy(ops, COUNTING_KERNELS, tags=lambda name, args, kwargs: (
+        ("segsum_ones/private",) if name == "segsum_ones" and ones_plan(
+            args[0].shape[0], args[2], card_of(args[0].device)).regime
+        == "private" else ()))
     discover_model(db, make_strategy("HYBRID", executor="sparse"),
                    max_chain_length=2, max_parents=3)
     spy.remove()
     del db
     rows = []
-    seg, w, p = spy.big["segsum_ones"][1]
-    e = seg.shape[0]
-    got, want = ops.segsum_ones(seg, w, p), segsum_ones_plain(seg, w, p)
-    err = float((got - want).abs().max())
-    seg_l = seg.long()
-    b_ms, b_by = bound_ms(8.0 * e + 4.0 * p, e)
+    reading = k1_reading(ops, *spy.big["segsum_ones"][1])
+    log_k1("IMDb largest", reading)
+    private = k1_reading(ops, *spy.big["segsum_ones/private"][1])
+    log_k1("IMDb largest privatised", private)
     rows.append(dict(
         name="segsum_ones", route="cuda",
         source="src/repro_torch/kernels/csrc/segsum.cu",
         replaces="src/repro/kernels/segsum_kernel.py:103",
-        launches=launches["segsum_ones"], max_abs_err=err,
-        bound_ms=b_ms, bound_by=b_by,
-        **timings(lambda: ops.segsum_ones(seg, w, p),
-                  lambda: segsum_ones_plain(seg, w, p),
-                  lambda: torch.zeros(p, device=seg.device)
-                  .index_add_(0, seg_l, w)),
-        shape=f"E={e} P={p}"))
-    if err != 0.0:
-        fail(f"segsum_ones differs from its plain version by {err}")
+        launches=launches["segsum_ones"],
+        launches_by_regime=imdb_ones_regimes, **reading,
+        private=private))
 
     reading = k2_reading(ops, *spy.big["segsum_rows"][1])
     log_k2("IMDb", reading)
@@ -1019,6 +1274,8 @@ def main() -> None:
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-2):
         fail(f"bdeu outside rtol=1e-4, atol=1e-2 of its plain version")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail("bdeu is not bit-identical to its plain version")
     n_ops = bsz * ((q * rr + q) * LGAMMA_OPS + 4 * q * rr + 4 * q)
     b_ms, b_by = bound_ms(4.0 * nijk.numel() + 4.0 * bsz, n_ops)
     rows.append(dict(
@@ -1029,13 +1286,12 @@ def main() -> None:
         bound_ms=b_ms, bound_by=b_by,
         **timings(lambda: ops.bdeu(nijk, ess),
                   lambda: bdeu_plain(nijk, ess), None),
+        scaling=k4_scaling_reading(ops),
         shape=f"B={bsz} q={q} r={rr}"))
-    if err != 0.0:
-        fail(f"bdeu is not bit-identical to its plain version ({err})")
     for row in rows:
         log_row(row)
     # the LM phase reads its memory with no earlier tensors held
-    del spy, seg, seg_l, w, x, tmat, nijk, got, want
+    del spy, x, tmat, nijk, got, want
 
     # -- 5. card against CPU -------------------------------------------------
     uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
@@ -1066,6 +1322,9 @@ def main() -> None:
 
     # -- 9. K2's edge shapes --------------------------------------------------
     k2_edge_phase(ops)
+
+    # -- 10. K4's and K1's edge shapes ----------------------------------------
+    k1k4_edge_phase(ops)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

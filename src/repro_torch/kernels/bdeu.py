@@ -24,7 +24,10 @@ term, so the score here is bit-reproducible by construction:
 
 The CUDA kernel ``csrc/bdeu.cu`` performs exactly these operations in the
 same order (``__fadd_rn``-style intrinsics, no contraction into FMA), so it
-equals the plain version below bit for bit.
+equals the plain version below bit for bit.  It evaluates the lgammas of a
+chunk of rows all at once (their order does not matter) and leaves out the
+additions of the padding's ``+0.0``, which change no bit because a lane
+never holds ``-0.0`` (``_bdeu_rows`` over fewer lanes shows the same).
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ _HALF_LOG_2PI = 0.9189385175704956
 _LANCZOS = (1.0, 676.5203857421875, -1259.13916015625, 771.3234252929688,
             -176.6150360107422, 12.507343292236328, -0.138571098446846,
             9.984369171434082e-06, 1.5056326674312004e-07)
-LANES = 256                       # threads per block of csrc/bdeu.cu
+LANES = 256                       # lanes of csrc/bdeu.cu's sum
+MAX_R = 200 * 1024 // 4 - 1       # csrc/bdeu.cu's kMaxChunkBytes: r + 1
+                                  # lgammas of one row
 
 
 def _const(like: torch.Tensor, value: float) -> torch.Tensor:
@@ -84,9 +89,11 @@ def lgamma_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(small, v - log_f32(torch.where(small, x, 1.0)), v)
 
 
-def _bdeu_rows(nijk: torch.Tensor, a_j: float, a_jk: float) -> torch.Tensor:
+def _bdeu_rows(nijk: torch.Tensor, a_j: float, a_jk: float,
+               lanes: int = LANES) -> torch.Tensor:
     """Per-family score of ``[B, q, r]`` for the given Dirichlet
-    parameters (rounded to float32, as the kernel receives them)."""
+    parameters (rounded to float32, as the kernel receives them), summed
+    over ``lanes`` lanes (a power of two; the kernel's are ``LANES``)."""
     nijk = nijk.float()
     b, q, r = nijk.shape
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=nijk.device)
@@ -98,13 +105,13 @@ def _bdeu_rows(nijk: torch.Tensor, a_j: float, a_jk: float) -> torch.Tensor:
         nij = nij + nijk[..., k]
         terms = terms + cell[..., k]
     per_j = (lg_aj - lgamma_f32(nij + aj)) + terms           # [B, q]
-    n_blocks = -(-q // LANES)
-    per_j = torch.cat([per_j, per_j.new_zeros(b, n_blocks * LANES - q)],
-                      dim=1).reshape(b, n_blocks, LANES)
-    acc = per_j.new_zeros(b, LANES)
+    n_blocks = -(-q // lanes)
+    per_j = torch.cat([per_j, per_j.new_zeros(b, n_blocks * lanes - q)],
+                      dim=1).reshape(b, n_blocks, lanes)
+    acc = per_j.new_zeros(b, lanes)
     for i in range(n_blocks):                 # each lane's rows, in turn
         acc = acc + per_j[:, i]
-    width = LANES
+    width = lanes
     while width > 1:                          # the block's pairwise tree
         width //= 2
         acc = acc[:, :width] + acc[:, width:]
@@ -125,3 +132,17 @@ def bdeu_cuda(nijk: torch.Tensor, ess: float) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"bdeu launch failed (cudaError {rc})")
     return out
+
+
+def check_division(device: torch.device) -> list:
+    """``csrc/bdeu.cu``'s proof of its lgamma's fast path, run on the card:
+    how many operands of the fast path's domain its branch-free division
+    (the eight Lanczos terms; log's ``f / (f + 2)``) and its frexp give
+    other bits than the correctly rounded operations.  ``[0, 0, 0]`` where
+    the fast path equals the plain version's arithmetic."""
+    bad = torch.zeros(3, dtype=torch.int64, device=device)
+    rc = build.load().bdeu_check_division(
+        bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bdeu_check_division failed (cudaError {rc})")
+    return bad.tolist()

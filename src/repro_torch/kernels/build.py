@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "segsum_ones": [_P, _P, _P, _I64, _I64, _P],
+    "segsum_ones": [_P, _P, _P, _I64, _I64, ctypes.c_int, _I64, _I64,
+                    _P],
     "segsum_rows": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _I64,
                     _I64, _P],
     "segsum_card": [ctypes.c_int],
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "mobius_max_bits": [],
     "bdeu_batch": [_P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float,
                    _P],
+    "bdeu_check_division": [_P, _P],
     "flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "flash_attention_route": [_I64, ctypes.c_int],

@@ -17,9 +17,40 @@
 // segment sums at 32k segments.  Here the cost is O(E) or O(E x D)
 // whatever P is, and there is no cap.
 //
-// segsum_ones: a grid-stride loop over edges, one atomicAdd into device
-// memory (resolved in L2) per edge.
-//
+// segsum_ones (K1) fills an `out` its caller allocated uninitialised, in
+// one of two regimes that the caller chooses (repro_torch.kernels.segsum
+// .ones_plan, from E, P and the card's shared memory) and passes in:
+//  * privatised, for few segments and many edges each: the entity
+//    histograms, P = 1 to 27 segments over 100,000 rows at IMDb, where one
+//    device atomic per edge piled 100,000 of them onto 1 to 27 addresses
+//    (0.0256 to 0.1774 ms a call on an NVIDIA H100 80GB HBM3 at 700 W,
+//    scripts/profile_k1_k4.py).  A zero kernel clears out, then thread t
+//    keeps column t of a [P, 256] table in shared memory, alone, so it
+//    adds with no atomics and no bank conflict (address p x 256 + t is in
+//    bank t % 32); then each warp sums whole segments across the 256
+//    columns and adds each non-zero sum into out once.  1 KB of shared
+//    memory a segment.  What bounds it is the flush: every block's sums
+//    land on the same P addresses, so the plan takes sqrt(E / 6P) blocks.
+//  * direct, otherwise: the hops, P = 10.8M at IMDb, a 43 MB table.  The
+//    bound is bytes (8E + 4P), but the work is writing the table as zeros
+//    (at about the memory's rate) and then E random read-modify-writes
+//    into it, which run about three times faster while the table is in
+//    L2 than once it has fallen out (a 43 MB table does, on a card with
+//    50 MB of L2).  A table of at most 12 MiB, or too few edges to pay
+//    for slicing, is zeroed by the zero kernel and then scattered
+//    (segsum_ones_direct_kernel); a larger one by one cooperative launch
+//    in slices of at most 12 MiB (segsum_ones_sliced_kernel): phase k
+//    zeroes slice k and scatters the edges of slice k - 1 while it is in
+//    L2, a grid barrier between phases.  A barrier costs about what
+//    50,000 edges gain, hence the plan's threshold.
+// Both read ids and weights with 16-byte loads, four edges a thread, where
+// both are 16-byte aligned, and one edge at a time otherwise (views at a
+// 4-byte offset).  Ids outside [0, P) are dropped.  The zeros go out as
+// 16-byte stores.  Counts are integer-valued floats below 2^24, so every
+// order of the additions gives the exact sum.  ptxas (chip_smoke.py phase
+// 2): segsum_ones_direct_kernel 24 registers, segsum_ones_sliced_kernel
+// 52, segsum_ones_private_kernel 25, segsum_ones_zero_kernel 32; no
+// spills.
 // segsum_rows runs in one of two regimes, which the caller chooses
 // (repro_torch.kernels.segsum.rows_plan, from E, D, P and the card's
 // shared memory) and passes in:
@@ -60,29 +91,152 @@
 // entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a plan it cannot run.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSlicedThreads = 1024;  // K1's sliced cooperative launch
 constexpr int64_t kMaxBlocks = 132 * 32;
 constexpr int kUnroll = 8;          // rows in flight per thread (privatised)
 constexpr int kRows = 4;            // rows in flight per thread (direct)
 constexpr int kMaxSlotsLog2 = 8;    // kThreads slots of 4 columns
 constexpr int kMaxGroupLog2 = 5;    // a warp per row (direct)
 
-__global__ void segsum_ones_kernel(const int32_t* __restrict__ seg,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ out,
-                                   int64_t n_edges, int64_t n_segments) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       e < n_edges; e += stride) {
-    const int32_t s = seg[e];
-    if (s >= 0 && (int64_t)s < n_segments) atomicAdd(out + s, w[e]);
+// --- segsum_ones (K1) -----------------------------------------------------
+
+// out[0, n) = 0 by the grid's threads `tid` of `nthreads`: 16-byte stores
+// from the first 16-byte boundary, scalar ones around them.
+__device__ __forceinline__ void zero_table(float* out, int64_t n,
+                                           int64_t tid, int64_t nthreads) {
+  const int64_t off = (int64_t)((16 - ((uintptr_t)out & 15)) & 15) / 4;
+  const int64_t head = min(n, off);
+  const int64_t quads = (n - head) / 4;
+  float4* q = reinterpret_cast<float4*>(out + head);
+  for (int64_t i = tid; i < quads; i += nthreads)
+    q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < head) out[tid] = 0.f;
+  for (int64_t i = head + 4 * quads + tid; i < n; i += nthreads) out[i] = 0.f;
+}
+
+// The edges of the grid's thread `tid` of `nthreads`, add(s, w) for each:
+// four at a time (one 16-byte load of ids and one of weights) from quad
+// `tid + start` where `vec` (then the tail of fewer than four), else one
+// at a time.
+template <typename Add>
+__device__ __forceinline__ void for_edges(const int32_t* __restrict__ seg,
+                                          const float* __restrict__ w,
+                                          int64_t n_edges, bool vec,
+                                          int64_t tid, int64_t nthreads,
+                                          int64_t start, Add add) {
+  int64_t e = tid;
+  if (vec) {
+    const int64_t quads = n_edges / 4;
+    for (int64_t i = tid + start; i < quads; i += nthreads) {
+      const int4 s = __ldcs(reinterpret_cast<const int4*>(seg) + i);
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(w) + i);
+      add(s.x, v.x);
+      add(s.y, v.y);
+      add(s.z, v.z);
+      add(s.w, v.w);
+    }
+    e = 4 * quads + tid;
+  }
+  for (; e < n_edges; e += nthreads) add(__ldcs(seg + e), __ldcs(w + e));
+}
+
+// Direct regime: each edge adds into out where it lands (a reduction
+// resolved in L2); segsum_ones_zero_kernel ran before it on the stream.
+__global__ void __launch_bounds__(kThreads)
+segsum_ones_direct_kernel(const int32_t* __restrict__ seg,
+                          const float* __restrict__ w, float* out,
+                          int64_t n_edges, int32_t n_segments, bool vec) {
+  for_edges(seg, w, n_edges, vec, (int64_t)blockIdx.x * kThreads + threadIdx.x,
+            (int64_t)gridDim.x * kThreads, 0, [&](int32_t s, float v) {
+              if (s >= 0 && s < n_segments) atomicAdd(out + s, v);
+            });
+}
+
+// Direct regime over a table larger than L2 keeps: one cooperative launch
+// (every block resident at once) zeroes out itself in `slices` slices of
+// `slice` floats (a multiple of 4) and scatters slice by slice: in phase
+// k it zeroes slice k and scatters the edges whose ids fall in slice
+// k - 1, which the grid barrier closing phase k - 1 saw zeroed and which
+// is still in L2.  Each thread keeps its first quad of edges in
+// registers through the phases and reads any others again each phase.
+// Blocks of kSlicedThreads, so that few blocks meet at each barrier.
+__global__ void __launch_bounds__(kSlicedThreads)
+segsum_ones_sliced_kernel(const int32_t* __restrict__ seg,
+                          const float* __restrict__ w, float* out,
+                          int64_t n_edges, int32_t n_segments, bool vec,
+                          int64_t slices, int64_t slice) {
+  const int64_t tid = (int64_t)blockIdx.x * kSlicedThreads + threadIdx.x;
+  const int64_t nthreads = (int64_t)gridDim.x * kSlicedThreads;
+  int4 s0 = make_int4(-1, -1, -1, -1);
+  float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec && tid < n_edges / 4) {
+    s0 = __ldcs(reinterpret_cast<const int4*>(seg) + tid);
+    v0 = __ldcs(reinterpret_cast<const float4*>(w) + tid);
+  }
+  for (int64_t k = 0; k <= slices; ++k) {
+    if (k < slices)
+      zero_table(out + k * slice, min(slice, n_segments - k * slice), tid,
+                 nthreads);
+    if (k > 0) {
+      const int64_t lo = (k - 1) * slice;
+      const int64_t hi = min(lo + slice, (int64_t)n_segments);
+      auto add = [&](int32_t s, float v) {
+        if (s >= lo && s < hi) atomicAdd(out + s, v);
+      };
+      add(s0.x, v0.x);
+      add(s0.y, v0.y);
+      add(s0.z, v0.z);
+      add(s0.w, v0.w);
+      for_edges(seg, w, n_edges, vec, tid, nthreads, vec ? nthreads : 0,
+                add);
+    }
+    if (k < slices) cooperative_groups::this_grid().sync();
   }
 }
+
+// Privatised regime: thread t keeps column t of a [n_segments, kThreads]
+// table in shared memory (bank t % 32 whatever the segment), the only
+// writer of its column, so no atomics; then each warp sums whole segments
+// across the columns and adds each non-zero sum into out, which
+// segsum_ones_zero_kernel zeroed before it on the stream, once.
+__global__ void __launch_bounds__(kThreads)
+segsum_ones_private_kernel(const int32_t* __restrict__ seg,
+                           const float* __restrict__ w, float* out,
+                           int64_t n_edges, int32_t n_segments, bool vec) {
+  extern __shared__ float table[];
+  const int t = threadIdx.x;
+  float* mine = table + t;
+  for (int p = 0; p < n_segments; ++p) mine[p * kThreads] = 0.f;
+  for_edges(seg, w, n_edges, vec, (int64_t)blockIdx.x * kThreads + t,
+            (int64_t)gridDim.x * kThreads, 0, [&](int32_t s, float v) {
+              if (s >= 0 && s < n_segments) mine[s * kThreads] += v;
+            });
+  __syncthreads();
+  const int lane = t & 31;
+  for (int p = t >> 5; p < n_segments; p += kThreads / 32) {
+    float sum = 0.f;
+    for (int c = lane; c < kThreads; c += 32) sum += table[p * kThreads + c];
+#pragma unroll
+    for (int h = 16; h > 0; h /= 2)
+      sum += __shfl_down_sync(0xffffffffu, sum, h);
+    if (lane == 0 && sum != 0.f) atomicAdd(out + p, sum);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+segsum_ones_zero_kernel(float* out, int64_t n) {
+  zero_table(out, n, (int64_t)blockIdx.x * kThreads + threadIdx.x,
+             (int64_t)gridDim.x * kThreads);
+}
+
+// --- segsum_rows (K2) -----------------------------------------------------
 
 // Four columns [p, p + 4) of a row, streamed (read once); on the scalar
 // path only the first `left` of them exist.
@@ -239,13 +393,65 @@ int log2_of(int64_t x) {   // log2 of a power of two, else -1
 
 }  // namespace
 
+// out[P] = segment sums of w[E] by seg[E] into an uninitialised out, in
+// the regime the caller chose: 0 direct, 1 privatised, on `blocks`
+// blocks.  `slices` 0: a zero kernel first, then the regime's kernel;
+// `slices` >= 1 (direct only): one cooperative launch of
+// segsum_ones_sliced_kernel in that many slices, its grid cut to the
+// blocks the card holds at once.
 extern "C" int segsum_ones(const void* seg, const void* w, void* out,
-                           int64_t n_edges, int64_t n_segments,
-                           void* stream) {
-  segsum_ones_kernel<<<(unsigned)grid_for(n_edges), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const int32_t*)seg, (const float*)w, (float*)out, n_edges,
-      n_segments);
+                           int64_t n_edges, int64_t n_segments, int regime,
+                           int64_t blocks, int64_t slices, void* stream) {
+  if (n_edges < 1 || n_segments < 1 || n_segments > INT32_MAX || blocks < 1
+      || blocks > INT32_MAX || (regime != 0 && regime != 1) || slices < 0
+      || (regime == 1 && slices > 0) || slices > n_segments)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = (uintptr_t)seg % 16 == 0 && (uintptr_t)w % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t p32 = (int32_t)n_segments;
+  const int32_t* s32 = (const int32_t*)seg;
+  const float* wf = (const float*)w;
+  float* o = (float*)out;
+  if (slices > 0) {
+    const void* fn = (const void*)segsum_ones_sliced_kernel;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fn, kSlicedThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t most = (int64_t)per_sm * sms;
+    if (most < 1) return (int)cudaErrorInvalidConfiguration;
+    const unsigned grid = (unsigned)(blocks < most ? blocks : most);
+    // a slice of whole quads, so that every slice stays 16-byte aligned
+    int64_t slice = (n_segments + slices - 1) / slices;
+    slice = (slice + 3) / 4 * 4;
+    int64_t n_slices = (n_segments + slice - 1) / slice;
+    void* args[] = {(void*)&s32,     (void*)&wf,  (void*)&o,
+                    (void*)&n_edges, (void*)&p32, (void*)&vec,
+                    (void*)&n_slices, (void*)&slice};
+    return (int)cudaLaunchCooperativeKernel(fn, grid, kSlicedThreads, args,
+                                            0, st);
+  }
+  segsum_ones_zero_kernel<<<(unsigned)grid_for((n_segments + 3) / 4),
+                            kThreads, 0, st>>>(o, n_segments);
+  if (regime == 1) {
+    const int64_t smem = n_segments * kThreads * 4;
+    if (smem > INT32_MAX) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          segsum_ones_private_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    segsum_ones_private_kernel<<<(unsigned)blocks, kThreads, (size_t)smem,
+                                 st>>>(s32, wf, o, n_edges, p32, vec);
+  } else {
+    segsum_ones_direct_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+        s32, wf, o, n_edges, p32, vec);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -23,11 +23,11 @@ from typing import Dict, Optional
 import torch
 
 from .attention import flash_attention_cuda, flash_attention_plain
-from .bdeu import bdeu_cuda, bdeu_plain
+from .bdeu import MAX_R, bdeu_cuda, bdeu_plain
 from .mobius import mobius_cuda, mobius_plain
-from .segsum import (REGIMES, card_of, rows_plan, segment_hist_plain,
-                     segsum_ones_cuda, segsum_ones_plain, segsum_rows_cuda,
-                     segsum_rows_plain)
+from .segsum import (REGIMES, card_of, ones_plan, rows_plan,
+                     segment_hist_plain, segsum_ones_cuda, segsum_ones_plain,
+                     segsum_rows_cuda, segsum_rows_plain)
 
 KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu", "segment_hist",
            "flash_attention")
@@ -35,6 +35,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 #: Launches of the row scatter (K2 and K5 together) by regime.
 ROW_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
+#: Launches of K1 by regime.
+ONES_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
 
 _INT32_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535                  # CUDA's limit on gridDim.y and .z
@@ -48,6 +50,7 @@ def reset_counts() -> None:
         PLAIN_CALLS[name] = 0
     for regime in REGIMES:
         ROW_REGIMES[regime] = 0
+        ONES_REGIMES[regime] = 0
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -104,8 +107,10 @@ def segsum_ones(seg: torch.Tensor, w: torch.Tensor,
     if seg.shape[0] == 0 or num_segments == 0:
         return torch.zeros(num_segments, dtype=torch.float32,
                            device=seg.device)
-    out = segsum_ones_cuda(seg, w, num_segments)
+    plan = ones_plan(seg.shape[0], num_segments, card_of(seg.device))
+    out = segsum_ones_cuda(seg, w, num_segments, plan)
     LAUNCHES["segsum_ones"] += 1
+    ONES_REGIMES[plan.regime] += 1
     return out
 
 
@@ -163,6 +168,9 @@ def bdeu(nijk: torch.Tensor, ess: float = 1.0) -> torch.Tensor:
     _check("bdeu", nijk, torch.float32, 3)
     if nijk.shape[0] == 0:
         return torch.zeros(0, dtype=torch.float32, device=nijk.device)
+    if not 1 <= nijk.shape[2] <= MAX_R or nijk.shape[1] < 1:
+        raise ValueError(f"bdeu: the kernel takes q >= 1 and 1 <= r <= "
+                         f"{MAX_R}, got {tuple(nijk.shape)}")
     out = bdeu_cuda(nijk, ess)
     LAUNCHES["bdeu"] += 1
     return out

@@ -19,11 +19,15 @@ The row scatter runs in one of two regimes, chosen here by
 to the kernel: *privatised* (each block sums a column tile of every
 segment in shared memory, then adds it into ``out``) when that table fits
 and there are enough edges per segment to pay for it, else *direct* (each
-edge row is added into ``out`` where it lands).
+edge row is added into ``out`` where it lands).  K1 has the same two
+regimes, chosen by :func:`ones_plan`; it fills an ``out`` it allocates
+uninitialised, and its direct regime zeroes and scatters a table larger
+than L2 keeps slice by slice in one cooperative launch.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -46,17 +50,6 @@ def segsum_rows_plain(seg: torch.Tensor, rows: torch.Tensor,
         out = torch.zeros((num_segments, rows.shape[1]), dtype=torch.float32,
                           device=rows.device)
     return out.index_add_(0, seg[keep].long(), rows[keep].float())
-
-
-def segsum_ones_cuda(seg: torch.Tensor, w: torch.Tensor,
-                     num_segments: int) -> torch.Tensor:
-    out = torch.zeros(num_segments, dtype=torch.float32, device=seg.device)
-    rc = build.load().segsum_ones(
-        seg.data_ptr(), w.data_ptr(), out.data_ptr(), seg.shape[0],
-        num_segments, torch.cuda.current_stream(seg.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"segsum_ones launch failed (cudaError {rc})")
-    return out
 
 
 class Card(NamedTuple):
@@ -128,6 +121,79 @@ def direct_plan(n_edges: int, width: int, card: Card = H100) -> RowsPlan:
     blocks = -(-n_edges * group // ROWS_THREADS)
     return RowsPlan("direct", group,
                     max(1, min(blocks, DIRECT_BLOCKS_PER_SM * card.sms)))
+
+
+class OnesPlan(NamedTuple):
+    """How K1 runs: ``regime`` "private" or "direct" on ``blocks``
+    blocks; ``slices`` 0 zeroes ``out`` in a zero kernel launched first,
+    ``slices`` >= 1 (direct only) in one cooperative launch that zeroes
+    and scatters slice by slice."""
+    regime: str
+    blocks: int
+    slices: int
+
+
+ONES_SEGMENT_BYTES = 4 * ROWS_THREADS   # K1's tables: a float per thread
+ONES_EDGES_PER_THREAD = 4               # one 16-byte load of ids, of weights
+ONES_BLOCKS_PER_SM = 8                  # 256-thread blocks an SM holds
+ONES_SLICE_BYTES = 12 << 20             # a slice of the table that L2 keeps
+ONES_SLICE_EDGES = 50_000               # edges a slice pays its barrier with
+ONES_FLUSH_WEIGHT = 6                   # a flush atomic against an edge
+
+
+def ones_privatisation_limit(card: Card = H100) -> int:
+    """The most segments K1 privatises on ``card``: ``ONES_SEGMENT_BYTES``
+    each, within ``TABLE_BYTES`` and what a block can opt into."""
+    return min(TABLE_BYTES, card.smem_block) // ONES_SEGMENT_BYTES
+
+
+def ones_plan(n_edges: int, num_segments: int,
+              card: Card = H100) -> OnesPlan:
+    """K1's regime and launch shape for ``E`` edges into ``P`` segments.
+    Privatised when ``P`` is at most :func:`ones_privatisation_limit` and
+    there are at least ``MIN_EDGES_PER_SEGMENT`` edges a segment for a
+    block, on ``sqrt(E / (ONES_FLUSH_WEIGHT P))`` blocks: more blocks
+    give each thread fewer edges but land more flush atomics on the same
+    ``P`` addresses, and that balances them (fitted at the IMDb
+    histograms); within up to ``ONES_BLOCKS_PER_SM`` blocks an SM (fewer
+    where the tables fill its shared memory), no more than
+    ``ONES_EDGES_PER_THREAD`` edges a thread needs and at most a quarter
+    of the edges' additions in flushes.  Otherwise direct: a
+    table of more than ``ONES_SLICE_BYTES`` with at least
+    ``ONES_SLICE_EDGES`` edges a slice is zeroed and scattered in slices of
+    at most ``ONES_SLICE_BYTES`` by one cooperative launch of a 1,024-thread
+    block an SM (each slice's grid barrier costs about what that many
+    edges gain from finding the table in L2);
+    any other is zeroed first, then scattered on as many blocks as give
+    each thread ``ONES_EDGES_PER_THREAD`` edges, up to
+    ``ONES_BLOCKS_PER_SM`` an SM."""
+    p = max(num_segments, 1)
+    wanted = -(-n_edges // (ONES_EDGES_PER_THREAD * ROWS_THREADS))
+    most_splits = n_edges // (MIN_EDGES_PER_SEGMENT * p)
+    if p <= ones_privatisation_limit(card) and most_splits >= 1:
+        smem = p * ONES_SEGMENT_BYTES + RESERVED_BYTES
+        per_sm = max(1, min(ONES_BLOCKS_PER_SM, card.smem_sm // smem))
+        balance = math.isqrt(n_edges // (ONES_FLUSH_WEIGHT * p))
+        blocks = min(per_sm * card.sms, wanted, most_splits, balance)
+        return OnesPlan("private", max(1, blocks), 0)
+    slices = -(-4 * p // ONES_SLICE_BYTES)
+    if slices > 1 and n_edges >= slices * ONES_SLICE_EDGES:
+        return OnesPlan("direct", card.sms, slices)
+    blocks = min(ONES_BLOCKS_PER_SM * card.sms, wanted)
+    return OnesPlan("direct", max(1, blocks), 0)
+
+
+def segsum_ones_cuda(seg: torch.Tensor, w: torch.Tensor, num_segments: int,
+                     plan: OnesPlan) -> torch.Tensor:
+    out = torch.empty(num_segments, dtype=torch.float32, device=seg.device)
+    rc = build.load().segsum_ones(
+        seg.data_ptr(), w.data_ptr(), out.data_ptr(), seg.shape[0],
+        num_segments, REGIMES.index(plan.regime), plan.blocks, plan.slices,
+        torch.cuda.current_stream(seg.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segsum_ones launch failed (cudaError {rc}, "
+                           f"{plan})")
+    return out
 
 
 _CARDS: Dict[int, Card] = {}

@@ -32,11 +32,21 @@ def _seg_inputs(seed, n, p):
 
 # ---------------------------------------------------------- K1, K2 -------
 
-@pytest.mark.parametrize("n,p", [(1, 1), (37, 5), (513, 300), (2000, 64)])
-def test_segsum_ones_matches_jax(n, p):
-    rng, seg = _seg_inputs(n + p, n, p)
-    w = rng.integers(0, 4, size=n).astype(np.float32)
-    got = ops.segsum_ones(torch.from_numpy(seg), torch.from_numpy(w), p)
+# The first four are the original cases; the rest are chip_smoke.py phase
+# 10's edge shapes that a Pallas sweep in interpret mode can take: edge
+# counts either side of a block's 256 threads and the IMDb hops' 400,000,
+# segment counts around K1's privatisation limit (200 on an H100), with a
+# 4-byte-offset view (``offset``) as the card's scalar path reads it.
+@pytest.mark.parametrize("n,p,offset", [
+    (1, 1, 0), (37, 5, 0), (513, 300, 0), (2000, 64, 0),
+    (1, 1024, 0), (255, 199, 1), (256, 200, 0), (257, 201, 1),
+    (400_000, 1, 0), (400_000, 200, 1), (400_000, 201, 0)])
+def test_segsum_ones_matches_jax(n, p, offset):
+    rng, seg = _seg_inputs(n + p, n + offset, p)
+    w = rng.integers(0, 4, size=n + offset).astype(np.float32)
+    seg_t, w_t = torch.from_numpy(seg)[offset:], torch.from_numpy(w)[offset:]
+    seg, w = seg[offset:], w[offset:]
+    got = ops.segsum_ones(seg_t, w_t, p)
     want_ref = jref.ones_segment_sum_ref(jnp.asarray(seg), jnp.asarray(w), p)
     want_pl = jops.ones_segment_sum(jnp.asarray(seg), jnp.asarray(w), p,
                                     interpret=True)
@@ -45,6 +55,66 @@ def test_segsum_ones_matches_jax(n, p):
     np.testing.assert_array_equal(
         ref.ones_segment_sum_ref(torch.from_numpy(seg), torch.from_numpy(w),
                                  p).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 257, 400_000])
+def test_segsum_ones_imdb_hop_width(n):
+    """The IMDb hops' 10.8M segments, past what a Pallas one-hot sweep in
+    interpret mode can take: against ``jax.ops.segment_sum`` (the JAX
+    package's reference) only."""
+    p = 10_800_000
+    rng, seg = _seg_inputs(n, n, p)
+    w = rng.integers(0, 4, size=n).astype(np.float32)
+    got = ops.segsum_ones(torch.from_numpy(seg), torch.from_numpy(w), p)
+    want = jref.ones_segment_sum_ref(jnp.asarray(seg), jnp.asarray(w), p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_ones_plan_regimes():
+    """K1's regime chooser: the IMDb histograms (a few segments, an
+    entity's rows) privatise, the IMDb hops (10.8M segments) go direct in
+    slices, and the privatisation limit falls where the card's shared
+    memory puts it."""
+    from repro_torch.kernels.segsum import (H100, Card, OnesPlan,
+                                            ones_plan,
+                                            ones_privatisation_limit)
+    # the largest IMDb hop: a 43 MB table is zeroed and scattered in four
+    # 10.8 MB slices that L2 keeps, by one cooperative launch of a
+    # 1,024-thread block an SM, and so is the 250,000-edge one; the
+    # smallest (fewer than 50,000 edges a slice) takes a zero kernel,
+    # then the scatter
+    assert ones_plan(400_000, 10_800_000) == OnesPlan("direct", 132, 4)
+    assert ones_plan(250_000, 10_800_000) == OnesPlan("direct", 132, 4)
+    assert ones_plan(113_000, 10_800_000) == OnesPlan("direct", 111, 0)
+    assert ones_plan(200_000, 10_800_000).slices == 4
+    assert ones_plan(199_999, 10_800_000).slices == 0
+    # a table of at most 12 MiB: a zero kernel, then the scatter
+    assert ones_plan(400_000, 3 << 20) == OnesPlan("direct", 391, 0)
+    assert ones_plan(400_000, (3 << 20) + 1).slices == 2
+    assert ones_plan(10 ** 8, 2 ** 20).blocks == 8 * H100.sms
+    # the histograms: sqrt(E / 6P) blocks balance a thread's edges against
+    # the flush's atomics on the same P addresses
+    assert [ones_plan(100_000, p) for p in (1, 3, 9, 27)] == [
+        OnesPlan("private", b, 0) for b in (98, 74, 43, 24)]
+    # 200 KB of tables at 1 KB a segment (256 threads x one float)
+    limit = ones_privatisation_limit(H100)
+    assert limit == 200
+    assert ones_plan(10 ** 6, limit).regime == "private"
+    assert ones_plan(10 ** 6, limit + 1).regime == "direct"
+    # at 200 KB of tables an SM holds one block
+    assert ones_plan(10 ** 9, limit).blocks == H100.sms
+    # fewer than 4 edges a segment do not pay for the tables' flush
+    assert ones_plan(4 * 27, 27) == OnesPlan("private", 1, 0)
+    assert ones_plan(4 * 27 - 1, 27).regime == "direct"
+    assert ones_plan(1, 1) == OnesPlan("direct", 1, 0)
+    # a card with 48 KB per block has room for 48 segments
+    small = Card(sms=132, smem_block=48 * 1024, smem_sm=100 * 1024)
+    assert ones_privatisation_limit(small) == 48
+    assert ones_plan(10 ** 6, 49, small).regime == "direct"
+    # the ops wrapper counts K1's launches by regime
+    ops.ONES_REGIMES["private"] = 2
+    ops.reset_counts()
+    assert ops.ONES_REGIMES == {"direct": 0, "private": 0}
 
 
 # The card's regime edges at small size: one segment, widths not a multiple
@@ -200,6 +270,82 @@ def test_bdeu_matches_jax(b, q, r, ess):
             rtol=1e-4, atol=1e-2)
     np.testing.assert_allclose(
         bdeu_score_batch(torch.from_numpy(nijk), ess).numpy(), got)
+
+
+def _kernel_order(nijk: torch.Tensor, ess: float, chunk: int) -> torch.Tensor:
+    """The sum as ``csrc/bdeu.cu`` orders it: rows in chunks of ``chunk``
+    (a power of two), lane ``j % 256`` adding row ``j``'s total for the
+    rows below q only, then the pairwise tree without the levels whose
+    upper half holds only lanes that got no row."""
+    from repro_torch.kernels import bdeu as kb
+    b, q, r = nijk.shape
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    aj, ajk = f32(ess / q), f32(ess / (q * r))
+    cell = kb.lgamma_f32(nijk + ajk) - kb.lgamma_f32(ajk)
+    nij, terms = nijk[..., 0], cell[..., 0]
+    for k in range(1, r):
+        nij = nij + nijk[..., k]
+        terms = terms + cell[..., k]
+    per_j = (kb.lgamma_f32(aj) - kb.lgamma_f32(nij + aj)) + terms
+    acc = torch.zeros(b, 256)
+    for base in range(0, q, chunk):
+        for j in range(base, min(base + chunk, q)):
+            acc[:, j % 256] = acc[:, j % 256] + per_j[:, j]
+    live, width = min(q, 256), 256
+    while width > 1:            # a level over lanes past `live` is left out
+        width //= 2
+        acc = acc[:, :width] + acc[:, width:] if live > width else \
+            acc[:, :width]
+    return acc[:, 0]
+
+
+@pytest.mark.parametrize("kind", ["zeros", "tiny", "large"])
+@pytest.mark.parametrize("q,r", [(1, 3), (2, 1), (31, 2), (32, 3),
+                                 (33, 8), (36, 3), (255, 2), (256, 3)])
+def test_bdeu_rows_narrow_lanes(kind, q, r):
+    """The proof the kernel's order leans on: leaving out the padding's
+    additions of +0.0 changes no bit.  ``_bdeu_rows`` over any power of
+    two of lanes at least q (where the dropped lanes hold only +0.0) gives
+    the bits of its 256 lanes, and so does the kernel's chunked order,
+    which adds only the rows below q, at every chunk size it can take.
+    All-zero families, counts of a few, and counts above 2^20."""
+    from repro_torch.kernels.bdeu import LANES, _bdeu_rows
+    rng = np.random.default_rng(q * 100 + r)
+    b = 3
+    if kind == "zeros":
+        nijk = np.zeros((b, q, r), np.float32)
+    elif kind == "tiny":
+        nijk = rng.integers(0, 3, size=(b, q, r)).astype(np.float32)
+    else:
+        nijk = rng.integers(2 ** 20, 2 ** 24, size=(b, q, r)).astype(
+            np.float32)
+        nijk *= rng.random((b, q, r)) < 0.8
+    x = torch.from_numpy(nijk)
+    for ess in (1.0, 10.0):
+        want = _bdeu_rows(x, ess / q, ess / (q * r)).numpy()
+        lanes = LANES
+        while lanes >= q:
+            got = _bdeu_rows(x, ess / q, ess / (q * r), lanes=lanes)
+            assert got.numpy().tobytes() == want.tobytes(), (lanes, ess)
+            lanes //= 2
+        for chunk in (1, 2, 32, 256, 1024):
+            got = _kernel_order(x, ess, chunk)
+            assert got.numpy().tobytes() == want.tobytes(), (chunk, ess)
+
+
+@pytest.mark.parametrize("q,r,chunk", [(257, 3, 256), (1000, 2, 1024),
+                                       (600, 33, 128)])
+def test_bdeu_chunked_order_past_one_block(q, r, chunk):
+    """More rows than lanes: the kernel's chunks (256 rows, 1,024 rows, or
+    fewer where r is wide) keep each lane's rows in the plain version's
+    order, bit for bit."""
+    from repro_torch.kernels.bdeu import bdeu_plain
+    rng = np.random.default_rng(q + r)
+    nijk = rng.integers(0, 40, size=(2, q, r)).astype(np.float32)
+    nijk *= rng.random((2, q, r)) < 0.6
+    x = torch.from_numpy(nijk)
+    assert _kernel_order(x, 1.0, chunk).numpy().tobytes() == \
+        bdeu_plain(x, 1.0).numpy().tobytes()
 
 
 def test_bdeu_large_counts():
