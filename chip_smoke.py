@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the last line is printed):
               ``nvidia-smi`` name / power limit.
 2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
               and prints the build time and ``ptxas`` register, shared
-              memory and spill lines; fails if the Hopper attention kernel,
-              K2's two kernels, K1's four or K4's spill
+              memory and spill lines; fails if K6's Hopper and mma.sync
+              kernels, K2's two kernels, K1's four, K4's or K3's two spill
               (``NO_SPILL_KERNELS``), or if K4's branch-free division or
               frexp gives other bits than the correctly rounded operation
               anywhere in its domain (``bdeu.check_division``, exhaustive).
@@ -50,7 +50,10 @@ Phases (any failure exits non-zero before the last line is printed):
               regime sliced and not, the privatised one where P allows
               it), its device time split by event (the zeroing apart from
               the scatter); K4 also
-              at ``K4_SCALING``, where its lgammas bind.
+              at ``K4_SCALING``, where its lgammas bind; K3 also at
+              ``K3_SCALING``, where its bytes bind (bit for bit on counts
+              above 2^24, its device time beside the bound and
+              ``matmul(T, X)``'s).
 5. parity   — model discovery on the full UW stand-in, HYBRID over sparse
               and over dense, on the card and on the CPU: edge-identical.
 6. hist     — K5's path: the weighted segment histogram at the three
@@ -64,10 +67,13 @@ Phases (any failure exits non-zero before the last line is printed):
               ``Sq = Skv`` in ``K6_EDGE_LENGTHS``, causal and not, and
               ``Sq != Skv`` (``K6_EDGE_RAGGED``, not causal); 16 query
               heads over 1, 2 or 16 KV heads; batch 1 and 3; hd 128 (the
-              Hopper kernel) and 64 (the mma.sync kernel).  One line per
-              shape: the shape, the kernel the C entry chose, max_abs_err.
-              K6's row in the kernels line keeps each kernel's largest
-              error apart (``max_abs_err_by_route``).
+              Hopper kernel), 64, 192 and 256 (the mma.sync kernel) and 160
+              (the CUDA-core kernel); and the same in float32
+              (``K6_F32_TOL``) at hd 160, 192, 256 and 512 (the CUDA-core
+              kernel's limit).  One line per shape: the shape, the kernel
+              the C entry chose, max_abs_err.  K6's row in the kernels line
+              keeps each kernel's largest error apart
+              (``max_abs_err_by_route``, float32's under its own key).
 8. lm       — Qwen2.5-3B serving at its published full size (36 layers,
               d_model 2048, 16/2 heads, vocab 151,936, bf16; random weights
               from generator seed 0).  (c) prefill/decode consistency at
@@ -106,6 +112,16 @@ Phases (any failure exits non-zero before the last line is printed):
               (``ones_alternatives``).  One
               line per shape (K1's with the regime chosen); the phase's
               seconds.
+11. nemotron — Nemotron-4-340B serving at its published width (d_model
+              18,432, 96/8 heads, hd 192, d_ff 73,728 squared-ReLU, vocab
+              256,000, bf16; random weights from generator seed 0), its 96
+              layers cut to ``NEMOTRON_LAYERS`` = 4 so that one card holds
+              them: prefill/decode consistency as in phase 8 (c), a prefill
+              of 2 x 4,096 tokens with K6 launched once per layer on the
+              mma.sync route, 16 greedy decode steps (prefill tokens/s,
+              decode ms a step, peak memory); K6 against its plain version
+              on layer 0's q, k, v, timed against SDPA and its bound (the
+              ``nemotron`` entry of K6's kernels-line row).
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -146,10 +162,11 @@ K2_KERNEL_NAMES = ("rows_private_kernel", "rows_direct_kernel")
 # phase 2 holds to 0 bytes spilled.
 K1_KERNEL_NAMES = ("segsum_ones",)
 K4_KERNEL_NAMES = ("bdeu_",)
-NO_SPILL_KERNELS = ("flash_wgmma", "rows_private_kernel",
+NO_SPILL_KERNELS = ("flash_wgmma", "flash_mma", "rows_private_kernel",
                     "rows_direct_kernel", "segsum_ones_direct_kernel",
                     "segsum_ones_sliced_kernel", "segsum_ones_private_kernel",
-                    "segsum_ones_zero_kernel", "bdeu_chunk_kernel")
+                    "segsum_ones_zero_kernel", "bdeu_chunk_kernel",
+                    "mobius_reg_kernel", "mobius_tile_kernel")
 # K4's edge shapes (phase 10): q either side of a warp, of the 256 lanes
 # and past one chunk; r from one column to a chunk that no longer fits
 # 256 rows' lgammas (33); B of one family, the IMDb largest call's 9 and
@@ -160,6 +177,12 @@ K4_EDGE_R = (1, 2, 3, 8, 33)
 K4_EDGE_B = (1, 9, 200)
 K4_EDGE_ESS = (1.0, 10.0)
 K4_SCALING = (64, 4096, 4)
+# K3's shapes where its bytes bind (phase 4), [B, 2^k, D]: the register
+# path at k = 3 and k = 5 with 128 MB in, the shared-memory path at k = 8,
+# and the batched negative phase's stack of many families of a
+# 2-relationship chain over three 12-valued attributes.
+K3_SCALING = ((1, 8, 1 << 22), (1, 32, 1 << 20), (1, 256, 1 << 16),
+              (1024, 4, 1728))
 # K1's edge shapes (phase 10): segment counts besides the privatisation
 # limit and either side of it (which the phase adds), up to the IMDb hops'
 # 10.8M; edge counts either side of a block's 256 threads and the IMDb
@@ -192,14 +215,24 @@ LM_CHECK_BATCH, LM_CHECK_LEN = 2, 256
 # their max abs value.
 K6_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 # K6's edge shapes (phase 7): lengths either side of its 64- and 128-row
-# tiles, and a query length unlike the key length.
+# tiles, and a query length unlike the key length; in bf16 at the head
+# dims of each route (128 the Hopper kernel; 64, 192 and 256 mma.sync; 160
+# the CUDA-core kernel), and in float32 (the CUDA-core kernel) above 128 up
+# to its limit of 512.
 K6_EDGE_LENGTHS = (1, 64, 127, 128, 129, 300, 1000)
 K6_EDGE_RAGGED = (200, 333)
 K6_EDGE_HEADS, K6_EDGE_KV_HEADS = 16, (1, 2, 16)
-K6_EDGE_BATCHES, K6_EDGE_HDS = (1, 3), (128, 64)
+K6_EDGE_BATCHES, K6_EDGE_HDS = (1, 3), (128, 64, 160, 192, 256)
+K6_EDGE_F32_HDS = (160, 192, 256, 512)
 K6_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 LM_PREFILL_TOL = 0.02
 LM_DECODE_TOL = 0.05
+# Nemotron-4-340B serving (phase 11) at its published width; depth cut from
+# 96 to 4 layers so that one H100 holds the weights (37.1 GB of bf16; all
+# 96 would be about 672 GB).
+NEMOTRON_ARCH = "nemotron-4-340b"
+NEMOTRON_LAYERS = 4
+NEMOTRON_BATCH, NEMOTRON_PROMPT, NEMOTRON_NEW = 2, 4096, 16
 
 
 def log(msg: str) -> None:
@@ -534,6 +567,50 @@ def k4_scaling_reading(ops) -> dict:
     return reading
 
 
+def k3_reading(ops, x: torch.Tensor) -> dict:
+    """K3 on ``x [B, 2^k, D]``: bit for bit against its plain version
+    (compared as int32), its time beside the bound and ``matmul(T, X)``'s
+    (timing only: its rounding differs above 2^24)."""
+    from repro_torch.kernels.mobius import mobius_matrix, mobius_plain
+    bsz, height, d = x.shape
+    k = height.bit_length() - 1
+    got, want = ops.mobius(x), mobius_plain(x)
+    shape = f"B={bsz} 2^k={height} D={d}"
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"mobius at {shape} is not bit-identical to its plain version")
+    err = float((got - want).abs().max())
+    del got, want
+    tmat = mobius_matrix(k).to(x.device)
+    b_ms, b_by = bound_ms(8.0 * x.numel(), bsz * d * k * (height // 2))
+    return dict(shape=shape, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                ms=cuda_ms(lambda: ops.mobius(x)),
+                device_ms=device_ms(lambda: ops.mobius(x)),
+                library_ms=cuda_ms(lambda: torch.matmul(tmat, x)),
+                library_device_ms=device_ms(lambda: torch.matmul(tmat, x)))
+
+
+def k3_scaling_reading(ops) -> list:
+    """K3 at ``K3_SCALING``, where its bytes bind: counts in [0, 2^30) from
+    a seeded generator (above 2^24, so only the plain version's order of
+    subtractions gives its bits), one :func:`k3_reading` each."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    readings = []
+    for b, r, d in K3_SCALING:
+        x = torch.randint(0, 1 << 30, (b, r, d), generator=gen,
+                          device="cuda").float()
+        reading = k3_reading(ops, x)
+        log(f"K3 where its bytes bind [{reading['shape']}]: bit for bit; "
+            f"device {reading['device_ms']} ms (events "
+            f"{reading['ms']:.4f}), matmul(T, X) device "
+            f"{reading['library_device_ms']} ms (events "
+            f"{reading['library_ms']:.4f}), bound {reading['bound_ms']:.5f} "
+            f"ms ({reading['bound_by']}); device / bound "
+            f"{(reading['device_ms'] or float('nan')) / reading['bound_ms']:.2f}")
+        readings.append(reading)
+        del x
+    return readings
+
+
 def log_row(row: dict) -> None:
     log(f"kernel {row['name']} [{row['shape']}]: {row['ms']:.4f} ms "
         f"(device {row['device_ms']}), plain {row['plain_ms']:.4f} ms "
@@ -670,51 +747,58 @@ def layer0_qkv(model, tokens):
                                           tokens.shape[1]))
 
 
-def check_k6_bf16(ops, q, k, v, label: str, causal: bool = True) -> float:
-    """K6 against its plain version on bf16 ``q, k, v``; the max abs
-    error."""
+def check_k6(ops, q, k, v, label: str, causal: bool = True) -> float:
+    """K6 against its plain version on ``q, k, v`` (``K6_BF16_TOL`` in
+    bf16, ``K6_F32_TOL`` in float32); the max abs error."""
     from repro_torch.kernels.attention import flash_attention_plain
+    tol = K6_BF16_TOL if q.dtype == torch.bfloat16 else K6_F32_TOL
     got = ops.flash_attention(q, k, v, causal=causal)
     want = flash_attention_plain(q, k, v, causal=causal)
     err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), **K6_BF16_TOL):
-        fail(f"K6 (bf16, {label}) outside {K6_BF16_TOL} of its plain "
-             f"version (max_abs_err {err})")
+    if not torch.allclose(got.float(), want.float(), **tol):
+        fail(f"K6 ({q.dtype}, {label}) outside {tol} of its plain version "
+             f"(max_abs_err {err})")
     return err
 
 
 def k6_edge_phase(ops) -> dict:
     """7. K6 against its plain version on the edge shapes; the largest max
-    abs error of each route (kernel) that the shapes took."""
+    abs error of each route (kernel) that the shapes took, float32's
+    apart."""
     from repro_torch.kernels.attention import flash_attention_route
     gen = torch.Generator(device="cuda").manual_seed(2)
     shapes = [(sq, sq, c) for sq in K6_EDGE_LENGTHS for c in (True, False)]
     shapes.append((*K6_EDGE_RAGGED, False))
+    cases = ([(torch.bfloat16, hd) for hd in K6_EDGE_HDS]
+             + [(torch.float32, hd) for hd in K6_EDGE_F32_HDS])
     h, errs, by_route = K6_EDGE_HEADS, [], {}
+    t0 = time.perf_counter()
     ops.reset_counts()
-    for hd in K6_EDGE_HDS:
-        route = flash_attention_route(torch.bfloat16, hd)
+    for dtype, hd in cases:
+        route = flash_attention_route(dtype, hd)
+        key = route if dtype == torch.bfloat16 else f"{route} float32"
         for b in K6_EDGE_BATCHES:
             for hk in K6_EDGE_KV_HEADS:
                 for sq, skv, causal in shapes:
                     q = torch.randn((b, sq, h, hd), generator=gen,
-                                    device="cuda").bfloat16()
+                                    device="cuda").to(dtype)
                     k, v = (torch.randn((b, skv, hk, hd), generator=gen,
-                                        device="cuda").bfloat16()
+                                        device="cuda").to(dtype)
                             for _ in range(2))
                     label = (f"B={b} Sq={sq} Skv={skv} H={h} Hkv={hk} "
-                             f"hd={hd} {'causal' if causal else 'full'}")
-                    errs.append(check_k6_bf16(ops, q, k, v, label, causal))
-                    by_route[route] = max(by_route.get(route, 0.0),
-                                          errs[-1])
+                             f"hd={hd} {'causal' if causal else 'full'} "
+                             f"{str(dtype)[6:]}")
+                    errs.append(check_k6(ops, q, k, v, label, causal))
+                    by_route[key] = max(by_route.get(key, 0.0), errs[-1])
                     log(f"k6 edge {label}: {route}, max_abs_err "
                         f"{errs[-1]}")
     sync()
     if ops.LAUNCHES["flash_attention"] != len(errs):
         fail(f"k6 edges: {ops.LAUNCHES['flash_attention']} launches for "
              f"{len(errs)} shapes")
-    log(f"k6 edges: {len(errs)} shapes within {K6_BF16_TOL} of the plain "
-        f"version, largest max_abs_err by route {by_route}")
+    log(f"k6 edges: {len(errs)} shapes within {K6_BF16_TOL} (bf16) or "
+        f"{K6_F32_TOL} (float32) of the plain version, largest max_abs_err "
+        f"by route {by_route}; {time.perf_counter() - t0:.1f} s")
     return by_route
 
 
@@ -1014,7 +1098,7 @@ def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
     del cache, logits
     # K6 against its plain version at the long prefill's shape
     q, k, v = layer0_qkv(model, long_tokens)
-    err_long = check_k6_bf16(ops, q, k, v, f"1 x {LM_LONG}")
+    err_long = check_k6(ops, q, k, v, f"1 x {LM_LONG}")
     log(f"K6 against its plain version on layer 0 of the long prefill "
         f"(B=1 S={LM_LONG}): bf16 max_abs_err {err_long} (tolerance "
         f"{K6_BF16_TOL})")
@@ -1049,18 +1133,12 @@ def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
     # (b) K6 against its plain version on layer 0's q, k, v of the main
     # prefill
     q, k, v = layer0_qkv(model, prompts)
-    err = check_k6_bf16(ops, q, k, v, f"{LM_BATCH} x {LM_PROMPT}")
-    qf, kf, vf = q.float(), k.float(), v.float()
-    got32 = ops.flash_attention(qf, kf, vf, causal=True)
-    want32 = flash_attention_plain(qf, kf, vf, causal=True)
-    err32 = float((got32 - want32).abs().max())
-    if not torch.allclose(got32, want32, **K6_F32_TOL):
-        fail(f"K6 (float32) outside {K6_F32_TOL} of its plain version "
-             f"(max_abs_err {err32})")
+    err = check_k6(ops, q, k, v, f"{LM_BATCH} x {LM_PROMPT}")
+    err32 = check_k6(ops, q.float(), k.float(), v.float(),
+                     f"{LM_BATCH} x {LM_PROMPT}")
     log(f"K6 against its plain version on layer 0 of the main prefill: "
         f"bf16 max_abs_err {err} (tolerance {K6_BF16_TOL}), float32 "
         f"max_abs_err {err32} (tolerance {K6_F32_TOL})")
-    del got32, want32, qf, kf, vf
     b, s, h, hd = q.shape
     hk = k.shape[2]
     by_route = dict(edge_errs)
@@ -1089,6 +1167,133 @@ def lm_phase(ops, kind: str, edge_errs: dict) -> dict:
     del model, q, k, v, prompts
     torch.cuda.empty_cache()
     return row
+
+
+def nemotron_phase(ops, smi: str) -> dict:
+    """11. Nemotron-4-340B serving at its published width (d_model 18,432,
+    96/8 heads, hd 192, d_ff 73,728 squared-ReLU, vocab 256,000, bf16,
+    random weights from generator seed 0), ``NEMOTRON_LAYERS`` of its 96
+    layers: prefill/decode consistency (as phase 8's (c)); a prefill of
+    ``NEMOTRON_BATCH`` x ``NEMOTRON_PROMPT`` tokens, K6 launched once per
+    layer on the mma.sync route, then ``NEMOTRON_NEW`` greedy decode steps,
+    and the prefill once more under ``torch.profiler``;
+    K6 against its plain version on layer 0's q, k, v and timed against
+    SDPA and its bound.  Returns that K6 reading (a second shape for K6's
+    kernels-line row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import flash_attention_route
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(NEMOTRON_ARCH)
+    cfg = full.replace(n_layers=NEMOTRON_LAYERS)
+    route = flash_attention_route(cfg.act_dtype(), cfg.hd)
+    if route != "mma.sync":
+        fail(f"K6 takes the {route} route at hd {cfg.hd}, not mma.sync")
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"nemotron: {NEMOTRON_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff} {cfg.mlp}, vocab {cfg.vocab}, {cfg.dtype}); n_layers "
+        f"cut from {full.n_layers} to {cfg.n_layers} so that one card holds "
+        f"the weights: {n_params} parameters, initialised in "
+        f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated()} B, max during init "
+        f"{torch.cuda.max_memory_allocated()} B; K6 route at hd {cfg.hd}: "
+        f"{route}")
+
+    lm_consistency(model, ops)
+
+    b, s, n_new = NEMOTRON_BATCH, NEMOTRON_PROMPT, NEMOTRON_NEW
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s), dtype=np.int64)).cuda()
+    cache = model.init_cache(b, s + n_new)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    k6_launches = ops.LAUNCHES["flash_attention"]
+    tok = logits.argmax(dim=-1)[:, None]
+    out, steps = [tok], []
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"token": tok,
+                                                  "pos": s + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        out.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t1)
+    t_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, dim=1)
+    log(f"nemotron main run: prefill {b} x {s} tokens in {t_prefill:.4f} s "
+        f"({b * s / t_prefill:.1f} tok/s); {n_new} decode steps x {b} "
+        f"requests in {t_decode:.4f} s ({1e3 * t_decode / n_new:.3f} "
+        f"ms/step; first {1e3 * steps[0]:.3f}, median "
+        f"{1e3 * sorted(steps)[len(steps) // 2]:.3f} ms); "
+        f"max_memory_allocated {peak} B; K6 launches {k6_launches} "
+        f"({route}); first tokens {gen[0, :8].tolist()}; on {smi}")
+    if k6_launches != cfg.n_layers:
+        fail(f"the nemotron prefill launched K6 {k6_launches} times, not "
+             f"{cfg.n_layers}")
+    if ops.PLAIN_CALLS["flash_attention"]:
+        fail("the plain attention ran on the card")
+    if not torch.isfinite(logits).all() or logits.shape != (b, cfg.vocab):
+        fail(f"nemotron main run: bad decode logits {tuple(logits.shape)}")
+    if gen.shape != (b, n_new + 1) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail("nemotron main run: generated tokens out of range")
+    # the prefill once more under the profiler: where its time goes
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": prompts}, cache)
+        sync()
+    log_profile("nemotron prefill profile", prof, time.perf_counter() - t0)
+    del cache, logits, prof
+
+    q, k, v = layer0_qkv(model, prompts)
+    del model
+    err = check_k6(ops, q, k, v, f"nemotron {b} x {s}")
+    hq, hd = q.shape[2], q.shape[3]
+    flops = 4.0 * b * hq * hd * s * (s + 1) / 2      # causal pairs only
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    reading = dict(
+        shape=f"B={b} S={s} H={hq} Hkv={k.shape[2]} hd={hd} causal bf16 "
+              f"(nemotron-4-340b layer 0)",
+        route=route, launches=k6_launches, max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        device_ms=device_ms(lambda: ops.flash_attention(q, k, v,
+                                                        causal=True), reps=5),
+        library_ms=cuda_ms(sdpa_call(q, k, v)),
+        library_device_ms=device_ms(sdpa_call(q, k, v), reps=5),
+        prefill_s=t_prefill, prefill_tokens_per_s=b * s / t_prefill,
+        decode_ms_per_step=1e3 * t_decode / n_new, peak_bytes=peak)
+    log(f"K6 on nemotron layer 0 [{reading['shape']}]: {route}, max_abs_err "
+        f"{err} (tolerance {K6_BF16_TOL}); device {reading['device_ms']} ms "
+        f"(events {reading['ms']:.4f}), SDPA device "
+        f"{reading['library_device_ms']} ms (events "
+        f"{reading['library_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}); K6 "
+        f"share of the prefill {k6_launches} x {reading['ms']:.4f} ms = "
+        f"{100 * k6_launches * reading['ms'] / 1e3 / t_prefill:.2f} %; on "
+        f"{smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    del q, k, v, prompts
+    torch.cuda.empty_cache()
+    return reading
 
 
 def main() -> None:
@@ -1264,6 +1469,7 @@ def main() -> None:
         bound_ms=b_ms, bound_by=b_by,
         **timings(lambda: ops.mobius(x), lambda: mobius_plain(x),
                   lambda: torch.matmul(tmat, x)),
+        scaling=k3_scaling_reading(ops),
         shape=f"B={bsz} 2^k={height} D={d}"))
     if err != 0.0:
         fail(f"mobius differs from its plain version by {err}")
@@ -1325,6 +1531,15 @@ def main() -> None:
 
     # -- 10. K4's and K1's edge shapes ----------------------------------------
     k1k4_edge_phase(ops)
+
+    # -- 11. Nemotron-4-340B serving (hd 192: K6's mma.sync route) -----------
+    k6_row = next(row for row in rows if row["name"] == "flash_attention")
+    nemo = nemotron_phase(ops, smi)
+    by_route = k6_row["max_abs_err_by_route"]
+    by_route[nemo["route"]] = max(by_route.get(nemo["route"], 0.0),
+                                  nemo["max_abs_err"])
+    k6_row["max_abs_err"] = max(by_route.values())
+    k6_row["nemotron"] = nemo
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

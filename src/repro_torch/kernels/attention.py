@@ -13,7 +13,8 @@ keys: every key below ``Skv`` counts and no other does, causal or not.
 
 The CUDA kernels are in ``csrc/attention.cu``: a Hopper kernel (TMA,
 ``wgmma``, warp specialisation) for bf16 with ``hd == 128``, ``mma.sync``
-for bf16 with ``hd`` in {16, 32, 64}, and a CUDA-core kernel for the rest;
+for bf16 with ``hd`` in {16, 32, 64, 192, 256}, and a CUDA-core kernel for
+the rest up to ``hd == MAX_HD`` (float32 at any such ``hd``);
 :func:`flash_attention_route` names the one a call takes.  The plain
 version below computes the same function in float32 chunks of query rows,
 so a ``[B, H, Sq, Skv]`` score matrix is never held whole;
@@ -31,6 +32,9 @@ PLAIN_CHUNK = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the C entry's route codes (``flash_attention_route`` in attention.cu)
 ROUTES = ("cuda-core", "mma.sync", "wgmma")
+#: the largest head dim the CUDA kernels take: the CUDA-core kernel's
+#: largest column budget (``kMaxSimtHD`` in attention.cu)
+MAX_HD = 512
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -41,14 +41,26 @@
 //    turns issuing (named barriers), so one's softmax overlaps the other's
 //    products.  168 registers at launch, 40 for the producer and 232 for
 //    each consumer after setmaxnreg; 165 KB of shared memory; no spills.
-//  * bf16 with hd in {16, 32, 64}: one CTA of 4 warps per (64 query rows,
-//    head, batch), mma.sync m16n8k16 with Q fragments held in registers,
-//    64-key K/V tiles staged synchronously in shared memory (rows padded by
-//    8 elements against bank conflicts), V through ldmatrix.trans.
-//  * float32, or bf16 with another hd <= 128: a CUDA-core kernel, 16 query
-//    rows per CTA, one key per lane per 32-key tile staged in shared memory
-//    as float32; the same online softmax with expf.  It exists for the
-//    float32 check, not for speed.
+//  * bf16 with hd in {16, 32, 64, 192, 256}: one CTA of 4 warps per (64
+//    query rows, head, batch), mma.sync m16n8k16.  Q, K and V tiles are
+//    staged synchronously in dynamic shared memory (rows padded by 8
+//    elements, so each ldmatrix's 8 rows fall in distinct banks; 64-key K/V
+//    tiles, 32-key above hd 128), and every operand fragment comes from
+//    there by ldmatrix (V transposed).  Q's fragments are held in registers
+//    up to hd 64 and read again at each k-step above it: at hd 256 holding
+//    them would take 64 registers a thread beside O's 128.  No spills: 72,
+//    80 and 129 registers at hd 16, 32 and 64, 168 at 192, 237 at 256.
+//    hd 192 is Nemotron-4-340B's head size; 256 is the widest that the TPU
+//    kernel's padding to a multiple of 128 reaches in any registered config.
+//    Up to 67.6 KB of shared memory (hd 256), so the limit is raised once
+//    per instantiation.
+//  * float32 at any hd up to 512, or bf16 with another hd: a CUDA-core
+//    kernel, 16 query rows per CTA, one key per lane per 32-key tile staged
+//    in dynamic shared memory as float32; the same online softmax with expf.
+//    It is templated on a column budget of 128, 256 or 512 (the output
+//    columns each lane keeps in registers); its tiles take 164 KB at hd 512,
+//    and hd above 512 is refused.  It exists for the float32 check and the
+//    odd head sizes, not for speed.
 // Every route skips key tiles wholly above the diagonal when causal.
 //
 // The kernels allocate nothing and launch on the caller's stream; the entry
@@ -68,10 +80,21 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
 
-// ------------------------------------------- mma.sync path (hd <= 64) ----
+// ------------------------- mma.sync path (bf16, hd 16/32/64/192/256) ----
 
 constexpr int kMmaBQ = 64;   // query rows per CTA, 16 per warp
-constexpr int kMmaBK = 64;   // keys per shared-memory tile
+
+// Keys per shared-memory tile: 64, or 32 above hd 128, where O's
+// accumulators (hd / 2 registers a thread) leave less room for S and P.
+template <int HD>
+__host__ __device__ constexpr int mma_bk() { return HD > 128 ? 32 : 64; }
+
+// Dynamic shared memory of flash_mma_kernel<HD>: the Q, K and V tiles at
+// row stride HD + 8 elements.
+template <int HD>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return (kMmaBQ + 2 * mma_bk<HD>()) * (HD + 8) * 2;
+}
 
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
                                           const uint32_t* b) {
@@ -82,12 +105,22 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
+// Four 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i; `trans` transposes each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
                                                   const void* smem) {
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
 
@@ -96,19 +129,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy `kMmaBK` rows of HD bf16 (row stride `stride` elements) into shared
+// Copy ROWS rows of HD bf16 (row stride `stride` elements) into shared
 // memory with row stride HD + 8; rows at or past n_valid are zero-filled.
-template <int HD>
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* sm,
                                           const __nv_bfloat16* g,
                                           int64_t stride, int64_t n_valid) {
   constexpr int kVec = HD / 8;  // 16-byte vectors per row
   constexpr int LD = HD + 8;
-  for (int i = threadIdx.x; i < kMmaBK * kVec; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < n_valid)
@@ -117,6 +146,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sm,
   }
 }
 
+// One CTA of 4 warps per (64 query rows, head, batch); warp w owns rows
+// 16w..16w+15.  Q, K and V tiles sit in dynamic shared memory (rows padded
+// by 8 elements, so the 8 rows an ldmatrix reads fall in distinct banks).
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -125,14 +157,17 @@ __global__ void __launch_bounds__(kThreads)
                      __nv_bfloat16* __restrict__ out, int64_t sq,
                      int64_t skv, int64_t n_heads, int64_t n_kv_heads,
                      int causal, float scale) {
+  constexpr int BK = mma_bk<HD>();
   constexpr int LD = HD + 8;
   constexpr int KSTEPS = HD / 16;      // depth steps of S = Q K^T
   constexpr int DTILES = HD / 8;       // 8-column tiles of O
-  constexpr int NTILES = kMmaBK / 8;   // 8-key tiles of S
+  constexpr int NTILES = BK / 8;       // 8-key tiles of S
   static_assert(kMmaBQ == 64 && kThreads == 128, "4 warps of 16 rows");
-  static_assert(kMmaBQ <= kMmaBK, "the Q tile is staged in the K buffer");
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaBK * LD];
+  static_assert(HD % 16 == 0 && BK % 16 == 0, "whole mma steps");
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* ks = qs + kMmaBQ * LD;
+  __nv_bfloat16* vs = ks + BK * LD;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -143,19 +178,24 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t q_stride = n_heads * HD, kv_stride = n_kv_heads * HD;
   const float scale2 = scale * kLog2e;   // softmax in base 2
 
-  // Q tile -> shared (through the K buffer) -> A fragments for the loop.
-  load_tile<HD>(ks, q + ((b * sq + q0) * n_heads + h) * HD, q_stride,
-                sq - q0);
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];
-  const int r_lo = warp * 16 + g;   // this thread's rows: r_lo, r_lo + 8
+  load_tile<HD, kMmaBQ>(qs, q + ((b * sq + q0) * n_heads + h) * HD, q_stride,
+                        sq - q0);
+  // ldmatrix row addresses: this warp's 16 Q rows (A fragments), 16 keys
+  // of K for two 8-key tiles (B fragments of S), 16 keys of V for two
+  // 8-column tiles (B fragments of P V, transposed)
+  const __nv_bfloat16* qa = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  const __nv_bfloat16* ka = ks + ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                            ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* va = vs + (lane & 15) * LD + (lane >> 4) * 8;
+
+  // Up to hd 64 Q's fragments (hd / 4 registers) are held for the whole
+  // loop; above it each k-step reads its fragment from shared memory.
+  constexpr bool kHoldQ = HD <= 64;
+  uint32_t q_held[kHoldQ ? KSTEPS : 1][4];
+  if constexpr (kHoldQ) {
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const __nv_bfloat16* p = ks + r_lo * LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld_u32(p);
-    qf[kk][1] = ld_u32(p + 8 * LD);
-    qf[kk][2] = ld_u32(p + 8);
-    qf[kk][3] = ld_u32(p + 8 * LD + 8);
+    for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(q_held[kk], qa + kk * 16);
   }
 
   float acc[DTILES][4];
@@ -164,27 +204,37 @@ __global__ void __launch_bounds__(kThreads)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   float m_row[2] = {kNegInf, kNegInf};   // running max, base-2 units
   float l_row[2] = {0.f, 0.f};           // this thread's share of l
-  const int64_t row0 = q0 + r_lo;
+  const int64_t row0 = q0 + warp * 16 + g;   // and row0 + 8
   const int64_t kv_end =
       causal ? (skv < q0 + kMmaBQ ? skv : q0 + kMmaBQ) : skv;
 
   const __nv_bfloat16* kg = k + (b * skv * n_kv_heads + hk) * HD;
   const __nv_bfloat16* vg = v + (b * skv * n_kv_heads + hk) * HD;
-  for (int64_t k0 = 0; k0 < kv_end; k0 += kMmaBK) {
-    __syncthreads();   // the previous tile (or the Q tile) is consumed
-    load_tile<HD>(ks, kg + k0 * kv_stride, kv_stride, skv - k0);
-    load_tile<HD>(vs, vg + k0 * kv_stride, kv_stride, skv - k0);
+  for (int64_t k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();   // the previous tile is consumed
+    load_tile<HD, BK>(ks, kg + k0 * kv_stride, kv_stride, skv - k0);
+    load_tile<HD, BK>(vs, vg + k0 * kv_stride, kv_stride, skv - k0);
     __syncthreads();
 
     float s[NTILES][4];
 #pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) {
+    for (int nt = 0; nt < NTILES; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* p = ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t bf[2] = {ld_u32(p), ld_u32(p + 8)};
-        mma_16816(s[nt], qf[kk], bf);
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qf[4];
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qf[r] = q_held[kk][r];
+      } else {
+        ldmatrix_x4(qf, qa + kk * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < NTILES / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ka + np * 16 * LD + kk * 16);
+        mma_16816(s[2 * np], qf, bf);
+        mma_16816(s[2 * np + 1], qf, bf + 2);
       }
     }
 
@@ -213,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // P = exp(S - m): float32 into l, bf16 A fragments for P V
-    uint32_t pf[kMmaBK / 16][4];
+    uint32_t pf[BK / 16][4];
 #pragma unroll
     for (int nt = 0; nt < NTILES; ++nt) {
       const float p0 = exp2f(s[nt][0] - m_row[0]);
@@ -233,12 +283,13 @@ __global__ void __launch_bounds__(kThreads)
       acc[dt][3] *= corr[1];
     }
 #pragma unroll
-    for (int j = 0; j < kMmaBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
 #pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, vs + (j * 16 + (lane & 15)) * LD + dt * 8);
-        mma_16816(acc[dt], pf[j], bf);
+      for (int dp = 0; dp < DTILES / 2; ++dp) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, va + j * 16 * LD + dp * 16);
+        mma_16816(acc[2 * dp], pf[j], bf);
+        mma_16816(acc[2 * dp + 1], pf[j], bf + 2);
       }
     }
   }
@@ -676,7 +727,16 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 constexpr int kSimtBQ = 16;    // query rows per CTA, 4 per warp
 constexpr int kSimtBK = 32;    // keys per tile, one per lane
-constexpr int kMaxHD = 128;
+constexpr int kMaxSimtHD = 512;   // the largest column budget below
+
+// Dynamic shared memory of the CUDA-core kernel at head dim hd: Q, K (row
+// stride hd | 1, odd, so the lanes' rows fall in distinct banks) and V
+// tiles as float32.
+constexpr int simt_smem_bytes(int hd) {
+  return (kSimtBQ * hd + kSimtBK * (hd | 1) + kSimtBK * hd) * 4;
+}
+static_assert(simt_smem_bytes(kMaxSimtHD) <= 232448,
+              "the largest budget's tiles fit one CTA's shared memory");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -691,17 +751,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+// CB: the column budget (a multiple of 32, at least hd): each lane keeps
+// CB / 32 output columns of each of its warp's rows in registers.
+template <typename T, int CB>
 __global__ void __launch_bounds__(kThreads)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       int64_t sq, int64_t skv, int64_t n_heads,
                       int64_t n_kv_heads, int hd, int causal, float scale) {
   constexpr int RPW = kSimtBQ / (kThreads / 32);   // rows per warp
-  constexpr int CPL = kMaxHD / 32;                 // columns per lane
-  __shared__ float qs[kSimtBQ][kMaxHD];
-  __shared__ float ks[kSimtBK][kMaxHD + 1];        // +1: no bank conflicts
-  __shared__ float vs[kSimtBK][kMaxHD];
+  constexpr int CPL = CB / 32;                     // columns per lane
+  extern __shared__ float simt_smem[];
+  const int ldk = hd | 1;
+  float* qs = simt_smem;                   // [kSimtBQ][hd]
+  float* ks = qs + kSimtBQ * hd;           // [kSimtBK][ldk]
+  float* vs = ks + kSimtBK * ldk;          // [kSimtBK][hd]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t n_qblocks = (sq + kSimtBQ - 1) / kSimtBQ;
@@ -711,9 +775,9 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = threadIdx.x; i < kSimtBQ * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd;
-    qs[r][d] = q0 + r < sq
-                   ? to_f(q[((b * sq + q0 + r) * n_heads + h) * hd + d])
-                   : 0.f;
+    qs[i] = q0 + r < sq
+                ? to_f(q[((b * sq + q0 + r) * n_heads + h) * hd + d])
+                : 0.f;
   }
 
   float m[RPW], l[RPW], acc[RPW][CPL];
@@ -736,8 +800,8 @@ __global__ void __launch_bounds__(kThreads)
         kx = to_f(k[off]);
         vx = to_f(v[off]);
       }
-      ks[r][d] = kx;
-      vs[r][d] = vx;
+      ks[r * ldk + d] = kx;
+      vs[i] = vx;
     }
     __syncthreads();
     const int64_t key = k0 + lane;
@@ -745,7 +809,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < RPW; ++i) {
       const int r = warp * RPW + i;
       float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
+      for (int d = 0; d < hd; ++d)
+        s = fmaf(qs[r * hd + d], ks[lane * ldk + d], s);
       s *= scale;
       if (key >= skv || (causal && key > q0 + r)) s = kNegInf;
       float mx = s;
@@ -769,7 +834,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
           const int d = lane + 32 * c;
-          if (d < hd) acc[i][c] = fmaf(pj, vs[j][d], acc[i][c]);
+          if (d < hd) acc[i][c] = fmaf(pj, vs[j * hd + d], acc[i][c]);
         }
       }
     }
@@ -790,31 +855,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The launches set each kernel's dynamic shared-memory limit once (the
+// function-local static of each instantiation), then launch on `stream`.
 template <int HD>
-void launch_mma(const void* q, const void* k, const void* v, void* out,
-                int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-                int64_t n_kv_heads, int causal, float scale,
-                cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
+               int64_t n_kv_heads, int causal, float scale,
+               cudaStream_t stream) {
+  constexpr int kBytes = mma_smem_bytes<HD>();
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBytes);
+  if (allowed != cudaSuccess) return (int)allowed;
   const dim3 grid((unsigned)((sq + kMmaBQ - 1) / kMmaBQ), (unsigned)n_heads,
                   (unsigned)batch);
-  flash_mma_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  flash_mma_kernel<HD><<<grid, kThreads, kBytes, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, sq, skv, n_heads,
       n_kv_heads, causal, scale);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-void launch_simt(const void* q, const void* k, const void* v, void* out,
-                 int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-                 int64_t n_kv_heads, int hd, int causal, float scale,
-                 cudaStream_t stream) {
+template <typename T, int CB>
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
+                int64_t n_kv_heads, int hd, int causal, float scale,
+                cudaStream_t stream) {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_simt_kernel<T, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      simt_smem_bytes(CB));
+  if (allowed != cudaSuccess) return (int)allowed;
   const dim3 grid((unsigned)((sq + kSimtBQ - 1) / kSimtBQ),
                   (unsigned)n_heads, (unsigned)batch);
-  flash_simt_kernel<T><<<grid, kThreads, 0, stream>>>(
+  flash_simt_kernel<T, CB><<<grid, kThreads, simt_smem_bytes(hd), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, skv, n_heads,
       n_kv_heads, hd, causal, scale);
+  return (int)cudaGetLastError();
 }
 
+// The CUDA-core kernel at the smallest column budget that holds hd.
+template <typename T>
+int launch_simt_any(const void* q, const void* k, const void* v, void* out,
+                    int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
+                    int64_t n_kv_heads, int hd, int causal, float scale,
+                    cudaStream_t stream) {
+  if (hd <= 128)
+    return launch_simt<T, 128>(q, k, v, out, batch, sq, skv, n_heads,
+                               n_kv_heads, hd, causal, scale, stream);
+  if (hd <= 256)
+    return launch_simt<T, 256>(q, k, v, out, batch, sq, skv, n_heads,
+                               n_kv_heads, hd, causal, scale, stream);
+  return launch_simt<T, kMaxSimtHD>(q, k, v, out, batch, sq, skv, n_heads,
+                                    n_kv_heads, hd, causal, scale, stream);
+}
 
 using EncodeTiledFn = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -873,10 +966,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
       !make_map(encode, &tk, k, batch, skv, n_kv_heads) ||
       !make_map(encode, &tv, v, batch, skv, n_kv_heads))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
+  static const cudaError_t allowed = cudaFuncSetAttribute(
       flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
+  if (allowed != cudaSuccess) return (int)allowed;
   flash_wgmma_kernel<<<(unsigned)blocks, kWsThreads, kSmemBytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, (int)sq, (int)skv, (int)n_heads,
       (int)n_kv_heads, (int)n_hb, causal, scale);
@@ -886,17 +979,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // The kernel that flash_attention launches: 2 = the Hopper kernel (bf16,
-// hd 128), 1 = mma.sync (bf16, hd 16/32/64), 0 = the CUDA-core kernel,
-// -1 = none (invalid dtype or hd).
+// hd 128), 1 = mma.sync (bf16, hd 16/32/64/192/256), 0 = the CUDA-core
+// kernel (float32 at any hd, bf16 at the others), -1 = none (invalid dtype,
+// or hd outside [1, 512]).
 extern "C" int flash_attention_route(int64_t hd, int dtype) {
-  if (hd < 1 || hd > kMaxHD || (dtype != 0 && dtype != 1)) return -1;
+  if (hd < 1 || hd > kMaxSimtHD || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 0) return 0;
   if (hd == kHD) return 2;
-  return hd == 16 || hd == 32 || hd == 64 ? 1 : 0;
+  return hd == 16 || hd == 32 || hd == 64 || hd == 192 || hd == 256 ? 1 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, hd]; k, v [B, Skv, Hkv,
-// hd]; out [B, Sq, H, hd]; all contiguous, Hkv | H, 1 <= hd <= 128, Sq and
+// hd]; out [B, Sq, H, hd]; all contiguous, Hkv | H, 1 <= hd <= 512, Sq and
 // Skv >= 1; bf16 pointers 16-byte aligned.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t batch, int64_t sq,
@@ -912,21 +1006,25 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return launch_wgmma(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
                         causal, scale, st);
   if (route == 1) {
-    if (hd == 16)
-      launch_mma<16>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
-                     causal, scale, st);
-    else if (hd == 32)
-      launch_mma<32>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
-                     causal, scale, st);
-    else
-      launch_mma<64>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
-                     causal, scale, st);
-  } else if (dtype == 1) {
-    launch_simt<__nv_bfloat16>(q, k, v, out, batch, sq, skv, n_heads,
-                               n_kv_heads, (int)hd, causal, scale, st);
-  } else {
-    launch_simt<float>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
-                       (int)hd, causal, scale, st);
+    switch (hd) {
+#define MMA_CASE(D)                                                        \
+  case D:                                                                  \
+    return launch_mma<D>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads, \
+                         causal, scale, st);
+      MMA_CASE(16)
+      MMA_CASE(32)
+      MMA_CASE(64)
+      MMA_CASE(192)
+      MMA_CASE(256)
+#undef MMA_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1)
+    return launch_simt_any<__nv_bfloat16>(q, k, v, out, batch, sq, skv,
+                                          n_heads, n_kv_heads, (int)hd,
+                                          causal, scale, st);
+  return launch_simt_any<float>(q, k, v, out, batch, sq, skv, n_heads,
+                                n_kv_heads, (int)hd, causal, scale, st);
 }

@@ -33,7 +33,7 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     scale = scale if scale is not None else d_in ** -0.5
     w = torch.randn((d_in, d_out), generator=generator,
                     device=generator.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)      # in place: one float32 copy at most
 
 
 def embed_init(generator: torch.Generator, vocab: int, d_model: int,

@@ -146,6 +146,31 @@ def test_flash_attention_edge_shapes_match_jax_oracle(sq, skv, causal, b, hk,
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
+# Head dims above 128 (chip_smoke.py's phase 7 at hd 160, 192, 256): the
+# CUDA-core kernel at 160, mma.sync at Nemotron-4-340B's 192 and at 256, the
+# widest that the TPU kernel's padding to a multiple of 128 reaches; the
+# JAX kernel pads hd 160 and 192 to 256.  S is a multiple of the JAX
+# kernel's key block, where it is right when not causal.
+@pytest.mark.parametrize("hd", [160, 192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hk", [(4, 4), (6, 2)])
+def test_flash_attention_wide_heads_match_jax(hd, causal, h, hk):
+    b, s = 2, 48
+    q, k, v = _normal(hd + h + causal, (b, s, h, hd), (b, s, hk, hd),
+                      (b, s, hk, hd))
+    got = ops.flash_attention(*_t(q, k, v), causal=causal)
+    assert got.shape == (b, s, h, hd)
+    kr, vr = (np.repeat(a, h // hk, axis=2) for a in (k, v))
+    want = jops.flash_attention(*_j(q, kr, vr), causal=causal, block_q=16,
+                                block_k=16, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.flash_attention_ref(*_j(q, kr, vr),
+                                                         causal)),
+        rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_checks_shapes():
     q = torch.zeros(1, 8, 6, 16)
     with pytest.raises(ValueError):

@@ -68,6 +68,28 @@ def _pair(dtype):
     return jm, params, lm
 
 
+# A reduced Nemotron-4-340B at its head size, 192 (the published config's
+# 18,432 / 96): K6's mma.sync route on the card, and its squared-ReLU MLP
+# and KV grouping, here in float32 against the JAX LM.
+NEMOTRON = "nemotron-4-340b"
+NEMOTRON_HD192 = dict(n_layers=2, d_model=96, n_heads=4, n_kv_heads=2,
+                      head_dim=192, dtype="float32", param_dtype="float32")
+
+
+@functools.lru_cache(maxsize=None)
+def _nemotron_pair():
+    """(JAX model, its params, port model) for the reduced hd-192
+    Nemotron in float32."""
+    jcfg = jconfigs.get_reduced(NEMOTRON).replace(**NEMOTRON_HD192)
+    cfg = configs.get_reduced(NEMOTRON).replace(**NEMOTRON_HD192)
+    jm = jax_build_model(jcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    lm = build_model(cfg, device="cpu")
+    lm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
+                                       cfg))
+    return jm, params, lm
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_float32_of_bf16():
     """The JAX LM in float32 on the bf16 pair's weights, upcast exactly."""
@@ -221,6 +243,22 @@ def test_params_from_jax_fills_every_weight():
                                   np.asarray(params["blocks"]["mlp"].wg[1]))
 
 
+def test_nemotron_hd192_params_from_jax_fills_every_weight():
+    _, params, lm = _nemotron_pair()
+    cfg = lm.cfg
+    assert (cfg.hd, cfg.mlp, cfg.n_heads // cfg.n_kv_heads) == (192,
+                                                                "sq_relu", 2)
+    state = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    assert state.keys() == lm.state_dict().keys()
+    assert "blocks.0.mlp.wg" not in state                 # no SwiGLU gate
+    assert state["blocks.1.attn.wq"].shape == (96, 4 * 192)
+    assert state["blocks.1.attn.wk"].shape == (96, 2 * 192)
+    for name, got in lm.state_dict().items():
+        assert torch.equal(got, state[name]), name
+    np.testing.assert_array_equal(state["blocks.1.attn.wo"].numpy(),
+                                  np.asarray(params["blocks"]["attn"].wo[1]))
+
+
 # ------------------------------------------------------- the LM ---------
 
 def _jax_padded(cache, s):
@@ -258,6 +296,35 @@ def test_forward_prefill_decode_match_jax(dtype, tol):
         {"token": jnp.asarray(toks[:, s - 1:]),
          "pos": jnp.asarray(s - 1, jnp.int32)})
     _close(got1, want1, tol)
+
+
+def test_nemotron_hd192_forward_prefill_decode_match_jax():
+    """The reduced hd-192 Nemotron in float32: ``forward``, ``prefill``'s
+    last logits and K/V caches and ``decode_step`` against the JAX LM at
+    1e-4."""
+    jm, params, lm = _nemotron_pair()
+    b, s = 2, 16
+    toks = _tokens(3, b, s, lm.cfg.vocab)
+    want_all, _ = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(toks)})
+    got_all = lm.forward({"tokens": torch.from_numpy(toks)})
+    assert got_all.shape == (b, s, lm.cfg.vocab)
+    _close(got_all, want_all, F32)
+    want_last, want_cache = jax.jit(jm.prefill)(
+        params, {"tokens": jnp.asarray(toks[:, :s - 1])})
+    cache = lm.init_cache(b, s)
+    got_last, _ = lm.prefill({"tokens": torch.from_numpy(toks[:, :s - 1])},
+                             cache)
+    _close(got_last, want_last, F32)
+    for name in ("k", "v"):
+        assert cache[name].shape[-1] == 192
+        _close(cache[name][:, :, :s - 1], want_cache[name], F32)
+    got1, _ = lm.decode_step(cache, {"token": torch.from_numpy(
+        toks[:, s - 1:]), "pos": s - 1})
+    want1, _ = jax.jit(jm.decode_step)(
+        params, _jax_padded(want_cache, s),
+        {"token": jnp.asarray(toks[:, s - 1:]),
+         "pos": jnp.asarray(s - 1, jnp.int32)})
+    _close(got1, want1, F32)
 
 
 @pytest.mark.parametrize("seed", range(6))

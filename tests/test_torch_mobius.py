@@ -39,6 +39,9 @@ def _random_stacks(rng, b, k, attr_shape):
 @pytest.mark.parametrize("b,k,attr_shape", [
     (1, 1, (3,)), (2, 2, (3, 2)), (3, 1, ()), (5, 3, (4,)), (8, 2, (2, 1)),
     (2, 0, (3,)),
+    # the card's shared-memory path (k >= 6), which phase 4 of
+    # chip_smoke.py times at k = 8
+    (2, 6, (3,)), (1, 8, (5,)),
 ])
 def test_transforms_equal_jax(b, k, attr_shape):
     rng = np.random.default_rng(b * 10 + k)
