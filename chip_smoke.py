@@ -54,8 +54,12 @@ Phases (any failure exits non-zero before the last line is printed):
               ``K3_SCALING``, where its bytes bind (bit for bit on counts
               above 2^24, its device time beside the bound and
               ``matmul(T, X)``'s).
-5. parity   — model discovery on the full UW stand-in, HYBRID over sparse
-              and over dense, on the card and on the CPU: edge-identical.
+5. parity   — model discovery on the full UW stand-in, HYBRID and
+              ONDEMAND over sparse and over dense, on the card and on the
+              CPU: edge-identical.  ONDEMAND's prefetch runs the batched
+              positive path (``Executor.positive_batch``), so this is where
+              the dense executor's stacked groups run on the card; the
+              stacked groups are counted and must be some.
 6. hist     — K5's path: the weighted segment histogram at the three
               shapes of ``benchmarks/bench_kernels.py``'s ``bench_hist``,
               counting launches; each against its plain version
@@ -70,10 +74,15 @@ Phases (any failure exits non-zero before the last line is printed):
               Hopper kernel), 64, 192 and 256 (the mma.sync kernel) and 160
               (the CUDA-core kernel); and the same in float32
               (``K6_F32_TOL``) at hd 160, 192, 256 and 512 (the CUDA-core
-              kernel's limit).  One line per shape: the shape, the kernel
-              the C entry chose, max_abs_err.  K6's row in the kernels line
-              keeps each kernel's largest error apart
-              (``max_abs_err_by_route``, float32's under its own key).
+              kernel's widest); and at hd 576, 640 and 1,024
+              (``K6_EDGE_SLICED_HDS``, the sliced CUDA-core kernel, which
+              streams the head dim) in bf16 and float32.  One line per
+              shape: the shape, the kernel the C entry chose,
+              max_abs_err.  K6's row in the kernels line keeps each
+              kernel's largest error apart (``max_abs_err_by_route``,
+              float32's under its own key).  Then the sliced kernel is
+              timed at ``K6_SLICED_SHAPE`` beside SDPA and its bound (the
+              ``sliced`` entry of K6's row).
 8. lm       — Qwen2.5-3B serving at its published full size (36 layers,
               d_model 2048, 16/2 heads, vocab 151,936, bf16; random weights
               from generator seed 0).  (c) prefill/decode consistency at
@@ -122,6 +131,43 @@ Phases (any failure exits non-zero before the last line is printed):
               decode ms a step, peak memory); K6 against its plain version
               on layer 0's q, k, v, timed against SDPA and its bound (the
               ``nemotron`` entry of K6's kernels-line row).
+12. strategies — the paper's three strategies on the card, over the sparse
+              executor on the IMDb stand-in at ``IMDB_SCALE`` with phase
+              3's chains and parents: ONDEMAND (post-counting: every
+              family's positives contracted from the data through the
+              batched positive path), PRECOUNT, and HYBRID under
+              ``cache_budget_bytes`` = ``TIGHT_BUDGET`` (64 KiB), so that
+              evicted tables re-contract through ``positive_batch``; phase
+              3's HYBRID is the fourth.  Each run: wall (host clock ending
+              in ``torch.cuda.synchronize()``), the Fig. 3 split, joins,
+              rows scanned, peak device memory, launches by kernel and by
+              K1/K2 regime, ``positive_batch`` calls, plans, stack groups
+              (those of two or more plans are stacked) and the largest;
+              every kernel of the run's path launched (all four, but no
+              Möbius transform in PRECOUNT, whose complete tables keep
+              edge-attribute axes: a blockwise negative phase), no plain
+              version; ONDEMAND's and HYBRID's models edge-identical to
+              phase 3's (the same operations on the same tables).
+              PRECOUNT's tables are projections of complete tables whose
+              counts pass 2^24, which float32 cannot hold exactly, so
+              each family its search scored is held to HYBRID's: the same
+              axes in the same order, every cell below 2^24 bit for bit,
+              every cell past it within ``ROUNDING_PAST_2_24``; the same
+              families from a negative phase that subtracts no positive
+              count (a planted fault) must differ from HYBRID's past 2^24
+              by more than that bound; and PRECOUNT run on the CPU over
+              the same database must learn the card's models, with those
+              families' tables equal bit for bit.  Its models may differ
+              from HYBRID's only at points where a family's cells past
+              2^24 rounded differently (``precount_tables``, printed with
+              both readings).  Then the
+              ONDEMAND run's ``positive_batch`` plan lists are replayed
+              through ``positive_batch`` and through ``positive`` one plan
+              at a time: the tables bit for bit equal, every stacked
+              group with fewer K1/K2 launches than its plans one at a
+              time; K1/K2 launches, wall and device time of each
+              replay.  The runs' launches and the replay are the
+              ``strategies`` entries of K1's and K2's kernels-line rows.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -224,6 +270,10 @@ K6_EDGE_RAGGED = (200, 333)
 K6_EDGE_HEADS, K6_EDGE_KV_HEADS = 16, (1, 2, 16)
 K6_EDGE_BATCHES, K6_EDGE_HDS = (1, 3), (128, 64, 160, 192, 256)
 K6_EDGE_F32_HDS = (160, 192, 256, 512)
+# The sliced route's head dims (phase 7), in bf16 and float32, and the
+# shape where it is timed beside SDPA: (B, S, H, Hkv, hd), causal, bf16.
+K6_EDGE_SLICED_HDS = (576, 640, 1024)
+K6_SLICED_SHAPE = (1, 2048, 8, 1, 1024)
 K6_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 LM_PREFILL_TOL = 0.02
 LM_DECODE_TOL = 0.05
@@ -233,6 +283,21 @@ LM_DECODE_TOL = 0.05
 NEMOTRON_ARCH = "nemotron-4-340b"
 NEMOTRON_LAYERS = 4
 NEMOTRON_BATCH, NEMOTRON_PROMPT, NEMOTRON_NEW = 2, 4096, 16
+# The strategies phase (12): the tight cache budget of its HYBRID run, and
+# the runs as (label, strategy, keyword arguments, the kernels its path
+# launches).  PRECOUNT's complete tables keep every edge-attribute axis, so
+# its negative phase is the blockwise sum, which runs no Möbius transform.
+TIGHT_BUDGET = 64 << 10
+STRATEGY_RUNS = (
+    ("ONDEMAND", "ONDEMAND", {}, COUNTING_KERNELS),
+    ("PRECOUNT", "PRECOUNT", {}, ("segsum_ones", "segsum_rows", "bdeu")),
+    ("HYBRID 64 KiB", "HYBRID", {"cache_budget_bytes": TIGHT_BUDGET},
+     COUNTING_KERNELS))
+DISCOVERY = dict(max_chain_length=2, max_parents=3)    # phases 3, 4 and 12
+# The relative difference PRECOUNT's families and HYBRID's may show in
+# cells past 2^24, where float32 rounds counts (phase 12): 64 units in the
+# last place.  tests/test_torch_batching.py holds the CPU to the same bound.
+ROUNDING_PAST_2_24 = 2.0 ** -18
 
 
 def log(msg: str) -> None:
@@ -415,7 +480,7 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         discover_model(db, make_strategy("HYBRID", executor="sparse"),
-                       max_chain_length=2, max_parents=3)
+                       **DISCOVERY)
         sync()
     wall = time.perf_counter() - t0
     on_card = device_events(prof)
@@ -770,7 +835,9 @@ def k6_edge_phase(ops) -> dict:
     shapes = [(sq, sq, c) for sq in K6_EDGE_LENGTHS for c in (True, False)]
     shapes.append((*K6_EDGE_RAGGED, False))
     cases = ([(torch.bfloat16, hd) for hd in K6_EDGE_HDS]
-             + [(torch.float32, hd) for hd in K6_EDGE_F32_HDS])
+             + [(torch.float32, hd) for hd in K6_EDGE_F32_HDS]
+             + [(dtype, hd) for hd in K6_EDGE_SLICED_HDS
+                for dtype in (torch.bfloat16, torch.float32)])
     h, errs, by_route = K6_EDGE_HEADS, [], {}
     t0 = time.perf_counter()
     ops.reset_counts()
@@ -800,6 +867,351 @@ def k6_edge_phase(ops) -> dict:
         f"{K6_F32_TOL} (float32) of the plain version, largest max_abs_err "
         f"by route {by_route}; {time.perf_counter() - t0:.1f} s")
     return by_route
+
+
+def k6_sliced_reading(ops) -> dict:
+    """7. The sliced route at ``K6_SLICED_SHAPE`` (causal, bf16): against
+    its plain version, timed beside SDPA and its bound (bf16 operations
+    of the causal pairs, or the bytes of q, k, v and out)."""
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route,
+                                               head_slices)
+    b, s, h, hk, hd = K6_SLICED_SHAPE
+    route = flash_attention_route(torch.bfloat16, hd)
+    if route != "sliced":
+        fail(f"K6 takes the {route} route at hd {hd}, not the sliced one")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, s, hk, hd), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    err = check_k6(ops, q, k, v, f"sliced {K6_SLICED_SHAPE}")
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2       # causal pairs only
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    reading = dict(
+        shape=f"B={b} S={s} H={h} Hkv={hk} hd={hd} causal bf16",
+        slices=head_slices(hd), max_abs_err=err, bound_ms=b_ms,
+        bound_by=b_by,
+        **timings(lambda: ops.flash_attention(q, k, v, causal=True),
+                  lambda: flash_attention_plain(q, k, v, True),
+                  sdpa_call(q, k, v), plain_reps=3))
+    log(f"K6 sliced at {reading['shape']} (slices {reading['slices']}): "
+        f"{reading['ms']:.4f} ms / device {reading['device_ms']} ms; SDPA "
+        f"{reading['library_ms']:.4f} / {reading['library_device_ms']} ms; "
+        f"plain {reading['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+        f"max_abs_err {err}")
+    del q, k, v
+    return reading
+
+
+class BatchRecorder:
+    """Records, while installed, every ``Executor.positive_batch`` call's
+    plan list (the call itself is unchanged).  ``summary()`` reads the
+    calls afterwards: plans, stack groups (by ``plan_stack_key``), the
+    groups of two or more plans (stacked), the largest, and the groups of
+    one plan (which go through ``positive``)."""
+
+    def __init__(self):
+        from repro_torch.core.executors import Executor
+        self.cls, self.orig, self.calls = Executor, Executor.positive_batch, []
+        orig, calls = self.orig, self.calls
+
+        def spy(ex, db, plans, stats=None):
+            calls.append((ex, db, list(plans)))
+            return orig(ex, db, plans, stats)
+        Executor.positive_batch = spy
+
+    def remove(self) -> None:
+        self.cls.positive_batch = self.orig
+
+    def groups(self) -> list:
+        """Every call's stack groups, as ``(db, plans)``."""
+        from repro_torch.core.executors import plan_stack_key
+        out = []
+        for _, db, plans in self.calls:
+            keys = {}
+            for p in plans:
+                keys.setdefault(plan_stack_key(db, p), []).append(p)
+            out.extend((db, g) for g in keys.values())
+        return out
+
+    def summary(self) -> dict:
+        sizes = [len(g) for _, g in self.groups()]
+        return dict(calls=len(self.calls),
+                    plans=sum(len(c[2]) for c in self.calls),
+                    groups=len(sizes), stacked=sum(n > 1 for n in sizes),
+                    largest=max(sizes, default=0),
+                    singletons=sum(n == 1 for n in sizes))
+
+
+def counting_reading(ops, strategy, wall: float, recorder=None) -> dict:
+    """A discovery run's numbers: wall, the Fig. 3 split, joins, rows
+    scanned, peak device memory, launches by kernel and by K1/K2 regime,
+    and (with ``recorder``) its ``positive_batch`` calls."""
+    st = strategy.stats.as_dict()
+    out = dict(wall_s=wall, **{k: st[k] for k in (
+        "time_metadata", "time_positive", "time_negative", "joins",
+        "rows_scanned", "ct_rows")},
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: ops.LAUNCHES[k] for k in COUNTING_KERNELS},
+        k1_regimes=dict(ops.ONES_REGIMES), k2_regimes=dict(ops.ROW_REGIMES))
+    if recorder is not None:
+        out["positive_batch"] = recorder.summary()
+    return out
+
+
+def replay_phase(ops, recorder) -> dict:
+    """12 (replay). The recorded ``positive_batch`` plan lists once through
+    ``positive_batch`` and once through ``positive`` one plan at a time, on
+    a fresh sparse executor: bit for bit equal tables; K1/K2 launches,
+    wall and device time of each; then every stacked group on its own,
+    which must launch K1 and K2 fewer times than its plans one at a
+    time."""
+    from repro_torch.core.executors import SparseExecutor
+    ex = SparseExecutor(device="cuda")
+    lists = [(db, plans) for _, db, plans in recorder.calls]
+
+    def batched():
+        return [ex.positive_batch(db, plans) for db, plans in lists]
+
+    def single():
+        return [[ex.positive(db, p) for p in plans] for db, plans in lists]
+
+    out, tabs = {}, {}
+    for label, fn in (("batched", batched), ("single", single)):
+        ops.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        tabs[label] = fn()
+        sync()
+        out[label] = dict(
+            wall_s=time.perf_counter() - t0,
+            k1=ops.LAUNCHES["segsum_ones"], k2=ops.LAUNCHES["segsum_rows"],
+            k1_regimes=dict(ops.ONES_REGIMES),
+            k2_regimes=dict(ops.ROW_REGIMES))
+    n_tabs = 0
+    for got, want in zip(tabs["batched"], tabs["single"]):
+        for g, w in zip(got, want):
+            n_tabs += 1
+            if g.vars != w.vars or not torch.equal(g.counts, w.counts):
+                fail("replay: a batched table differs from its plan's "
+                     "unbatched table")
+    del tabs
+    stacked = 0
+    for db, group in recorder.groups():
+        if len(group) < 2:
+            continue
+        stacked += 1
+        ops.reset_counts()
+        ex.positive_batch(db, group)
+        n_batched = ops.LAUNCHES["segsum_ones"] + ops.LAUNCHES["segsum_rows"]
+        ops.reset_counts()
+        for p in group:
+            ex.positive(db, p)
+        n_single = ops.LAUNCHES["segsum_ones"] + ops.LAUNCHES["segsum_rows"]
+        if n_batched >= n_single:
+            fail(f"replay: a stacked group of {len(group)} plans launched "
+                 f"K1/K2 {n_batched} times, one at a time {n_single}")
+    for label, fn in (("batched", batched), ("single", single)):
+        events = device_events_ms(fn, reps=2) or {}
+        out[label]["device_ms"] = sum(events.values()) if events else None
+        out[label]["top_device_ms"] = {
+            k[:48]: v for k, v in sorted(events.items(),
+                                         key=lambda kv: -kv[1])[:6]}
+    out.update(tables=n_tabs, stacked_groups=stacked)
+    log(f"replay of {len(lists)} positive_batch calls ({n_tabs} plans, "
+        f"{stacked} stacked groups, each with fewer K1/K2 launches than one "
+        f"plan at a time): tables bit for bit equal; "
+        + "; ".join(f"{k}: wall {v['wall_s']:.4f} s, device "
+                    f"{v['device_ms']} ms, K1 {v['k1']} {v['k1_regimes']}, "
+                    f"K2 {v['k2']} {v['k2_regimes']}, largest device "
+                    f"events {json.dumps(v['top_device_ms'])}"
+                    for k, v in out.items() if isinstance(v, dict)))
+    return out
+
+
+def record_families(strategy) -> list:
+    """The ``(point, keep)`` of every family table ``strategy`` serves
+    from now on (its ``family_ct``, which ``family_ct_many`` also calls
+    for PRECOUNT), in order."""
+    asked, inner = [], strategy.family_ct
+
+    def family_ct(point, keep):
+        asked.append((point, tuple(keep)))
+        return inner(point, keep)
+    strategy.family_ct = family_ct
+    return asked
+
+
+class NoPositives:
+    """A planted fault: a positive provider that finds no grounding where a
+    relationship holds, so a negative phase over it subtracts nothing."""
+
+    def __init__(self, provider):
+        self.provider = provider
+
+    def hist(self, var, keep):
+        return self.provider.hist(var, keep)
+
+    def positive(self, point, keep):
+        from repro_torch.core import CtTable
+        t = self.provider.positive(point, keep)
+        return CtTable(t.vars, torch.zeros_like(t.counts))
+
+
+def past_2_24(a: torch.Tensor, b: torch.Tensor):
+    """The largest relative difference between two tables in the cells
+    past 2^24, and whether any cell below it differs."""
+    a, b = a.double(), b.double()
+    big = torch.maximum(a.abs(), b.abs())
+    diff = a != b
+    low = bool((diff & (big < 2.0 ** 24)).any())
+    high = diff & (big >= 2.0 ** 24)
+    rel = float(((a - b).abs() / big)[high].max()) if bool(high.any()) \
+        else 0.0
+    return rel, low
+
+
+def precount_tables(db, precount, asked, differ, edges) -> dict:
+    """PRECOUNT against HYBRID and against itself on the CPU, table by
+    table.  PRECOUNT projects each family from the complete table over all
+    of a point's axes; HYBRID runs a Möbius join over projected positives.
+    Counts past 2^24 (the groundings where a relationship does not hold:
+    1e10 and more per point at IMDb's full size) are not exact in float32,
+    so the two orders of operations may round them apart, as in the JAX
+    package.  Each family PRECOUNT's search scored is fetched from a fresh
+    HYBRID: the axes must be the same and in the same order, every cell
+    below 2^24 equal bit for bit, and every cell past it within
+    ``ROUNDING_PAST_2_24``.  The same families from complete tables whose
+    negative phase subtracts no positive count (``NoPositives``) must
+    differ from HYBRID's past 2^24 by more than that bound, in the cells
+    the fault leaves nonzero (it empties every block where a relationship
+    holds, which the cells below 2^24 catch on their own).  PRECOUNT on
+    the CPU over the same database (``edges``: the card's models) must
+    learn the same models, and give those families bit for bit (its
+    families are float64 sums, exact in any order).  Models may differ
+    from HYBRID's (``differ``) only at points where some family differed
+    past 2^24; anywhere else fails."""
+    from repro_torch.core import (build_lattice, discover_model,
+                                  make_strategy)
+    from repro_torch.core.mobius import complete_ct
+    from repro_torch.core.strategies import _project_wide
+    lattice = build_lattice(db.schema, DISCOVERY["max_chain_length"])
+    ref = make_strategy("HYBRID", executor="sparse")
+    ref.prepare(db, lattice)
+    fams = list(dict.fromkeys(asked))
+    rounded, n_rounded, worst, planted, faulty = set(), 0, 0.0, 0.0, {}
+    for point, keep in fams:
+        a, b = ref.family_ct(point, keep), precount.family_ct(point, keep)
+        if a.vars != b.vars or a.counts.shape != b.counts.shape:
+            fail(f"PRECOUNT: family {[str(v) for v in keep]} of {point} has "
+                 f"axes {[str(v) for v in b.vars]}, HYBRID's "
+                 f"{[str(v) for v in a.vars]}")
+        rel, low = past_2_24(a.counts, b.counts)
+        if low:
+            fail(f"PRECOUNT: family {[str(v) for v in keep]} of {point} "
+                 f"differs from HYBRID's in a cell below 2^24")
+        if rel > ROUNDING_PAST_2_24:
+            fail(f"PRECOUNT: family {[str(v) for v in keep]} of {point} "
+                 f"differs from HYBRID's past 2^24 by {rel} of a cell, "
+                 f"more than {ROUNDING_PAST_2_24}")
+        if rel > 0.0:
+            n_rounded += 1
+            rounded.add(str(point))
+        worst = max(worst, rel)
+        if point not in faulty:
+            full = precount._complete_full(point)
+            faulty[point] = complete_ct(point, full.vars,
+                                        NoPositives(precount.provider))
+        # the fault empties every block where a relationship holds; what it
+        # leaves is the negative phase proper, short of no subtraction
+        f = _project_wide(faulty[point], keep).counts
+        planted = max(planted, past_2_24(a.counts[f != 0], f[f != 0])[0])
+    if planted <= ROUNDING_PAST_2_24:
+        fail(f"PRECOUNT: a negative phase that subtracts no positive count "
+             f"differs from HYBRID past 2^24 by {planted} of a cell at "
+             f"most, within the bound {ROUNDING_PAST_2_24}")
+    if not set(differ) <= rounded:
+        fail(f"PRECOUNT: models differ from phase 3's HYBRID at "
+             f"{sorted(set(differ) - rounded)}, where every family table "
+             f"equals HYBRID's")
+    del ref, faulty
+    t0 = time.perf_counter()
+    on_cpu = make_strategy("PRECOUNT", executor="sparse", device="cpu")
+    cpu_models, on_cpu = discover_model(db, on_cpu, device="cpu",
+                                        **DISCOVERY)
+    if edges_of(cpu_models) != edges:
+        fail(f"PRECOUNT: card and CPU models differ:\n{edges}\n"
+             f"{edges_of(cpu_models)}")
+    for point, keep in fams:
+        got, want = precount.family_ct(point, keep), \
+            on_cpu.family_ct(point, keep)
+        if got.vars != want.vars or not torch.equal(got.counts.cpu(),
+                                                    want.counts):
+            fail(f"PRECOUNT: family {[str(v) for v in keep]} of {point} "
+                 f"differs between the card and the CPU")
+    return dict(families=len(fams), rounded_past_2_24=n_rounded,
+                largest_relative_difference=worst,
+                planted_fault_relative_difference=planted,
+                bound=ROUNDING_PAST_2_24,
+                points_with_rounded_tables=sorted(rounded),
+                models_differ_at=differ,
+                cpu_witness_s=time.perf_counter() - t0)
+
+
+def strategies_phase(ops, hybrid: dict) -> dict:
+    """12. ONDEMAND, PRECOUNT and tight-budget HYBRID discovery on the IMDb
+    stand-in (``STRATEGY_RUNS``), each against phase 3's HYBRID run
+    (``hybrid``: its reading and learned edges), then the replay of the
+    ONDEMAND run's ``positive_batch`` calls."""
+    from repro_torch.core import (discover_model, make_strategy,
+                                  paper_benchmark_db)
+    t_phase = time.perf_counter()
+    db = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
+    runs = {"HYBRID (phase 3)": hybrid["reading"]}
+    ondemand = None
+    for label, name, kw, kernels in STRATEGY_RUNS:
+        strategy = make_strategy(name, executor="sparse", **kw)
+        asked = record_families(strategy)
+        recorder = BatchRecorder()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        models, strategy = discover_model(db, strategy, **DISCOVERY)
+        sync()
+        wall = time.perf_counter() - t0
+        recorder.remove()
+        reading = counting_reading(ops, strategy, wall, recorder)
+        log(f"{label} (IMDb, sparse): {wall:.3f} s wall; "
+            + json.dumps(reading))
+        if any(ops.PLAIN_CALLS[k] for k in ops.KERNELS):
+            fail(f"{label}: plain versions ran on the card: "
+                 f"{ops.PLAIN_CALLS}")
+        if any(reading["launches"][k] <= 0 for k in kernels):
+            fail(f"{label}: a kernel of its path was not launched: "
+                 f"{reading['launches']}")
+        edges = edges_of(models)
+        differ = sorted(p for p in set(edges) | set(hybrid["edges"])
+                        if edges.get(p) != hybrid["edges"].get(p))
+        if name == "PRECOUNT":
+            reading["tables"] = precount_tables(db, strategy, asked,
+                                                differ, edges)
+        elif differ:
+            fail(f"{label}: models differ from phase 3's HYBRID at {differ}")
+        if not all(np.isfinite(m.score) for m in models.values()):
+            fail(f"{label}: a learned model has a non-finite score")
+        runs[label] = reading
+        if name == "ONDEMAND":
+            ondemand = recorder
+        del models, strategy
+    log(f"strategies: ONDEMAND and HYBRID at {TIGHT_BUDGET} B learn phase "
+        f"3's models edge for edge; PRECOUNT learns its CPU run's models "
+        f"edge for edge, against HYBRID "
+        f"{json.dumps(runs['PRECOUNT']['tables'])}")
+    replay = replay_phase(ops, ondemand)
+    log(f"strategies phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=runs, replay=replay)
 
 
 def k2_edge_phase(ops) -> dict:
@@ -1351,10 +1763,11 @@ def main() -> None:
     sync()
     t0 = time.perf_counter()
     models, strategy = discover_model(
-        db, make_strategy("HYBRID", executor="sparse"),
-        max_chain_length=2, max_parents=3)
+        db, make_strategy("HYBRID", executor="sparse"), **DISCOVERY)
     sync()
     wall = time.perf_counter() - t0
+    hybrid = dict(reading=counting_reading(ops, strategy, wall),
+                  edges=edges_of(models))
     launches = dict(ops.LAUNCHES)
     imdb_regimes = dict(ops.ROW_REGIMES)
     imdb_ones_regimes = dict(ops.ONES_REGIMES)
@@ -1428,7 +1841,7 @@ def main() -> None:
             args[0].shape[0], args[2], card_of(args[0].device)).regime
         == "private" else ()))
     discover_model(db, make_strategy("HYBRID", executor="sparse"),
-                   max_chain_length=2, max_parents=3)
+                   **DISCOVERY)
     spy.remove()
     del db
     rows = []
@@ -1501,25 +1914,35 @@ def main() -> None:
 
     # -- 5. card against CPU -------------------------------------------------
     uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
-    for ex in ("sparse", "dense"):
-        t0 = time.perf_counter()
-        on_card, _ = discover_model(uw, make_strategy("HYBRID", executor=ex))
-        on_cpu, _ = discover_model(
-            uw, make_strategy("HYBRID", executor=ex, device="cpu"),
-            device="cpu")
-        if edges_of(on_card) != edges_of(on_cpu):
-            fail(f"UW HYBRID/{ex}: card and CPU models differ:\n"
-                 f"{edges_of(on_card)}\n{edges_of(on_cpu)}")
-        log(f"UW HYBRID/{ex}: card and CPU models edge-identical "
-            f"({sum(len(m.edges()) for m in on_card.values())} edges, "
-            f"{time.perf_counter() - t0:.1f} s)")
+    for sname in ("HYBRID", "ONDEMAND"):
+        for ex in ("sparse", "dense"):
+            t0 = time.perf_counter()
+            recorder = BatchRecorder()
+            on_card, _ = discover_model(uw, make_strategy(sname, executor=ex))
+            recorder.remove()
+            on_cpu, _ = discover_model(
+                uw, make_strategy(sname, executor=ex, device="cpu"),
+                device="cpu")
+            if edges_of(on_card) != edges_of(on_cpu):
+                fail(f"UW {sname}/{ex}: card and CPU models differ:\n"
+                     f"{edges_of(on_card)}\n{edges_of(on_cpu)}")
+            batches = recorder.summary()
+            if sname == "ONDEMAND" and batches["stacked"] == 0:
+                fail(f"UW ONDEMAND/{ex}: no stacked group ran on the card")
+            log(f"UW {sname}/{ex}: card and CPU models edge-identical "
+                f"({sum(len(m.edges()) for m in on_card.values())} edges, "
+                f"{time.perf_counter() - t0:.1f} s); positive_batch on the "
+                f"card: {json.dumps(batches)}")
     del uw, on_card, on_cpu
 
     # -- 6. K5's path ---------------------------------------------------------
     rows.append(hist_phase(ops))
 
-    # -- 7. K6's edge shapes --------------------------------------------------
+    # -- 7. K6's edge shapes, and the sliced route timed ----------------------
     edge_errs = k6_edge_phase(ops)
+    sliced = k6_sliced_reading(ops)
+    edge_errs["sliced"] = max(edge_errs.get("sliced", 0.0),
+                              sliced["max_abs_err"])
 
     # -- 8. Qwen2.5-3B serving ------------------------------------------------
     rows.append(lm_phase(ops, kind, edge_errs))
@@ -1540,6 +1963,22 @@ def main() -> None:
                                   nemo["max_abs_err"])
     k6_row["max_abs_err"] = max(by_route.values())
     k6_row["nemotron"] = nemo
+    k6_row["sliced"] = sliced
+
+    # -- 12. ONDEMAND, PRECOUNT and tight-budget HYBRID on IMDb ---------------
+    strategies = strategies_phase(ops, hybrid)
+    for row in rows:
+        if row["name"] in ("segsum_ones", "segsum_rows"):
+            key = "k1" if row["name"] == "segsum_ones" else "k2"
+            row["strategies"] = dict(
+                launches={label: run["launches"][row["name"]]
+                          for label, run in strategies["runs"].items()},
+                launches_by_regime={
+                    label: run[f"{key}_regimes"]
+                    for label, run in strategies["runs"].items()},
+                replay={k: {f: v[f] for f in (key, f"{key}_regimes")}
+                        for k, v in strategies["replay"].items()
+                        if isinstance(v, dict)})
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -184,39 +184,49 @@ def entity_hist(db: RelationalDB, var: Var, keep: Sequence[CtVar],
 
 
 def _khatri_rao_reduce(factors: List[Tuple[torch.Tensor, List[CtVar]]],
-                       max_chunk_cells: int = 32_000_000
+                       max_chunk_cells: int = 32_000_000,
+                       batch: Optional[int] = None
                        ) -> Tuple[torch.Tensor, List[CtVar]]:
     """``sum_n  f1[n,:] ⊗ f2[n,:] ⊗ ...`` without materialising the full
     (n, prod D) expansion: the widest factor becomes the right operand of a
     per-chunk matrix product, the rest are Khatri-Rao'd per chunk.
+
+    With ``batch`` the factors' rows are ``batch`` plans' entity rows laid
+    end to end (``(batch * n, D)``, plan-major) and the sum runs per plan:
+    the result is ``(batch, prod D)``, one flat table per plan, by one
+    batched product a chunk.
 
     Memory is bounded by ``chunk × prod(D_but_widest)`` + the output.  The
     products are float32 sums of integer counts, exact below 2^24 per cell
     (TF32 matrix products would round them: keep
     ``torch.backends.cuda.matmul.allow_tf32`` at its default, False)."""
     factors = [f for f in factors]
+    b = 1 if batch is None else batch
     mvars: List[CtVar] = []
     # move the widest factor last; record the resulting axis order
     widest = max(range(len(factors)), key=lambda i: factors[i][0].shape[1])
     order = [i for i in range(len(factors)) if i != widest] + [widest]
-    mats = [factors[i][0] for i in order]
+    mats = [factors[i][0].reshape(b, -1, factors[i][0].shape[1])
+            for i in order]
     for i in order:
         mvars.extend(factors[i][1])
-    n = mats[0].shape[0]
-    d_left = int(np.prod([m.shape[1] for m in mats[:-1]], dtype=np.int64))
-    d_last = mats[-1].shape[1]
+    n = mats[0].shape[1]
+    d_left = int(np.prod([m.shape[2] for m in mats[:-1]], dtype=np.int64))
+    d_last = mats[-1].shape[2]
     if len(mats) == 1:
-        return torch.sum(mats[0], dim=0), mvars
-    chunk = max(64, min(n, max_chunk_cells // max(d_left, 1)))
-    out = torch.zeros((d_left, d_last), dtype=mats[0].dtype,
-                      device=mats[0].device)
-    for s in range(0, n, chunk):
-        kr = mats[0][s:s + chunk]
-        for m in mats[1:-1]:
-            blk = m[s:s + chunk]
-            kr = (kr[:, :, None] * blk[:, None, :]).reshape(kr.shape[0], -1)
-        out = out + kr.T @ mats[-1][s:s + chunk]
-    return out.reshape(-1), mvars
+        out = torch.sum(mats[0], dim=1)
+    else:
+        chunk = max(64, min(n, max_chunk_cells // max(b * d_left, 1)))
+        out = torch.zeros((b, d_left, d_last), dtype=mats[0].dtype,
+                          device=mats[0].device)
+        for s in range(0, n, chunk):
+            kr = mats[0][:, s:s + chunk]
+            for m in mats[1:-1]:
+                blk = m[:, s:s + chunk]
+                kr = (kr[:, :, :, None] * blk[:, :, None, :]).reshape(
+                    b, kr.shape[1], -1)
+            out = out + kr.transpose(1, 2) @ mats[-1][:, s:s + chunk]
+    return (out.reshape(-1) if batch is None else out.reshape(b, -1)), mvars
 
 
 # --------------------------------------------------------------------------

@@ -27,6 +27,18 @@ for tensors on the card, their plain versions on the host.
 
 Database arrays stay on the host as numpy; each hop moves the index and
 code arrays it needs to the executor's ``device``.
+
+:meth:`Executor.positive_batch` evaluates many plans at once.  Plans with
+equal :func:`plan_stack_key` run the same operations on arrays of the same
+sizes; the JAX package stacks their input packs and ``vmap``s one traced
+evaluator.  The port's kernels are ``ctypes`` calls on raw pointers, which
+``torch.func.vmap`` cannot trace, so a group is evaluated as ONE problem
+instead: each plan's index and code arithmetic runs on the host as it does
+for one plan, plan ``i``'s segment ids are offset by ``i`` segment spaces
+and its gathers by ``i`` entity tables, and each hop step of the whole
+group is one K1 or K2 launch whose result splits into per-plan tables.
+:meth:`Executor.positive` is the group of one.  Counts are integers below
+2^24, so the tables equal the one-plan tables bit for bit.
 """
 
 from __future__ import annotations
@@ -195,16 +207,98 @@ class Executor:
     def positive(self, db: RelationalDB, plan: ContractionPlan,
                  stats: Optional[CostStats] = None) -> CtTable:
         """Evaluate a compiled plan: one message per root hop, then the
-        root combine.  Backends only implement the two primitives."""
-        factors = [self.hop_message(db, hop, stats) for hop in plan.root.hops]
-        return self.root_reduce(db, plan.root.own, factors, plan.keep, stats)
+        root combine (the one-plan case of :meth:`positive_batch`)."""
+        return self._evaluate(db, [plan], stats)[0]
+
+    def positive_batch(self, db: RelationalDB,
+                       plans: Sequence[ContractionPlan],
+                       stats: Optional[CostStats] = None) -> List[CtTable]:
+        """Evaluate many compiled plans at once.
+
+        Plans whose computations are structurally identical (equal
+        :func:`plan_stack_key` — same hop-tree topology, entity sizes,
+        bucketed edge counts and axis cards) are evaluated together, one
+        kernel launch per hop step for the whole group, in the largest
+        sub-batches whose segment spaces, laid end to end, fit int32 (one
+        plan over it raises ``OverflowError`` as :meth:`positive` does).
+
+        Args:
+            db: the database the plans were compiled against.
+            plans: compiled :class:`~repro_torch.core.plan.ContractionPlan`
+                sequence (any mix of signatures).
+            stats: optional :class:`~repro_torch.core.contract.CostStats`;
+                join, row and cell accounting matches the unbatched path
+                exactly.
+
+        Returns:
+            One :class:`~repro_torch.core.ct.CtTable` per plan, positionally
+            aligned with ``plans`` and bit-identical to the unbatched path
+            (counts are integers below 2^24, so the reordered sums are
+            exact).
+
+        Usage::
+
+            tabs = executor.positive_batch(db, plans)
+        """
+        results: List[Optional[CtTable]] = [None] * len(plans)
+        groups: dict = {}
+        for i, plan in enumerate(plans):
+            groups.setdefault(plan_stack_key(db, plan), []).append(i)
+        for idxs in groups.values():
+            per = max(1, _INT32_LIMIT
+                      // self._stack_space(db, plans[idxs[0]]))
+            for lo in range(0, len(idxs), per):
+                part = idxs[lo:lo + per]
+                with self.tracer.span("exec.positive_batch",
+                                      plans=len(part)), \
+                        annotate("exec.positive_batch"):
+                    tabs = self._evaluate(db, [plans[i] for i in part],
+                                          stats)
+                for i, tab in zip(part, tabs):
+                    results[i] = tab
+        return results
+
+    def _evaluate(self, db: RelationalDB, plans: Sequence[ContractionPlan],
+                  stats: Optional[CostStats]) -> List[CtTable]:
+        """Stack-compatible plans as one problem: each root hop of the
+        whole group is one message matrix (plan ``i``'s entity rows ``i``
+        tables down), then one root combine; one table per plan."""
+        roots = [p.root for p in plans]
+        factors = [self._hop_group(db, [r.hops[j] for r in roots], stats)
+                   for j in range(len(roots[0].hops))]
+        return self._root(db, [r.own for r in roots], factors,
+                          [p.keep for p in plans], stats)
+
+    def _hop_group(self, db: RelationalDB, hops: Sequence[HopSpec],
+                   stats: Optional[CostStats]
+                   ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        """The messages ``(b * n_parent, D)`` of ``b`` aligned hops (rows
+        plan-major), each including its child's entire subtree, with each
+        plan's column vars."""
+        raise NotImplementedError
+
+    def _root(self, db: RelationalDB, owns: Sequence[FactorSpec],
+              factors: Sequence[Tuple[torch.Tensor,
+                                      List[Tuple[CtVar, ...]]]],
+              keeps: Sequence[Sequence[CtVar]],
+              stats: Optional[CostStats]) -> List[CtTable]:
+        """Combine ``b`` aligned root variables' own attributes with
+        factor matrices ``(b * n_root, D_i)`` (each with its per-plan
+        vars) into one ct-table per plan."""
+        raise NotImplementedError
+
+    def _stack_space(self, db: RelationalDB, plan: ContractionPlan) -> int:
+        """The largest index space one plan's evaluation addresses; a
+        group of ``b`` plans addresses ``b`` times it."""
+        raise NotImplementedError
 
     def hop_message(self, db: RelationalDB, hop: HopSpec,
                     stats: Optional[CostStats] = None
                     ) -> Tuple[torch.Tensor, Tuple[CtVar, ...]]:
         """Full message matrix ``(n_parent, D)`` of one root-adjacent hop,
         including the child's entire subtree."""
-        raise NotImplementedError
+        m, mvars = self._hop_group(db, [hop], stats)
+        return m, mvars[0]
 
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
              stats: Optional[CostStats] = None) -> CtTable:
@@ -229,7 +323,8 @@ class Executor:
                     stats: Optional[CostStats] = None) -> CtTable:
         """Combine the root variable's own attributes with entity-indexed
         factor matrices ``(n_root, D_i)`` into a ct-table."""
-        raise NotImplementedError
+        return self._root(db, [own], [(m, [tuple(vs)]) for m, vs in factors],
+                          [keep], stats)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -246,82 +341,158 @@ def _hop_indices(db: RelationalDB, atom: Atom, child: Var, parent: Var):
 
 
 # ---------------------------------------------------------------------------
+# stack groups: plans that run the same operations on same-size arrays
+# ---------------------------------------------------------------------------
+
+def _edge_bucket(n: int) -> int:
+    """Bucketed edge-array length: the next power of two at or above
+    ``n`` (floor 16), so that plans with nearby edge counts share a stack
+    key."""
+    if n <= 0:
+        return 0
+    return max(16, 1 << max(n - 1, 0).bit_length())
+
+
+def plan_stack_key(db: RelationalDB, plan: ContractionPlan) -> Tuple:
+    """Stacked-execution key, equal to the JAX package's: plans with equal
+    keys against the same database run the same operation sequence on
+    arrays of the same sizes (hop-tree topology + entity sizes + bucketed
+    edge counts + axis cards), so they are evaluated as one group.  Edge
+    counts are bucketed (:func:`_edge_bucket`) as in the JAX package,
+    whose stacked packs must have equal shapes; the port lays the group's
+    edge lists end to end and pads nothing."""
+    def node(n: NodeSpec) -> Tuple:
+        hops = []
+        for h in n.hops:
+            _, g, _, n_parent = _hop_indices(db, h.atom, h.child, h.parent)
+            hops.append((_edge_bucket(int(np.asarray(g).shape[0])), n_parent,
+                         tuple(cv.card for cv in h.edge_attrs),
+                         node(h.child_node)))
+        return (db.entities[n.var.etype].size,
+                tuple(cv.card for cv in n.own.attrs), tuple(hops))
+    return node(plan.root)
+
+
+def _end_to_end(arrs: Sequence[np.ndarray], step: int = 0) -> np.ndarray:
+    """Plans' int32 host arrays laid end to end as one array, plan ``i``'s
+    indices raised by ``i * step`` (into the ``i``-th of the group's index
+    spaces); one plan's array as it is."""
+    if len(arrs) == 1:
+        return np.asarray(arrs[0])
+    out = np.empty(sum(len(a) for a in arrs), dtype=np.int32)
+    off = 0
+    for i, a in enumerate(arrs):
+        np.add(a, i * step, out=out[off:off + len(a)], casting="unsafe")
+        off += len(a)
+    return out
+
+
+def _rows(flat: torch.Tensor, b: int) -> List[torch.Tensor]:
+    """A group's flat result split into its ``b`` plans' results.  A
+    group's rows are copies, so that each plan's table owns its storage as
+    a one-plan table does (a cached table must not pin its group's)."""
+    rows = list(flat.reshape(b, -1).unbind(0))
+    return rows if b == 1 else [r.clone() for r in rows]
+
+
+# ---------------------------------------------------------------------------
 # dense executor (one-hot contraction)
 # ---------------------------------------------------------------------------
 
 class DenseExecutor(Executor):
     name = "dense"
 
-    def _entity_factor(self, db: RelationalDB, fs: FactorSpec
-                       ) -> Tuple[torch.Tensor, List[CtVar]]:
-        tab = db.entities[fs.var.etype]
-        msg = torch.ones((tab.size, 1), dtype=self.dtype, device=self.device)
-        mvars: List[CtVar] = []
-        for cv in fs.attrs:
-            hot = _onehot(_host_to(tab.attrs[cv.owner[1]], self.device),
-                          cv.card, self.dtype)
-            n, d = msg.shape
-            msg = (msg[:, :, None] * hot[:, None, :]).reshape(n, d * cv.card)
-            mvars.append(cv)
-        return msg, mvars
+    def _entity_factor(self, db: RelationalDB, fss: Sequence[FactorSpec]
+                       ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        """The one-hot attribute message ``(b * n, prod cards)`` of ``b``
+        aligned entity factors, rows plan-major."""
+        n = db.entities[fss[0].var.etype].size
+        msg = torch.ones((len(fss) * n, 1), dtype=self.dtype,
+                         device=self.device)
+        for k, cv in enumerate(fss[0].attrs):
+            col = _end_to_end([np.asarray(db.entities[fs.var.etype].attrs[
+                fs.attrs[k].owner[1]]) for fs in fss])
+            hot = _onehot(_host_to(col, self.device), cv.card, self.dtype)
+            nn, d = msg.shape
+            msg = (msg[:, :, None] * hot[:, None, :]).reshape(nn, d * cv.card)
+        return msg, [tuple(fs.attrs) for fs in fss]
 
-    def _hop(self, db: RelationalDB, hop: HopSpec, child_msg: torch.Tensor,
-             child_vars: List[CtVar], stats: Optional[CostStats]
-             ) -> Tuple[torch.Tensor, List[CtVar]]:
-        rt, gather_idx, scatter_idx, n_parent = _hop_indices(
-            db, hop.atom, hop.child, hop.parent)
-        m = child_msg[_host_to(gather_idx, self.device).long()]   # (edges, D)
-        mvars = list(child_vars)
-        for cv in hop.edge_attrs:
-            hot = _onehot(_host_to(rt.attrs[cv.owner[1]], self.device),
+    def _hop(self, db: RelationalDB, hops: Sequence[HopSpec],
+             child_msg: torch.Tensor,
+             child_vars: Sequence[Tuple[CtVar, ...]],
+             stats: Optional[CostStats]
+             ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        idx = [_hop_indices(db, h.atom, h.child, h.parent) for h in hops]
+        n_parent = idx[0][3]
+        if stats is not None:
+            stats.joins += len(hops)
+            stats.rows_scanned += sum(int(np.asarray(g).shape[0])
+                                      for _, g, _, _ in idx)
+        # plan i reads the i-th child table and writes the i-th parent one
+        gathers = _end_to_end([g for _, g, _, _ in idx],
+                              db.entities[hops[0].child.etype].size)
+        m = child_msg[_host_to(gathers, self.device).long()]  # (edges, D)
+        for k, cv in enumerate(hops[0].edge_attrs):
+            col = _end_to_end([np.asarray(rt.attrs[h.edge_attrs[k].owner[1]])
+                               for h, (rt, _, _, _) in zip(hops, idx)])
+            hot = _onehot(_host_to(col, self.device),
                           cv.card, self.dtype)            # card+1, NA empty
             n, d = m.shape
             m = (m[:, :, None] * hot[:, None, :]).reshape(n, d * cv.card)
-            mvars.append(cv)
-        out = ops.segsum_rows(_host_to(scatter_idx, self.device),
-                              m.contiguous(), n_parent).to(self.dtype)
-        if stats is not None:
-            stats.joins += 1
-            stats.rows_scanned += int(gather_idx.shape[0])
-        return out, mvars
+        scatters = _end_to_end([s for _, _, s, _ in idx], n_parent)
+        out = ops.segsum_rows(_host_to(scatters, self.device),
+                              m.contiguous(),
+                              len(hops) * n_parent).to(self.dtype)
+        return out, [tuple(vs) + tuple(h.edge_attrs)
+                     for vs, h in zip(child_vars, hops)]
 
-    def _node_message(self, db: RelationalDB, node: NodeSpec,
+    def _node_message(self, db: RelationalDB, nodes: Sequence[NodeSpec],
                       stats: Optional[CostStats]
-                      ) -> Tuple[torch.Tensor, List[CtVar]]:
-        msg, mvars = self._entity_factor(db, node.own)
-        for hop in node.hops:
-            child_msg, child_vars = self._node_message(db, hop.child_node,
-                                                       stats)
-            h, hvars = self._hop(db, hop, child_msg, child_vars, stats)
+                      ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        msg, mvars = self._entity_factor(db, [n.own for n in nodes])
+        for j in range(len(nodes[0].hops)):
+            h, hvars = self._hop_group(db, [n.hops[j] for n in nodes], stats)
             n, d = msg.shape
             msg = (msg[:, :, None] * h[:, None, :]).reshape(n, d * h.shape[1])
-            mvars = mvars + hvars
+            mvars = [a + b for a, b in zip(mvars, hvars)]
         return msg, mvars
 
-    def hop_message(self, db: RelationalDB, hop: HopSpec,
-                    stats: Optional[CostStats] = None
-                    ) -> Tuple[torch.Tensor, Tuple[CtVar, ...]]:
-        child_msg, child_vars = self._node_message(db, hop.child_node, stats)
-        m, mvars = self._hop(db, hop, child_msg, child_vars, stats)
-        return m, tuple(mvars)
+    def _hop_group(self, db: RelationalDB, hops: Sequence[HopSpec],
+                   stats: Optional[CostStats]
+                   ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        child_msg, child_vars = self._node_message(
+            db, [h.child_node for h in hops], stats)
+        return self._hop(db, hops, child_msg, child_vars, stats)
 
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
              stats: Optional[CostStats] = None) -> CtTable:
-        msg, mvars = self._entity_factor(db, FactorSpec(var, tuple(attrs)))
+        msg, (mvars,) = self._entity_factor(db, [FactorSpec(var,
+                                                            tuple(attrs))])
         flat = torch.sum(msg, dim=0)
         counts = flat.reshape(tuple(v.card for v in mvars)) if mvars \
             else flat[0]
-        return CtTable(tuple(mvars), counts)
+        return CtTable(mvars, counts)
 
-    def root_reduce(self, db: RelationalDB, own: FactorSpec,
-                    factors: Sequence[Tuple[torch.Tensor, Tuple[CtVar, ...]]],
-                    keep: Sequence[CtVar],
-                    stats: Optional[CostStats] = None) -> CtTable:
-        fs: List[Tuple[torch.Tensor, List[CtVar]]] = [
-            self._entity_factor(db, own)]
-        fs.extend((m, list(vs)) for m, vs in factors)
-        flat, mvars = _khatri_rao_reduce(fs)
-        return _finalise(flat, mvars, keep, stats)
+    def _root(self, db: RelationalDB, owns: Sequence[FactorSpec],
+              factors: Sequence[Tuple[torch.Tensor,
+                                      List[Tuple[CtVar, ...]]]],
+              keeps: Sequence[Sequence[CtVar]],
+              stats: Optional[CostStats]) -> List[CtTable]:
+        b = len(owns)
+        fs = [self._entity_factor(db, owns)] + list(factors)
+        # each axis carries its var in every plan, so that the reduce's
+        # widest-last reorder applies to all plans at once
+        flat, axes = _khatri_rao_reduce(
+            [(m, list(zip(*vs))) for m, vs in fs], batch=b)
+        return [_finalise(row, tuple(ax[i] for ax in axes), keep, stats)
+                for i, (row, keep) in enumerate(zip(_rows(flat, b), keeps))]
+
+    def _stack_space(self, db: RelationalDB, plan: ContractionPlan) -> int:
+        def node(n: NodeSpec) -> int:
+            return max([1] + [max(db.entities[h.parent.etype].size,
+                                  db.entities[h.child.etype].size,
+                                  node(h.child_node)) for h in n.hops])
+        return node(plan.root)
 
 
 # ---------------------------------------------------------------------------
@@ -329,15 +500,16 @@ class DenseExecutor(Executor):
 # ---------------------------------------------------------------------------
 
 class _SparseMsg:
-    """Per-entity message: a mixed-radix scalar code over ``svars`` (one
-    value per entity — exact, no one-hot) plus an optional dense block over
+    """Per-entity messages of ``b`` aligned nodes: per plan a mixed-radix
+    scalar code over its ``svars`` (one value per entity — exact, no
+    one-hot), plus an optional dense block ``(b * n, D)`` over each plan's
     ``dvars`` (present only after an aggregation made the distribution
     genuinely multi-valued)."""
 
-    __slots__ = ("code", "ds", "svars", "dense", "dvars")
+    __slots__ = ("codes", "ds", "svars", "dense", "dvars")
 
-    def __init__(self, code, ds, svars, dense, dvars):
-        self.code, self.ds, self.svars = code, ds, svars
+    def __init__(self, codes, ds, svars, dense, dvars):
+        self.codes, self.ds, self.svars = codes, ds, svars
         self.dense, self.dvars = dense, dvars
 
 
@@ -384,51 +556,62 @@ class SparseExecutor(Executor):
         code = _np_codes(cols, [cv.card for cv in fs.attrs])
         return code.astype(np.int32), fs.card
 
-    def _hop(self, db: RelationalDB, hop: HopSpec, msg: _SparseMsg,
-             stats: Optional[CostStats]
-             ) -> Tuple[torch.Tensor, Tuple[CtVar, ...]]:
-        """Push a child message through one relationship.  Scalar-coded axes
-        travel as index arithmetic inside the segment ids; only genuinely
-        dense axes (from deeper aggregations) are carried as row vectors."""
-        rt, gather_idx, scatter_idx, n_parent = _hop_indices(
-            db, hop.atom, hop.child, hop.parent)
-        gather_np = np.asarray(gather_idx)
-        n_edges = int(gather_np.shape[0])
-
-        # per-edge scalar code: child code gathered at the child end of the
-        # edge, extended with this relationship's kept edge attributes
+    def _hop(self, db: RelationalDB, hops: Sequence[HopSpec],
+             msg: _SparseMsg, stats: Optional[CostStats]
+             ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        """Push ``b`` aligned child messages through one relationship each.
+        Scalar-coded axes travel as index arithmetic inside the segment
+        ids; only genuinely dense axes (from deeper aggregations) are
+        carried as row vectors.  Plan ``i`` scatters into the ``i``-th of
+        ``b`` segment spaces laid end to end: one launch for the group."""
+        idx = [_hop_indices(db, h.atom, h.child, h.parent) for h in hops]
+        n_parent = idx[0][3]
         ds = msg.ds
-        if msg.code is not None:
-            ecode = msg.code[gather_np].astype(np.int64)
-        else:
-            ecode = np.zeros(n_edges, dtype=np.int64)
-        svars = tuple(msg.svars)
-        for cv in hop.edge_attrs:
-            ecode = ecode * cv.card + np.asarray(
-                rt.attrs[cv.owner[1]]).astype(np.int64)
+        for cv in hops[0].edge_attrs:
             ds *= cv.card
-            svars = svars + (cv,)
-
         total = n_parent * ds
         if total > _INT32_LIMIT:
             raise OverflowError(
                 f"sparse hop segment space {total} exceeds int32; use the "
                 f"dense executor or reduce kept axes")
-        seg_np = (np.asarray(scatter_idx).astype(np.int64) * ds
-                  + ecode).astype(np.int32)
+        sizes = [int(np.asarray(g).shape[0]) for _, g, _, _ in idx]
+        # each plan's ids go straight into its slice of one int32 array:
+        # every id is below the group's b * total, which fits int32
+        seg_np = np.empty(sum(sizes), dtype=np.int32)
+        out_vars: List[Tuple[CtVar, ...]] = []
+        off = 0
+        for i, (hop, (rt, gather_idx, scatter_idx, _), n) in enumerate(
+                zip(hops, idx, sizes)):
+            seg = seg_np[off:off + n]
+            off += n
+            np.multiply(scatter_idx, ds, out=seg, casting="unsafe")
+            # per-edge scalar code: child code gathered at the child end of
+            # the edge, extended with this relationship's kept edge attrs
+            ecode = None if msg.codes[i] is None \
+                else msg.codes[i][np.asarray(gather_idx)]
+            svars = tuple(msg.svars[i])
+            for cv in hop.edge_attrs:
+                col = np.asarray(rt.attrs[cv.owner[1]], dtype=np.int32)
+                ecode = col if ecode is None else ecode * cv.card + col
+                svars = svars + (cv,)
+            if ecode is not None:
+                seg += ecode
+            if i:   # plan i scatters into the i-th of b segment spaces
+                seg += i * total
+            out_vars.append(svars if msg.dense is None
+                            else svars + tuple(msg.dvars[i]))
+            if stats is not None:
+                stats.joins += 1
+                stats.rows_scanned += n
+        b = len(hops)
         if msg.dense is None:
-            flat = self._edge_segment_sum(seg_np, None, total)
-            out = flat.reshape(n_parent, ds)
-            out_vars = svars
-        else:
-            rows = msg.dense[_host_to(gather_np, self.device).long()]
-            agg = self._edge_segment_sum(seg_np, rows, total)
-            out = agg.reshape(n_parent, ds * msg.dense.shape[1])
-            out_vars = svars + tuple(msg.dvars)
-        if stats is not None:
-            stats.joins += 1
-            stats.rows_scanned += n_edges
-        return out, out_vars
+            flat = self._edge_segment_sum(seg_np, None, b * total)
+            return flat.reshape(b * n_parent, ds), out_vars
+        gathers = _end_to_end([g for _, g, _, _ in idx],
+                              db.entities[hops[0].child.etype].size)
+        rows = msg.dense[_host_to(gathers, self.device).long()]
+        agg = self._edge_segment_sum(seg_np, rows, b * total)
+        return agg.reshape(b * n_parent, ds * msg.dense.shape[1]), out_vars
 
     def _edge_segment_sum(self, seg_np: np.ndarray,
                           rows: Optional[torch.Tensor],
@@ -444,22 +627,28 @@ class SparseExecutor(Executor):
             return ops.segsum_ones(seg, ones, total).to(self.dtype)
         return ops.segsum_rows(seg, rows.contiguous(), total).to(self.dtype)
 
-    def _node_message(self, db: RelationalDB, node: NodeSpec,
+    def _node_message(self, db: RelationalDB, nodes: Sequence[NodeSpec],
                       stats: Optional[CostStats]) -> _SparseMsg:
-        code, ds = self._entity_code(db, node.own)
+        codes = [self._entity_code(db, n.own) for n in nodes]
         dense: Optional[torch.Tensor] = None
-        dvars: Tuple[CtVar, ...] = ()
-        for hop in node.hops:
-            child = self._node_message(db, hop.child_node, stats)
-            h, hvars = self._hop(db, hop, child, stats)
+        dvars: List[Tuple[CtVar, ...]] = [() for _ in nodes]
+        for j in range(len(nodes[0].hops)):
+            h, hvars = self._hop_group(db, [n.hops[j] for n in nodes], stats)
             if dense is None:
                 dense, dvars = h, hvars
             else:
                 n, d = dense.shape
                 dense = (dense[:, :, None] * h[:, None, :]).reshape(
                     n, d * h.shape[1])
-                dvars = dvars + hvars
-        return _SparseMsg(code, ds, tuple(node.own.attrs), dense, dvars)
+                dvars = [a + b for a, b in zip(dvars, hvars)]
+        return _SparseMsg([c for c, _ in codes], codes[0][1],
+                          [tuple(n.own.attrs) for n in nodes], dense, dvars)
+
+    def _hop_group(self, db: RelationalDB, hops: Sequence[HopSpec],
+                   stats: Optional[CostStats]
+                   ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
+        child = self._node_message(db, [h.child_node for h in hops], stats)
+        return self._hop(db, hops, child, stats)
 
     def _ones_segment_sum(self, code: torch.Tensor, ds: int) -> torch.Tensor:
         """Segment sum of ones — the histogram primitive (K1)."""
@@ -467,13 +656,18 @@ class SparseExecutor(Executor):
                           device=self.device)
         return ops.segsum_ones(code, ones, ds).to(self.dtype)
 
-    def _reduce_by_code(self, code: Optional[np.ndarray], ds: int, n: int,
+    def _code_tensor(self, code: Optional[np.ndarray],
+                     n: int) -> torch.Tensor:
+        """A host entity code (``None``: no kept attributes, all 0) as an
+        ``int32`` tensor on the device."""
+        return (torch.zeros(n, dtype=torch.int32, device=self.device)
+                if code is None else _host_to(code, self.device))
+
+    def _reduce_by_code(self, code_t: torch.Tensor, ds: int,
                         factors: Sequence[torch.Tensor]) -> torch.Tensor:
         """``out[c, :] = sum_{i: code[i]=c} ⊗_f factors[f][i, :]`` —
         the root combine as one segment-sum (chunked when the Khatri-Rao
         expansion would not fit)."""
-        code_t = (torch.zeros(n, dtype=torch.int32, device=self.device)
-                  if code is None else _host_to(code, self.device))
         if not factors:
             return self._ones_segment_sum(code_t, ds)
         if len(factors) == 1:
@@ -481,35 +675,49 @@ class SparseExecutor(Executor):
                                    ds).to(self.dtype).reshape(-1)
         return _kr_segment_sum(code_t, factors, ds, self.dtype).reshape(-1)
 
-    def hop_message(self, db: RelationalDB, hop: HopSpec,
-                    stats: Optional[CostStats] = None
-                    ) -> Tuple[torch.Tensor, Tuple[CtVar, ...]]:
-        child = self._node_message(db, hop.child_node, stats)
-        return self._hop(db, hop, child, stats)
-
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
              stats: Optional[CostStats] = None) -> CtTable:
         fs = FactorSpec(var, tuple(attrs))
         code, ds = self._entity_code(db, fs)
         n = db.entities[var.etype].size
-        flat = self._reduce_by_code(code, ds, n, ())
+        flat = self._reduce_by_code(self._code_tensor(code, n), ds, ())
         if not fs.attrs:
             return CtTable((), flat[0])
         return CtTable(fs.attrs, flat.reshape(tuple(v.card for v in fs.attrs)))
 
-    def root_reduce(self, db: RelationalDB, own: FactorSpec,
-                    factors: Sequence[Tuple[torch.Tensor, Tuple[CtVar, ...]]],
-                    keep: Sequence[CtVar],
-                    stats: Optional[CostStats] = None) -> CtTable:
-        code, ds = self._entity_code(db, own)
-        n = db.entities[own.var.etype].size
-        mvars: List[CtVar] = list(own.attrs)
-        mats: List[torch.Tensor] = []
-        for m, vs in factors:
-            mats.append(m)
-            mvars.extend(vs)
-        flat = self._reduce_by_code(code, ds, n, mats)
-        return _finalise(flat, mvars, keep, stats)
+    def _root(self, db: RelationalDB, owns: Sequence[FactorSpec],
+              factors: Sequence[Tuple[torch.Tensor,
+                                      List[Tuple[CtVar, ...]]]],
+              keeps: Sequence[Sequence[CtVar]],
+              stats: Optional[CostStats]) -> List[CtTable]:
+        b = len(owns)
+        n = db.entities[owns[0].var.etype].size
+        codes = [self._entity_code(db, own) for own in owns]
+        ds = codes[0][1]
+        if b == 1:
+            code_t = self._code_tensor(codes[0][0], n)
+        else:   # plan i's root codes index the i-th of b code spaces
+            code_t = _host_to(_end_to_end(
+                [np.zeros(n, dtype=np.int32) if c is None else c
+                 for c, _ in codes], ds), self.device)
+        flat = self._reduce_by_code(code_t, b * ds, [m for m, _ in factors])
+        mvars = [tuple(own.attrs) for own in owns]
+        for _, vs in factors:
+            mvars = [a + tuple(v) for a, v in zip(mvars, vs)]
+        return [_finalise(row, mv, keep, stats)
+                for row, mv, keep in zip(_rows(flat, b), mvars, keeps)]
+
+    def _stack_space(self, db: RelationalDB, plan: ContractionPlan) -> int:
+        def node(n: NodeSpec) -> int:
+            spaces = [1]
+            for h in n.hops:
+                ds = h.child_node.own.card
+                for cv in h.edge_attrs:
+                    ds *= cv.card
+                spaces += [db.entities[h.parent.etype].size * ds,
+                           node(h.child_node)]
+            return max(spaces)
+        return max(plan.root.own.card, node(plan.root))
 
 
 EXECUTORS = {"dense": DenseExecutor, "sparse": SparseExecutor}

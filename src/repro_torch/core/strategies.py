@@ -22,7 +22,9 @@ through the executor (the K3 kernel on the card), or through a
 
 * PRECOUNT — prepare() contracts the positive ct-table for every lattice
   point AND runs the Möbius join to the complete table over *all* variables
-  of the point; family_ct() is a pure projection.  Pays the Eq. (3) blowup.
+  of the point; family_ct() is a pure projection, summed in float64 and
+  rounded once (the complete table's negative cells pass 2^24, where a
+  float32 sum of many of them drifts).  Pays the Eq. (3) blowup.
 * ONDEMAND — prepare() builds only per-variable histograms (metadata);
   family_ct() contracts the family's positive tables from the raw data (the
   expensive JOINs, re-run per family) then runs a small Möbius join.
@@ -52,8 +54,24 @@ from .mobius import (butterfly_batch, complete_ct, complete_ct_many,
 from .variables import CtVar, LatticePoint
 
 
+#: micro-batch cap of :meth:`Strategy.prefetch`, the JAX package's
+#: ``CountingService`` default ``max_batch_size``
+PREFETCH_BATCH = 64
+
+
 def _freeze(point: LatticePoint, keep: Sequence[CtVar]) -> Tuple:
     return (point.atoms, tuple(keep))
+
+
+def _project_wide(table: CtTable, keep: Sequence[CtVar]) -> CtTable:
+    """``table.project(keep)`` summed in float64 and rounded once to the
+    table's dtype.  A complete table's cells are integers below 2^53 in
+    float64, so the sum is exact in any order: the family is the correctly
+    rounded projection on every device, where a float32 sum over many
+    cells past 2^24 drifts by many units in the last place, and by a
+    different amount on each device."""
+    wide = CtTable(table.vars, table.counts.double()).project(keep)
+    return CtTable(wide.vars, wide.counts.to(table.counts.dtype))
 
 
 @dataclass
@@ -140,7 +158,7 @@ class Strategy:
     def family_ct(self, point: LatticePoint,
                   keep: Sequence[CtVar]) -> CtTable:
         if self._precount_complete:
-            return self._complete_full(point).project(keep)
+            return _project_wide(self._complete_full(point), keep)
         key = ("fam",) + _freeze(point, keep)
         hit = self.engine.cache.get(key)
         if hit is not None:
@@ -167,21 +185,32 @@ class Strategy:
 
     def prefetch(self, queries: Sequence[Tuple[LatticePoint,
                                                Tuple[CtVar, ...]]]) -> int:
-        """Warm the positive policy's cache for ``queries``: contract each
-        query the policy would have to count from data
-        (:meth:`~repro_torch.core.engine._Policy.batchable_misses`) and
-        hand it back through the policy's absorb hook.  Runs synchronously
-        on the calling thread; batched equals unbatched, so the tables are
+        """Warm the positive policy's cache for ``queries``: the queries
+        the policy would have to count from data
+        (:meth:`~repro_torch.core.engine._Policy.batchable_misses`) run in
+        shape-signature micro-batches of at most ``PREFETCH_BATCH``
+        through :func:`~repro_torch.serve.batching.execute_bucketed`
+        (stack-compatible plans as one flattened evaluation,
+        :meth:`~repro_torch.core.executors.Executor.positive_batch`), and
+        each table goes back through the policy's absorb hook.  Runs on
+        the calling thread; batched equals unbatched, so the tables are
         those the Möbius join would have contracted on its own.
 
         Returns:
             The number of queries contracted (cache misses).
         """
+        from ..serve.batching import execute_bucketed
         todo = self.provider.batchable_misses(list(queries))
-        for point, keep in todo:
-            with self.stats.timer("positive"):
-                tab = self.engine.contract(point, keep)
-            self.provider.absorb(point, keep, tab)
+        if not todo:
+            return 0
+        eng = self.engine
+        plans = [eng.plan(point, keep) for point, keep in todo]
+        with self.stats.timer("positive"):
+            tabs = execute_bucketed(eng.executor, eng.db, plans, self.stats,
+                                    max_batch_size=PREFETCH_BATCH,
+                                    tracer=eng.tracer)
+        for (point, _), plan, tab in zip(todo, plans, tabs):
+            self.provider.absorb(point, plan.keep, tab)
         return len(todo)
 
     def family_ct_many(self, point: LatticePoint,

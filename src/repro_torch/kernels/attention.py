@@ -13,9 +13,11 @@ keys: every key below ``Skv`` counts and no other does, causal or not.
 
 The CUDA kernels are in ``csrc/attention.cu``: a Hopper kernel (TMA,
 ``wgmma``, warp specialisation) for bf16 with ``hd == 128``, ``mma.sync``
-for bf16 with ``hd`` in {16, 32, 64, 192, 256}, and a CUDA-core kernel for
-the rest up to ``hd == MAX_HD`` (float32 at any such ``hd``);
-:func:`flash_attention_route` names the one a call takes.  The plain
+for bf16 with ``hd`` in {16, 32, 64, 192, 256}, a CUDA-core kernel for the
+rest up to ``hd == SLICE_HD`` (float32 at any such ``hd``), and above it
+the same CUDA-core kernel with the head dim streamed in slices
+(:func:`head_slices`); :func:`flash_attention_route` names the one a call
+takes.  The plain
 version below computes the same function in float32 chunks of query rows,
 so a ``[B, H, Sq, Skv]`` score matrix is never held whole;
 :mod:`repro_torch.kernels.ops` routes between it and the kernels.
@@ -31,10 +33,22 @@ from . import build
 PLAIN_CHUNK = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the C entry's route codes (``flash_attention_route`` in attention.cu)
-ROUTES = ("cuda-core", "mma.sync", "wgmma")
-#: the largest head dim the CUDA kernels take: the CUDA-core kernel's
-#: largest column budget (``kMaxSimtHD`` in attention.cu)
-MAX_HD = 512
+ROUTES = ("cuda-core", "mma.sync", "wgmma", "sliced")
+#: the widest head dim the unsliced CUDA-core kernel takes, and the widest
+#: slice of the sliced one (``kMaxSimtHD`` in attention.cu)
+SLICE_HD = 512
+
+
+def head_slices(hd: int):
+    """The output column slices ``[(start, width), ...]`` of the sliced
+    route at head dim ``hd`` (above ``SLICE_HD``): ``hd`` cut into
+    ``ceil(hd / SLICE_HD)`` equal parts, each rounded up to a multiple of
+    32, the last holding what is left (``sliced_width`` in attention.cu).
+    Each score sums over Q/K slices of ``SLICE_HD`` dims in turn."""
+    parts = -(-hd // SLICE_HD)
+    per = -(-hd // parts)
+    width = -(-per // 32) * 32
+    return [(c0, min(width, hd - c0)) for c0 in range(0, hd, width)]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

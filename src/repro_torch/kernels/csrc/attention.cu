@@ -58,9 +58,17 @@
 //    kernel, 16 query rows per CTA, one key per lane per 32-key tile staged
 //    in dynamic shared memory as float32; the same online softmax with expf.
 //    It is templated on a column budget of 128, 256 or 512 (the output
-//    columns each lane keeps in registers); its tiles take 164 KB at hd 512,
-//    and hd above 512 is refused.  It exists for the float32 check and the
-//    odd head sizes, not for speed.
+//    columns each lane keeps in registers); its tiles take 164 KB at hd 512.
+//    It exists for the float32 check and the odd head sizes, not for speed.
+//  * any dtype with hd above 512: the same CUDA-core kernel with the head
+//    dim streamed.  Neither Q's rows nor a lane's output columns fit at
+//    such widths, so each CTA owns one slice of at most 512 output columns
+//    (sliced_width: the head dim cut into equal slices, rounded up to 32)
+//    for its 16 query rows, and each score is summed over Q and K slices of
+//    at most 512 dims staged in turn (the same fma order over d as the
+//    unsliced kernel).  One CTA per (query block, output slice), head,
+//    batch; the scores are recomputed once per output slice.  Simple and
+//    right, not fast.
 // Every route skips key tiles wholly above the diagonal when causal.
 //
 // The kernels allocate nothing and launch on the caller's stream; the entry
@@ -728,6 +736,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 constexpr int kSimtBQ = 16;    // query rows per CTA, 4 per warp
 constexpr int kSimtBK = 32;    // keys per tile, one per lane
 constexpr int kMaxSimtHD = 512;   // the largest column budget below
+constexpr int64_t kMaxRouteHD = INT32_MAX;   // the kernels take hd as an int
 
 // Dynamic shared memory of the CUDA-core kernel at head dim hd: Q, K (row
 // stride hd | 1, odd, so the lanes' rows fall in distinct banks) and V
@@ -855,6 +864,137 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The width of each output slice of the sliced kernel at head dim hd: hd
+// cut into ceil(hd / kMaxSimtHD) equal parts, rounded up to a multiple of
+// 32 (at most kMaxSimtHD); the last slice holds what is left.  Mirrored by
+// head_slices in kernels/attention.py.
+int sliced_width(int hd) {
+  const int parts = (hd + kMaxSimtHD - 1) / kMaxSimtHD;
+  const int per = (hd + parts - 1) / parts;
+  return (per + 31) / 32 * 32;
+}
+
+// hd above kMaxSimtHD: one CTA per (16 query rows, output slice of width
+// sw), head, batch.  Shared memory as the unsliced kernel at its largest
+// budget: a Q slice [kSimtBQ][<= 512], a K slice [kSimtBK][(<= 512) | 1]
+// and the V tile's columns of this CTA's slice [kSimtBK][<= 512].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out,
+                        int64_t sq, int64_t skv, int64_t n_heads,
+                        int64_t n_kv_heads, int hd, int sw, int n_slices,
+                        int causal, float scale) {
+  constexpr int RPW = kSimtBQ / (kThreads / 32);   // rows per warp
+  constexpr int CPL = kMaxSimtHD / 32;             // columns per lane
+  extern __shared__ float simt_smem[];
+  float* qs = simt_smem;                           // [kSimtBQ][dw]
+  float* ks = qs + kSimtBQ * kMaxSimtHD;           // [kSimtBK][dw | 1]
+  float* vs = ks + kSimtBK * (kMaxSimtHD | 1);     // [kSimtBK][cw]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t n_qblocks = (sq + kSimtBQ - 1) / kSimtBQ;
+  const int64_t qb = n_qblocks - 1 - (int64_t)blockIdx.x / n_slices;
+  const int c0 = (int)(blockIdx.x % n_slices) * sw;
+  const int cw = hd - c0 < sw ? hd - c0 : sw;
+  const int64_t q0 = qb * kSimtBQ;
+  const int64_t h = blockIdx.y, b = blockIdx.z;
+  const int64_t hk = h / (n_heads / n_kv_heads);
+
+  float m[RPW], l[RPW], acc[RPW][CPL];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
+  }
+  const int64_t kv_end =
+      causal ? (skv < q0 + kSimtBQ ? skv : q0 + kSimtBQ) : skv;
+  for (int64_t k0 = 0; k0 < kv_end; k0 += kSimtBK) {
+    float s[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) s[i] = 0.f;
+    for (int d0 = 0; d0 < hd; d0 += kMaxSimtHD) {
+      const int dw = hd - d0 < kMaxSimtHD ? hd - d0 : kMaxSimtHD;
+      const int ldk = dw | 1;
+      __syncthreads();
+      for (int i = threadIdx.x; i < kSimtBQ * dw; i += kThreads) {
+        const int r = i / dw, d = i - r * dw;
+        qs[i] = q0 + r < sq
+                    ? to_f(q[((b * sq + q0 + r) * n_heads + h) * hd + d0 + d])
+                    : 0.f;
+      }
+      for (int i = threadIdx.x; i < kSimtBK * dw; i += kThreads) {
+        const int r = i / dw, d = i - r * dw;
+        ks[r * ldk + d] =
+            k0 + r < skv
+                ? to_f(k[((b * skv + k0 + r) * n_kv_heads + hk) * hd + d0 + d])
+                : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp * RPW + i;
+        for (int d = 0; d < dw; ++d)
+          s[i] = fmaf(qs[r * dw + d], ks[lane * ldk + d], s[i]);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kSimtBK * cw; i += kThreads) {
+      const int r = i / cw, d = i - r * cw;
+      const int64_t row = (b * skv + k0 + r) * n_kv_heads + hk;
+      vs[i] = k0 + r < skv ? to_f(v[row * hd + c0 + d]) : 0.f;
+    }
+    __syncthreads();
+    const int64_t key = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp * RPW + i;
+      float si = s[i] * scale;
+      if (key >= skv || (causal && key > q0 + r)) si = kNegInf;
+      float mx = si;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float p = expf(si - m_new);
+      const float corr = expf(m[i] - m_new);
+      float ps = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l[i] = l[i] * corr + ps;
+      m[i] = m_new;
+      const float pv = to_f(from_f<T>(p));   // probabilities in v's type
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[i][c] *= corr;
+      for (int j = 0; j < kSimtBK; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pv, j);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int d = lane + 32 * c;
+          if (d < cw) acc[i][c] = fmaf(pj, vs[j * cw + d], acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int64_t row = q0 + warp * RPW + i;
+    if (row >= sq) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int d = lane + 32 * c;
+      if (d < cw)
+        out[((b * sq + row) * n_heads + h) * hd + c0 + d] =
+            from_f<T>(acc[i][c] / li);
+    }
+  }
+}
+
 // The launches set each kernel's dynamic shared-memory limit once (the
 // function-local static of each instantiation), then launch on `stream`.
 template <int HD>
@@ -907,6 +1047,27 @@ int launch_simt_any(const void* q, const void* k, const void* v, void* out,
                                n_kv_heads, hd, causal, scale, stream);
   return launch_simt<T, kMaxSimtHD>(q, k, v, out, batch, sq, skv, n_heads,
                                     n_kv_heads, hd, causal, scale, stream);
+}
+
+template <typename T>
+int launch_sliced(const void* q, const void* k, const void* v, void* out,
+                  int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
+                  int64_t n_kv_heads, int hd, int causal, float scale,
+                  cudaStream_t stream) {
+  constexpr int kBytes = simt_smem_bytes(kMaxSimtHD);
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_sliced_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBytes);
+  if (allowed != cudaSuccess) return (int)allowed;
+  const int sw = sliced_width(hd);
+  const int n_slices = (hd + sw - 1) / sw;
+  const int64_t blocks = (sq + kSimtBQ - 1) / kSimtBQ * n_slices;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)n_heads, (unsigned)batch);
+  flash_sliced_kernel<T><<<grid, kThreads, kBytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, skv, n_heads,
+      n_kv_heads, hd, sw, n_slices, causal, scale);
+  return (int)cudaGetLastError();
 }
 
 using EncodeTiledFn = CUresult (*)(
@@ -978,20 +1139,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// The kernel that flash_attention launches: 2 = the Hopper kernel (bf16,
-// hd 128), 1 = mma.sync (bf16, hd 16/32/64/192/256), 0 = the CUDA-core
-// kernel (float32 at any hd, bf16 at the others), -1 = none (invalid dtype,
-// or hd outside [1, 512]).
+// The kernel that flash_attention launches: 3 = the sliced CUDA-core
+// kernel (hd above 512, either dtype), 2 = the Hopper kernel (bf16, hd
+// 128), 1 = mma.sync (bf16, hd 16/32/64/192/256), 0 = the CUDA-core kernel
+// (float32 at hd up to 512, bf16 at the others), -1 = none (invalid dtype,
+// or hd outside [1, INT32_MAX]).
 extern "C" int flash_attention_route(int64_t hd, int dtype) {
-  if (hd < 1 || hd > kMaxSimtHD || (dtype != 0 && dtype != 1)) return -1;
+  if (hd < 1 || hd > kMaxRouteHD || (dtype != 0 && dtype != 1)) return -1;
+  if (hd > kMaxSimtHD) return 3;
   if (dtype == 0) return 0;
   if (hd == kHD) return 2;
   return hd == 16 || hd == 32 || hd == 64 || hd == 192 || hd == 256 ? 1 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, hd]; k, v [B, Skv, Hkv,
-// hd]; out [B, Sq, H, hd]; all contiguous, Hkv | H, 1 <= hd <= 512, Sq and
-// Skv >= 1; bf16 pointers 16-byte aligned.
+// hd]; out [B, Sq, H, hd]; all contiguous, Hkv | H, 1 <= hd <= INT32_MAX,
+// Sq and Skv >= 1; bf16 pointers 16-byte aligned.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t batch, int64_t sq,
                                int64_t skv, int64_t n_heads,
@@ -1005,6 +1168,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (route == 2)
     return launch_wgmma(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
                         causal, scale, st);
+  if (route == 3)
+    return dtype == 1
+               ? launch_sliced<__nv_bfloat16>(q, k, v, out, batch, sq, skv,
+                                              n_heads, n_kv_heads, (int)hd,
+                                              causal, scale, st)
+               : launch_sliced<float>(q, k, v, out, batch, sq, skv, n_heads,
+                                      n_kv_heads, (int)hd, causal, scale, st);
   if (route == 1) {
     switch (hd) {
 #define MMA_CASE(D)                                                        \

@@ -22,8 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .attention import (MAX_HD, flash_attention_cuda,
-                        flash_attention_plain)
+from .attention import flash_attention_cuda, flash_attention_plain
 from .bdeu import MAX_R, bdeu_cuda, bdeu_plain
 from .mobius import mobius_cuda, mobius_plain
 from .segsum import (REGIMES, card_of, ones_plan, rows_plan,
@@ -219,9 +218,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_attention: inputs must be contiguous "
                              "and 16-byte aligned")
-    if not 1 <= hd <= MAX_HD:
-        raise ValueError(f"flash_attention: head dim {hd} outside [1, "
-                         f"{MAX_HD}], the CUDA kernels' limit")
     if b > _GRID_MAX or h > _GRID_MAX:
         raise ValueError("flash_attention: batch or heads exceed the grid")
     if q.numel() == 0 or k.shape[1] == 0:

@@ -21,7 +21,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import ops
-from repro_torch.kernels.attention import flash_attention_plain
+from repro_torch.kernels.attention import (SLICE_HD, flash_attention_plain,
+                                          head_slices)
 from repro_torch.models import attention as tattn
 
 
@@ -169,6 +170,41 @@ def test_flash_attention_wide_heads_match_jax(hd, causal, h, hk):
         got.numpy(), np.asarray(jref.flash_attention_ref(*_j(q, kr, vr),
                                                          causal)),
         rtol=2e-5, atol=2e-5)
+
+
+# Head dims above 512, the sliced route's: 576 (padded to 640 by the JAX
+# kernel) and 1,024, at small S.  The card's sliced kernel streams the head
+# dim; its plain version is the one the card is held to.
+@pytest.mark.parametrize("hd", [576, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_sliced_head_dims_match_jax(hd, causal):
+    b, s, h, hk = 1, 32, 2, 1
+    q, k, v = _normal(hd + causal, (b, s, h, hd), (b, s, hk, hd),
+                      (b, s, hk, hd))
+    got = ops.flash_attention(*_t(q, k, v), causal=causal)
+    assert got.shape == (b, s, h, hd)
+    kr, vr = (np.repeat(a, h // hk, axis=2) for a in (k, v))
+    want = jops.flash_attention(*_j(q, kr, vr), causal=causal, block_q=16,
+                                block_k=16, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("hd,want", [
+    (513, [(0, 288), (288, 225)]),
+    (576, [(0, 288), (288, 288)]),
+    (640, [(0, 320), (320, 320)]),
+    (1024, [(0, 512), (512, 512)]),
+    (1025, [(0, 352), (352, 352), (704, 321)]),
+])
+def test_head_slices_cover_the_head_dim(hd, want):
+    slices = head_slices(hd)
+    assert slices == want
+    assert sum(w for _, w in slices) == hd
+    assert all(w <= SLICE_HD and (w % 32 == 0 or c0 + w == hd)
+               for c0, w in slices)
+    assert all(c0 == sum(w for _, w in slices[:i])
+               for i, (c0, _) in enumerate(slices))
 
 
 def test_flash_attention_checks_shapes():
