@@ -169,6 +169,37 @@ Phases (any failure exits non-zero before the last line is printed):
               replay.  The runs' launches and the replay are the
               ``strategies`` entries of K1's and K2's kernels-line rows.
 
+13. mutations — writes and delta count maintenance on the card.  (a) The
+              IMDb stand-in at ``IMDB_SCALE``: HYBRID and ONDEMAND
+              (``MUTATION_STRATEGIES``) warmed by discovery on copies of
+              the store (phases 3 and 12 keep theirs), then each write of
+              ``IMDB_WRITES`` (drawn from a generator seeded
+              ``MUTATION_SEED``) applied and reconciled with
+              ``strategy.apply_delta``: the ``DeltaReport``, the
+              reconciliation's wall (host clock ending in
+              ``torch.cuda.synchronize()``) and K1/K2/K3 launches (K1 and
+              K2 by regime), no plain version; the first write must update
+              HYBRID in place through K1 or K2 and K3, both small fact
+              deltas must invalidate nothing, the large delete must update
+              nothing.  A third HYBRID copy takes every write under
+              ``torch.profiler`` (device busy time).  (b) After each write
+              every resident ``"pos"``/``"full"``/``"fam"``/``"complete"``
+              entry against a fresh strategy's recount on the mutated
+              store (``recount_entries``): cells below 2^24 bit for bit,
+              past it within ``ROUNDING_PAST_2_24``; a fourth copy takes
+              the first write reconciled with its sign flipped (a planted
+              fault), which must differ below 2^24.  (c) After each write
+              the search (``StructureSearch``) on the reconciled strategy,
+              launching K4, against ``discover_model`` on a fresh one: edge
+              for edge but at points where a family's cells past 2^24
+              differ or that inherit a differing sub-point's edges
+              (printed with the edges each side alone has); both walls.  (d) UW at
+              ``UW_SCALE``, all four strategies over both executors, card
+              and CPU taking the same interleaving (``UW_WRITES``): equal
+              reports and every resident entry bit for bit.  The phase's
+              launches are the ``mutations`` entries of K1's, K2's and
+              K3's kernels-line rows (K4's: the rediscoveries').
+
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -298,6 +329,22 @@ DISCOVERY = dict(max_chain_length=2, max_parents=3)    # phases 3, 4 and 12
 # cells past 2^24, where float32 rounds counts (phase 12): 64 units in the
 # last place.  tests/test_torch_batching.py holds the CPU to the same bound.
 ROUNDING_PAST_2_24 = 2.0 ** -18
+# The mutations phase (13): the strategies warmed on IMDb copies; the
+# writes on IMDb and on UW, as (op, target, count),
+# drawn from one generator seeded MUTATION_SEED.  IMDb: 1 % fresh pairs
+# into imdb_R0, 4,000 deletes from imdb_R1 and 1,000 rows of one attribute
+# of imdb_e0 (all updated in place), then 30,000 deletes from imdb_R2, above
+# max_update_fraction = 0.25 of the 83,000 edges left (the invalidation
+# fallback).  UW: an interleaving whose insert of 40 RA edges passes the
+# same fraction.
+MUTATION_STRATEGIES = ("HYBRID", "ONDEMAND")
+MUTATION_SEED = 13
+IMDB_WRITES = (("insert", "imdb_R0", 4000), ("delete", "imdb_R1", 4000),
+               ("attrs", "imdb_e0", 1000), ("delete", "imdb_R2", 30000))
+UW_WRITES = (("insert", "Registered", 6), ("delete", "RA", 4),
+             ("attrs", "student", 5), ("insert", "RA", 40),
+             ("delete", "Registered", 5), ("attrs", "course", 3),
+             ("insert", "Registered", 3))
 
 
 def log(msg: str) -> None:
@@ -1072,6 +1119,54 @@ def past_2_24(a: torch.Tensor, b: torch.Tensor):
     return rel, low
 
 
+def recount_entries(strategy, fresh) -> dict:
+    """Every resident ``"pos"``, ``"full"``, ``"fam"``, ``"complete"`` and
+    ``"msg"`` entry of ``strategy``'s cache against ``fresh``'s recount of
+    it (``fresh``: a strategy of the same kind prepared on the same store
+    after the writes).  Returns the entries compared and the keys whose
+    axes differ or whose cells below 2^24 differ (``low_differs``: counts
+    there are exact, so any difference is a fault), whose cells past 2^24
+    differ at all (``rounded``: an in-place ``old + delta`` may round apart
+    from a recount there) and by more than ``ROUNDING_PAST_2_24`` of a
+    cell (``past_bound``), with the largest such relative difference.
+    ``tests/test_torch_mutations.py`` runs the same comparison on the CPU
+    and shows that it fails on a planted fault."""
+    from repro_torch.core import LatticePoint
+    cache = strategy.engine.cache
+    low, rounded, high, worst, n = [], [], [], 0.0, 0
+    for key in cache.keys_snapshot():
+        ns, got = key[0], cache.peek(key)
+        if ns == "pos":
+            want = fresh.engine.contract(LatticePoint(key[2]), key[3])
+        elif ns == "full":
+            want = fresh.engine.contract(LatticePoint(key[2]), None)
+        elif ns == "fam":
+            want = fresh.family_ct(LatticePoint(key[1]), key[2])
+        elif ns == "complete":
+            want = fresh._complete_full(LatticePoint(key[1]))
+        elif ns == "msg":
+            want = fresh.provider._msg(*key[2:])
+        else:
+            continue
+        n += 1
+        # a message entry is already its (matrix, column vars) pair
+        (a, a_vars), (b, b_vars) = (t if ns == "msg" else (t.counts, t.vars)
+                                    for t in (got, want))
+        if tuple(a_vars) != tuple(b_vars) or a.shape != b.shape:
+            low.append(key)
+            continue
+        rel, differs_low = past_2_24(a, b.to(a.device))
+        if differs_low:
+            low.append(key)
+        if rel > 0.0:
+            rounded.append(key)
+        if rel > ROUNDING_PAST_2_24:
+            high.append(key)
+        worst = max(worst, rel)
+    return dict(entries=n, low_differs=low, rounded=rounded, past_bound=high,
+                worst_past_2_24=worst)
+
+
 def precount_tables(db, precount, asked, differ, edges) -> dict:
     """PRECOUNT against HYBRID and against itself on the CPU, table by
     table.  PRECOUNT projects each family from the complete table over all
@@ -1212,6 +1307,353 @@ def strategies_phase(ops, hybrid: dict) -> dict:
     replay = replay_phase(ops, ondemand)
     log(f"strategies phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(runs=runs, replay=replay)
+
+
+def draw_writes(db, plan, seed: int) -> list:
+    """Writes drawn from one numpy generator (``seed``), in order, each
+    from the state the writes before it left: ``plan`` holds ``(op,
+    target, k)`` with ``op`` ``"insert"`` (``k`` fresh pairs, random edge
+    attributes), ``"delete"`` (``k`` random edges) or ``"attrs"`` (``k``
+    random rows of one random attribute).  Each write is ``(label, op,
+    target, arrays...)``, so every copy of the store takes the same one
+    (:func:`apply_write`)."""
+    import copy
+    rng = np.random.default_rng(seed)
+    scratch = copy.deepcopy(db)
+    out = []
+    for op, target, k in plan:
+        if op == "insert":
+            tab = scratch.relations[target]
+            ns = scratch.entities[tab.type.src].size
+            nd = scratch.entities[tab.type.dst].size
+            have = tab.src.astype(np.int64) * nd + tab.dst.astype(np.int64)
+            cand = np.unique(rng.integers(0, ns * nd, size=2 * k + 16,
+                                          dtype=np.int64))
+            cand = rng.permutation(cand[~np.isin(cand, have)])[:k]
+            if cand.size != k:
+                fail(f"draw_writes: fewer than {k} fresh pairs for {target}")
+            arrays = ((cand // nd).astype(np.int32),
+                      (cand % nd).astype(np.int32),
+                      {a.name: rng.integers(0, a.card, size=k).astype(
+                          np.int32) for a in tab.type.attrs})
+        elif op == "delete":
+            tab = scratch.relations[target]
+            pick = rng.choice(tab.num_edges, size=k, replace=False)
+            arrays = (tab.src[pick].copy(), tab.dst[pick].copy())
+        else:
+            tab = scratch.entities[target]
+            attr = tab.type.attrs[int(rng.integers(len(tab.type.attrs)))]
+            rows = rng.choice(tab.size, size=k, replace=False).astype(
+                np.int32)
+            arrays = (rows, {attr.name: rng.integers(
+                0, attr.card, size=k).astype(np.int32)})
+        detail = f".{attr.name}" if op == "attrs" else ""
+        write = (f"{op} {k:,} {target}{detail}", op, target) + arrays
+        apply_write(scratch, write)
+        out.append(write)
+    return out
+
+
+def apply_write(db, write):
+    """One write of :func:`draw_writes` to ``db``; the applied delta."""
+    _, op, target, *arrays = write
+    if op == "insert":
+        return db.insert_facts(target, *arrays)
+    if op == "delete":
+        return db.delete_facts(target, *arrays)
+    return db.update_attrs(target, *arrays)
+
+
+def cache_diffs(a, b) -> list:
+    """The resident keys where two strategies' caches differ: a key on one
+    side only, another stamp or other axes, or any cell not equal bit for
+    bit."""
+    ca, cb = a.engine.cache, b.engine.cache
+    ka, kb = ca.keys_snapshot(), cb.keys_snapshot()
+    out = sorted(map(str, set(ka) ^ set(kb)))
+    for key in set(ka) & set(kb):
+        (ma, xa), (mb, xb) = (v if key[0] == "msg" else (v.counts, v.vars)
+                              for v in (ca.peek(key), cb.peek(key)))
+        if (ca.entry_meta(key) != cb.entry_meta(key)
+                or tuple(xa) != tuple(xb)
+                or not torch.equal(ma.cpu(), mb.cpu())):
+            out.append(str(key))
+    return out
+
+
+def kernel_counts(ops) -> dict:
+    """K1-K4 launches since the last ``reset_counts``, K1's and K2's by
+    regime."""
+    return dict(k1=ops.LAUNCHES["segsum_ones"],
+                k2=ops.LAUNCHES["segsum_rows"], k3=ops.LAUNCHES["mobius"],
+                k4=ops.LAUNCHES["bdeu"],
+                k1_regimes=dict(ops.ONES_REGIMES),
+                k2_regimes=dict(ops.ROW_REGIMES))
+
+
+def check_no_plain(ops, label: str) -> None:
+    if any(ops.PLAIN_CALLS[k] for k in ops.KERNELS):
+        fail(f"{label}: plain versions ran on the card: {ops.PLAIN_CALLS}")
+
+
+def prepared(name: str, db, lattice):
+    """A fresh ``name`` strategy over the sparse executor on the card,
+    prepared on ``db``: the recount side of :func:`recount_entries`."""
+    from repro_torch.core import make_strategy
+    fresh = make_strategy(name, executor="sparse")
+    fresh.prepare(db, lattice)
+    return fresh
+
+
+def rediscovery(ops, db, strategy, name: str, label: str) -> dict:
+    """13 (c). The search on the reconciled ``strategy`` over its lattice
+    (``StructureSearch`` directly: ``discover_model`` would prepare a new
+    engine and drop the reconciled cache), counted (K4 must launch, no
+    plain version may run), against ``discover_model`` on a fresh strategy
+    over the mutated store: edge for edge, except at points where a
+    family's cells past 2^24 differ between the two, or whose climb
+    inherits a differing sub-point's edges (printed with the edges each
+    side alone has)."""
+    from repro_torch.core import (LatticePoint, StructureSearch,
+                                  discover_model, make_strategy)
+    ops.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    models = StructureSearch(db, strategy,
+                             max_parents=DISCOVERY["max_parents"]).run(
+        strategy.lattice)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(ops)
+    check_no_plain(ops, f"{label}: the search on the reconciled cache")
+    if launches["k4"] <= 0:
+        fail(f"{label}: the search after the writes launched no K4")
+    t0 = time.perf_counter()
+    fresh_models, fresh = discover_model(
+        db, make_strategy(name, executor="sparse"), **DISCOVERY)
+    sync()
+    fresh_wall = time.perf_counter() - t0
+    got, want = edges_of(models), edges_of(fresh_models)
+    differ = sorted(p for p in set(got) | set(want)
+                    if got.get(p) != want.get(p))
+    if differ:
+        out = recount_entries(strategy, fresh)
+        rounded = {str(LatticePoint(key[1])) for key in out["rounded"]
+                   if key[0] in ("fam", "complete")}
+        # a point's climb starts from its sub-points' edges, so a sub-point
+        # whose model differs explains the point's difference too
+        why = {}
+        for point in strategy.lattice:            # bottom-up
+            p = str(point)
+            subs = [str(q) for q in strategy.lattice
+                    if q.rels < point.rels and str(q) in why]
+            if p in differ and (p in rounded or subs):
+                why[p] = ("a family rounded apart past 2^24 here"
+                          if p in rounded else f"inherits from {subs}")
+        for p in differ:
+            a, b = set(got.get(p, ())), set(want.get(p, ()))
+            log(f"  {label}: models differ at {p} "
+                f"({why.get(p, 'unexplained')}): reconciled only "
+                f"{sorted(a - b)}, fresh only {sorted(b - a)}")
+        if set(differ) - set(why):
+            fail(f"{label}: the reconciled search's models differ from a "
+                 f"fresh discovery at {sorted(set(differ) - set(why))}, "
+                 f"where no family's cells past 2^24 differ and no "
+                 f"sub-point's model differs")
+    if not all(np.isfinite(m.score) for m in models.values()):
+        fail(f"{label}: a model of the reconciled search has a non-finite "
+             f"score")
+    return dict(search_s=wall, fresh_discover_s=fresh_wall,
+                k4=launches["k4"], models_differ_at=differ)
+
+
+def uw_mutations(ops) -> dict:
+    """13 (d). UW at ``UW_SCALE``, every strategy over both executors,
+    warmed by discovery on the card and on the CPU, then the same seeded
+    interleaving of inserts, deletes and attribute writes (``UW_WRITES``)
+    reconciled on both: equal ``DeltaReport``s, and every resident entry
+    bit for bit equal between the card and the CPU after every write, and
+    again once every point's full-axes family is asked for anew (UW's
+    counts are below 2^24)."""
+    import copy
+
+    from repro_torch.core import (STRATEGIES, discover_model, make_strategy,
+                                  paper_benchmark_db)
+    uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
+    writes = draw_writes(uw, UW_WRITES, MUTATION_SEED)
+    out = {}
+    for sname in sorted(STRATEGIES):
+        for ex in ("sparse", "dense"):
+            t0 = time.perf_counter()
+            dbs = {"card": copy.deepcopy(uw), "cpu": copy.deepcopy(uw)}
+            sts = {
+                "card": discover_model(dbs["card"], make_strategy(
+                    sname, executor=ex))[1],
+                "cpu": discover_model(dbs["cpu"], make_strategy(
+                    sname, executor=ex, device="cpu"), device="cpu")[1]}
+            reports = []
+            for write in writes:
+                reps = {d: sts[d].apply_delta(apply_write(dbs[d], write))
+                        .as_dict() for d in dbs}
+                if reps["card"] != reps["cpu"]:
+                    fail(f"UW {sname}/{ex}, {write[0]}: reports differ: "
+                         f"{reps}")
+                for when in ("reconciled", "asked again"):
+                    diffs = cache_diffs(sts["card"], sts["cpu"])
+                    if diffs:
+                        fail(f"UW {sname}/{ex}, {write[0]} ({when}): card "
+                             f"and CPU caches differ at "
+                             f"{[d[:120] for d in diffs[:5]]}")
+                    # every point's full-axes family once more on both, so
+                    # that what the write invalidated is resident again
+                    for st in sts.values():
+                        for p in st.lattice:
+                            st.family_ct(p, p.all_ct_vars(uw.schema))
+                reports.append(reps["card"])
+            out[f"{sname}/{ex}"] = dict(
+                entries=len(sts["card"].engine.cache),
+                updated=sum(r["updated"] for r in reports),
+                invalidated=sum(r["invalidated"] for r in reports),
+                seconds=time.perf_counter() - t0)
+            log(f"UW {sname}/{ex}: {len(writes)} writes reconciled on the "
+                f"card and the CPU, equal reports and caches bit for bit: "
+                f"{json.dumps(out[f'{sname}/{ex}'])}")
+    return out
+
+
+def mutations_phase(ops) -> dict:
+    """13. Writes and delta count maintenance on the card: (a)-(c) on the
+    IMDb stand-in at ``IMDB_SCALE``, (d) on UW (module docstring)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.core import (discover_model, make_strategy,
+                                  paper_benchmark_db)
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    base = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
+    writes = draw_writes(base, IMDB_WRITES, MUTATION_SEED)
+    # (a) warm caches on copies of the store (phases 3 and 12 keep theirs);
+    # one more HYBRID copy takes every write under torch.profiler (device
+    # busy time), and one the first write with its sign flipped (the
+    # planted fault)
+    stores, warm = {}, {}
+    for label in MUTATION_STRATEGIES + ("profiled", "planted"):
+        stores[label] = copy.deepcopy(base)
+        t0 = time.perf_counter()
+        _, warm[label] = discover_model(
+            stores[label], make_strategy(
+                label if label in MUTATION_STRATEGIES else "HYBRID",
+                executor="sparse"), **DISCOVERY)
+        sync()
+        log(f"mutations: {label} warmed on a copy of IMDb in "
+            f"{time.perf_counter() - t0:.3f} s; cache "
+            f"{json.dumps(warm[label].engine.cache.info())}")
+    del base
+    totals = {k: 0 for k in ("k1", "k2", "k3")}
+    regimes = {"k1": {}, "k2": {}}
+    by_write, busy, readings = {}, {}, []
+    for i, write in enumerate(writes):
+        wlabel = write[0]
+        by_write[wlabel] = {}
+        for name in MUTATION_STRATEGIES:
+            st, db = warm[name], stores[name]
+            delta = apply_write(db, write)
+            ops.reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            report = st.apply_delta(delta)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts(ops)
+            check_no_plain(ops, f"{name}, {wlabel}")
+            for k in totals:
+                totals[k] += launches[k]
+            for k in regimes:
+                for r, n in launches[f"{k}_regimes"].items():
+                    regimes[k][r] = regimes[k].get(r, 0) + n
+            by_write[wlabel][name] = {k: launches[k] for k in totals}
+            if write[1] != "attrs":
+                # apply_delta's default max_update_fraction: 0.25
+                small = delta.num_edges <= 0.25 * db.relations[
+                    write[2]].num_edges
+                if small and report.invalidated:
+                    fail(f"{name}, {wlabel}: a small fact delta invalidated "
+                         f"{report.invalidated} entries")
+                if not small and (report.updated or not report.invalidated):
+                    fail(f"{name}, {wlabel}: a delta above "
+                         f"max_update_fraction updated {report.updated} "
+                         f"entries in place, invalidated "
+                         f"{report.invalidated}")
+            if i == 0 and name == "HYBRID" and (
+                    launches["k1"] + launches["k2"] <= 0
+                    or launches["k3"] <= 0 or report.updated <= 0):
+                fail(f"{name}, {wlabel}: the reconciliation did not update "
+                     f"in place through K1 or K2 and K3: {launches}")
+            # (b) every resident entry against a recount on this store
+            t0 = time.perf_counter()
+            check = recount_entries(st, prepared(name, db, st.lattice))
+            sync()
+            recount_wall = time.perf_counter() - t0
+            if check["low_differs"] or check["past_bound"]:
+                fail(f"{name}, {wlabel}: resident entries differ from a "
+                     f"recount: below 2^24 at "
+                     f"{[str(k)[:120] for k in check['low_differs'][:5]]}, "
+                     f"past 2^24 beyond {ROUNDING_PAST_2_24} at "
+                     f"{[str(k)[:120] for k in check['past_bound'][:5]]}")
+            reading = dict(
+                write=wlabel, strategy=name, report=report.as_dict(),
+                reconcile_s=wall, launches=launches,
+                recount_s=recount_wall, entries_compared=check["entries"],
+                rounded_past_2_24=len(check["rounded"]),
+                worst_past_2_24=check["worst_past_2_24"])
+            # (c) the search on the reconciled cache against a fresh one
+            reading["rediscovery"] = rediscovery(ops, db, st, name,
+                                                 f"{name}, {wlabel}")
+            readings.append(reading)
+            log(f"mutations: {name}, {wlabel}: "
+                f"{json.dumps(report.as_dict())}; reconcile {wall:.4f} s; "
+                f"K1 {launches['k1']} {launches['k1_regimes']}, K2 "
+                f"{launches['k2']} {launches['k2_regimes']}, K3 "
+                f"{launches['k3']}; recount of {check['entries']} entries "
+                f"{recount_wall:.3f} s, equal below 2^24 ("
+                f"{len(check['rounded'])} rounded apart past it, at most "
+                f"{check['worst_past_2_24']} of a cell); rediscovery "
+                f"{json.dumps(reading['rediscovery'])}")
+        # device busy time of the same reconciliation on the profiled copy
+        delta = apply_write(stores["profiled"], write)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm["profiled"].apply_delta(delta)
+            sync()
+        on_card = device_events(prof)
+        busy[wlabel] = (sum(e.self_device_time_total for e in on_card) / 1e3
+                        if on_card else None)
+        log(f"mutations: HYBRID, {wlabel}: device busy {busy[wlabel]} ms in "
+            f"{sum(e.count for e in on_card)} device events (the profiled "
+            f"copy)")
+        if i == 0:
+            # the planted fault: the same insert reconciled as a delete
+            planted, db = warm.pop("planted"), stores.pop("planted")
+            planted.apply_delta(dataclasses.replace(apply_write(db, write),
+                                                    op="delete"))
+            check = recount_entries(planted, prepared("HYBRID", db,
+                                                      planted.lattice))
+            if not check["low_differs"]:
+                fail("mutations: the first write reconciled with its sign "
+                     "flipped matches a recount below 2^24: the comparison "
+                     "cannot fail")
+            log(f"mutations: the planted fault (the insert reconciled as a "
+                f"delete) is caught: {len(check['low_differs'])} of "
+                f"{check['entries']} entries differ below 2^24")
+            del planted, db
+    del warm, stores
+    uw = uw_mutations(ops)
+    log(f"mutations phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(readings=readings, launches=totals,
+                launches_by_regime=regimes, by_write=by_write,
+                hybrid_device_busy_ms=busy, uw=uw)
 
 
 def k2_edge_phase(ops) -> dict:
@@ -1979,6 +2421,23 @@ def main() -> None:
                 replay={k: {f: v[f] for f in (key, f"{key}_regimes")}
                         for k, v in strategies["replay"].items()
                         if isinstance(v, dict)})
+
+    # -- 13. writes and delta count maintenance ------------------------------
+    mutations = mutations_phase(ops)
+    for row in rows:
+        key = {"segsum_ones": "k1", "segsum_rows": "k2",
+               "mobius": "k3"}.get(row["name"])
+        if key is not None:
+            row["mutations"] = dict(
+                launches=mutations["launches"][key],
+                by_write={w: {label: v[key] for label, v in runs.items()}
+                          for w, runs in mutations["by_write"].items()})
+            if key in mutations["launches_by_regime"]:
+                row["mutations"]["launches_by_regime"] = \
+                    mutations["launches_by_regime"][key]
+        elif row["name"] == "bdeu":
+            row["mutations"] = dict(rediscovery_launches=sum(
+                r["rediscovery"]["k4"] for r in mutations["readings"]))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

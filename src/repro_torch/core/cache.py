@@ -22,7 +22,12 @@ entries that cannot enumerate their attribute names); ``version`` is
 :class:`~repro_torch.core.engine.CountingEngine`).
 :meth:`CtCache.invalidate` drops only the entries whose dependency set
 intersects the given tags (entries with unknown deps are dropped
-conservatively).
+conservatively).  After a write, the engine's delta maintenance walks a
+:meth:`CtCache.keys_snapshot`, reads each entry's stamp
+(:meth:`CtCache.entry_meta`) and value (:meth:`CtCache.peek`) without
+touching the LRU or the hit counters, and either refreshes the entry in
+place (:meth:`CtCache.count_delta_updates`) or drops it as stale
+(:meth:`CtCache.discard`).
 
 Keys are arbitrary hashable tuples; by convention the first element names
 the namespace (``"pos"``, ``"full"``, ``"complete"``, ``"msg"``, ``"fam"``,
@@ -33,7 +38,8 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Callable, FrozenSet, Hashable, Iterable, Optional
+from typing import (Any, Callable, FrozenSet, Hashable, Iterable, List,
+                    Optional, Tuple)
 
 from ..obs.trace import NULL_TRACER
 from .contract import CostStats
@@ -94,6 +100,7 @@ class CtCache:
         self.evictions = 0
         self.dropped = 0
         self.invalidated = 0
+        self.delta_updated = 0        # entries refreshed in place by a delta
 
     # -- core ops -----------------------------------------------------------
     def __len__(self) -> int:
@@ -139,6 +146,46 @@ class CtCache:
                 self.stats.bump_cache(nb)  # records the peak before any drop
             self._shrink_to_budget(just_added=key)
         return value
+
+    def peek(self, key: Hashable, default=None):
+        """Read a value WITHOUT hit/miss accounting or an LRU touch — the
+        delta-maintenance walk reads entries it is about to refresh, which
+        must not look like client traffic."""
+        with self._lock:
+            e = self._entries.get(key)
+            return default if e is None else e.value
+
+    def discard(self, key: Hashable) -> bool:
+        """Drop one entry as *stale* (counted under ``invalidated``, not
+        ``evictions``); returns whether it was resident."""
+        with self._lock:
+            if key not in self._entries:
+                return False
+            self._evict_one(key)
+            self.invalidated += 1
+            return True
+
+    def count_delta_updates(self, n: int = 1) -> None:
+        """Record ``n`` entries refreshed in place by a delta (the one
+        place the ``delta_updated`` counter moves, under the lock)."""
+        with self._lock:
+            self.delta_updated += n
+
+    def entry_meta(self, key: Hashable
+                   ) -> Optional[Tuple[Optional[FrozenSet[DepTag]],
+                                       Optional[int]]]:
+        """The ``(deps, version)`` stamp of a resident entry (no LRU
+        touch, no hit/miss accounting), or ``None`` when absent."""
+        with self._lock:
+            e = self._entries.get(key)
+            return None if e is None else (e.deps, e.version)
+
+    def keys_snapshot(self) -> List[Hashable]:
+        """A stable snapshot of the resident keys (LRU -> MRU order) —
+        what a delta-maintenance walk iterates while individual entries
+        come and go underneath it."""
+        with self._lock:
+            return list(self._entries)
 
     # -- eviction -----------------------------------------------------------
     def _evict_one(self, key: Hashable) -> None:
@@ -192,4 +239,5 @@ class CtCache:
         return dict(entries=len(self._entries), nbytes=self.nbytes,
                     budget_bytes=self.budget_bytes, hits=self.hits,
                     misses=self.misses, evictions=self.evictions,
-                    dropped=self.dropped, invalidated=self.invalidated)
+                    dropped=self.dropped, invalidated=self.invalidated,
+                    delta_updated=self.delta_updated)

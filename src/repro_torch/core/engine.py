@@ -23,13 +23,35 @@ Möbius join, and differ only in WHEN joins run and WHAT is cached:
   requests by projecting + recombining cached messages with zero edge
   table access.
 
-Eviction is always safe: every policy recomputes on miss.  Cache entries
-are stamped with the ``(db.version, dependency-tag set)`` they were
-computed under (:func:`key_deps` derives the tags from the key itself).
+Eviction is always safe: every policy recomputes on miss.
+
+**Mutations.**  Cache entries are stamped with the ``(db.version,
+dependency-tag set)`` they were computed under (:func:`key_deps` derives
+the tags from the key itself), and :meth:`CountingEngine.apply_delta`
+reconciles the cache after a :class:`~repro_torch.core.database.FactDelta`
+or :class:`~repro_torch.core.database.AttrDelta` is applied to the store.
+Reconciliation is the paper's pre/post trade-off applied to writes:
+positive artefacts (``"pos"``/``"full"`` tables, ``"msg"`` matrices) are
+multilinear in each relationship's edge multiset, so a small fact delta
+**updates them in place** by counting just the delta edges — surviving
+``"pos"``/``"full"`` entries through ONE
+:meth:`~repro_torch.core.executors.Executor.positive_batch` call over the
+delta view (K1/K2 on the card).  Derived ``"fam"``/``"complete"`` tables
+are updated in place too: the Möbius transform is linear, so the positive
+block deltas push through the butterfly
+(:func:`~repro_torch.core.mobius.complete_ct_delta_many`, one K3 launch
+per ``(shape, perm)`` group) and add onto the resident tables.  Above the
+cost threshold the entry is dropped instead and recomputed on next miss
+(post-counting the write).  Entries whose dependency tags miss the delta —
+including every ``"hist"`` on a fact delta — are retained untouched.
+Attribute deltas invalidate exactly the entries whose tags intersect the
+written ``(etype, attr)`` columns (counts are *not* linear in attribute
+values, so there is no in-place path) and retain everything else.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, FrozenSet, Hashable, List, Optional, Sequence, Set, Tuple
 
 import torch
@@ -38,9 +60,10 @@ from ..obs.trace import NULL_TRACER
 from .cache import CtCache
 from .contract import CostStats
 from .ct import CtTable
-from .database import RelationalDB
+from .database import AttrDelta, RelationalDB
 from .device import resolve_device
 from .executors import Executor, make_executor, project_columns
+from .mobius import complete_ct_delta_many
 from .plan import ContractionPlan, compile_plan_cached
 from .variables import Atom, CtVar, LatticePoint, Var, attr_var, edge_var
 
@@ -88,6 +111,26 @@ def key_deps(key: Tuple) -> Optional[FrozenSet[Hashable]]:
     except (TypeError, AttributeError, IndexError):
         pass
     return None
+
+
+@dataclass
+class DeltaReport:
+    """What one :meth:`CountingEngine.apply_delta` reconciliation did to
+    the cache: entries refreshed in place (``updated``), dropped
+    (``invalidated``) and left untouched (``retained``)."""
+
+    rel: str
+    op: str
+    num_edges: int
+    updated: int = 0
+    invalidated: int = 0
+    retained: int = 0
+    version: int = 0
+
+    def as_dict(self) -> dict:
+        return dict(rel=self.rel, op=self.op, num_edges=self.num_edges,
+                    updated=self.updated, invalidated=self.invalidated,
+                    retained=self.retained, version=self.version)
 
 
 class CountingEngine:
@@ -162,6 +205,271 @@ class CountingEngine:
         """The executor's FUSED batched negative phase,
         ``(block_lists, k, perm) -> [table tensor]``."""
         return self.executor.mobius_batch_fused
+
+    # -- delta count maintenance --------------------------------------------
+    def apply_delta(self, delta,
+                    max_update_fraction: float = 0.25) -> DeltaReport:
+        """Reconcile the cache after ``delta`` was applied to ``self.db``.
+
+        Accepts a :class:`~repro_torch.core.database.FactDelta`
+        (relationship writes) or an
+        :class:`~repro_torch.core.database.AttrDelta` (entity-attribute
+        writes).  For a fact delta, walks the resident entries once and,
+        per entry:
+
+        * dependency tags miss ``delta.rel`` → **retained** untouched;
+        * positive artefact (``"pos"``/``"full"`` table, ``"msg"``
+          matrix) and the delta is *small* (``delta.num_edges <=
+          max_update_fraction *`` the relation's post-delta edge count) →
+          **updated in place**: the entry's own contraction plan runs over
+          a delta view of the database (just the changed edges) and the
+          result is added/subtracted — exact, because positive counts are
+          multilinear in each relationship's edge multiset and lattice
+          patterns use distinct relations.  All surviving ``"pos"`` /
+          ``"full"`` entries go through ONE
+          :meth:`~repro_torch.core.executors.Executor.positive_batch` call;
+        * derived ``"fam"``/``"complete"`` table and the delta is small →
+          **updated in place through the butterfly**
+          (:func:`~repro_torch.core.mobius.complete_ct_delta_many`).
+          Entries whose kept indicators sum ``delta.rel`` out are provably
+          unaffected and retained;
+        * otherwise → **invalidated** (dropped; recomputed on next miss —
+          the post-count fallback of the pre/post trade-off, applied to
+          writes).
+
+        An attribute delta has no in-place path: entries whose tags
+        intersect the written ``(etype, attr)`` columns are invalidated,
+        everything else is retained.
+
+        Deltas must be reconciled in application order, one per call:
+        ``delta.new_version`` must equal the store's current version
+        (otherwise a second delta to an overlapping pattern would double
+        the cross terms).
+
+        Args:
+            delta: the applied :class:`~repro_torch.core.database.FactDelta`
+                or :class:`~repro_torch.core.database.AttrDelta`.
+            max_update_fraction: in-place-update cost threshold, as a
+                fraction of the relation's current edge count.
+
+        Returns:
+            A :class:`DeltaReport` with updated/invalidated/retained
+            counts.
+
+        Raises:
+            ValueError: ``delta`` is not the store's latest version.
+
+        Usage::
+
+            delta = db.insert_facts("Rated", src, dst, {"rating": vals})
+            report = engine.apply_delta(delta)
+        """
+        if delta.new_version != self.db.version:
+            raise ValueError(
+                f"delta version {delta.new_version} != store version "
+                f"{self.db.version}; reconcile deltas in application order")
+        if isinstance(delta, AttrDelta):
+            return self._apply_attr_delta(delta)
+        rel = delta.rel
+        report = DeltaReport(rel, delta.op, delta.num_edges,
+                             version=self.db.version)
+        rel_edges = self.db.relations[rel].num_edges
+        small = delta.num_edges <= max_update_fraction * max(rel_edges, 1)
+        delta_db = delta.as_db(self.db) if small else None
+        cache = self.cache
+        ex = self.executor
+        with self.tracer.span("engine.apply_delta", rel=rel, op=delta.op,
+                              num_edges=delta.num_edges,
+                              small=small) as sp:
+            # one classification walk over a stable snapshot, then one
+            # batched dispatch per artefact family
+            pos_items: List[Tuple[Tuple, CtTable, ContractionPlan]] = []
+            msg_keys: List[Tuple] = []
+            fam_items: List[Tuple[Tuple, LatticePoint,
+                                  Tuple[CtVar, ...]]] = []
+            for key in cache.keys_snapshot():
+                meta = cache.entry_meta(key)
+                if meta is None:
+                    continue
+                deps, _version = meta
+                if deps is not None and rel not in deps:
+                    report.retained += 1
+                    continue
+                bucket = self._classify_for_delta(key) if small else None
+                if bucket is None:
+                    if cache.discard(key):
+                        report.invalidated += 1
+                    continue
+                kind, payload = bucket
+                if kind == "pos":
+                    pos_items.append((key,) + payload)
+                elif kind == "msg":
+                    msg_keys.append(key)
+                else:
+                    fam_items.append((key,) + payload)
+
+            # surviving positive tables: ONE batched call over the delta
+            # view, grouped by plan signature inside positive_batch
+            if pos_items:
+                with self.stats.timer("positive"), ex.local_mode():
+                    dtabs = ex.positive_batch(
+                        delta_db, [p for _, _, p in pos_items], self.stats)
+                for (key, old, _), dtab in zip(pos_items, dtabs):
+                    new = old + dtab.scale(delta.sign)
+                    cache.put(key, new, nbytes=new.nbytes)
+                    cache.count_delta_updates()
+                    report.updated += 1
+
+            # message matrices: one leaf hop over the delta edges each
+            for key in msg_keys:
+                new_val, nb = self._delta_update_msg(key, delta_db,
+                                                     delta.sign)
+                if new_val is not None:
+                    cache.put(key, new_val, nbytes=nb)
+                    cache.count_delta_updates()
+                    report.updated += 1
+                elif cache.discard(key):
+                    report.invalidated += 1
+
+            # derived tables: push the block deltas through the batched
+            # butterfly and add onto the resident tables
+            if fam_items:
+                provider = _DeltaPositives(self, delta_db)
+                outs = complete_ct_delta_many(
+                    [(point, keep) for _, point, keep in fam_items], rel,
+                    provider, self.stats,
+                    mobius_fn=self.mobius_fn(),
+                    mobius_batch_fn=self.mobius_batch_fn(),
+                    mobius_fused_fn=self.mobius_fused_fn())
+                for (key, _, _), (status, dtab) in zip(fam_items, outs):
+                    if status == "zero":
+                        report.retained += 1
+                        continue
+                    old = cache.peek(key) if status == "delta" else None
+                    if old is None:
+                        if cache.discard(key):
+                            report.invalidated += 1
+                        continue
+                    new = old + dtab.scale(delta.sign)
+                    cache.put(key, new, nbytes=new.nbytes)
+                    cache.count_delta_updates()
+                    report.updated += 1
+            sp.set(updated=report.updated, invalidated=report.invalidated,
+                   retained=report.retained)
+        return report
+
+    def _apply_attr_delta(self, delta: AttrDelta) -> DeltaReport:
+        """Reconcile after an entity-attribute write: drop exactly the
+        entries whose dependency tags intersect the written columns (or
+        whose deps are unknown), retain the rest."""
+        tags = delta.dep_tags()
+        report = DeltaReport(delta.etype, "update_attrs", delta.num_rows,
+                             version=self.db.version)
+        cache = self.cache
+        with self.tracer.span("engine.apply_delta", etype=delta.etype,
+                              op="update_attrs",
+                              num_rows=delta.num_rows) as sp:
+            for key in cache.keys_snapshot():
+                meta = cache.entry_meta(key)
+                if meta is None:
+                    continue
+                deps, _version = meta
+                if deps is not None and not (deps & tags):
+                    report.retained += 1
+                    continue
+                if cache.discard(key):
+                    report.invalidated += 1
+            sp.set(updated=0, invalidated=report.invalidated,
+                   retained=report.retained)
+        return report
+
+    def _classify_for_delta(self, key: Tuple):
+        """Sort one affected resident entry into its delta-update family:
+        ``("pos", (old, plan))`` for positive tables, ``("msg", ())`` for
+        message matrices, ``("fam", (point, keep))`` for derived tables —
+        or ``None`` when the entry cannot be delta-updated (unknown
+        namespace, other executor's artefact, unplannable key) and must be
+        dropped."""
+        ns = key[0]
+        ex = self.executor
+        try:
+            if ns == "pos" and key[1] == ex.name:
+                old = self.cache.peek(key)
+                if old is None:
+                    return None
+                plan = compile_plan_cached(self.db.schema,
+                                           LatticePoint(key[2]),
+                                           tuple(key[3]))
+                return "pos", (old, plan)
+            if ns == "full" and key[1] == ex.name:
+                old = self.cache.peek(key)
+                if old is None:
+                    return None
+                return "pos", (old, self.plan(LatticePoint(key[2]), None))
+            if ns == "msg" and key[1] == ex.name:
+                return "msg", ()
+            if ns in ("fam", "complete"):
+                return "fam", (LatticePoint(key[1]), tuple(key[2]))
+        except (KeyError, ValueError, TypeError):
+            pass
+        return None
+
+    def _delta_update_msg(self, key: Tuple, delta_db: RelationalDB,
+                          sign: int) -> Tuple[Optional[object],
+                                              Optional[int]]:
+        """Tuple-ID message matrices are per-relationship segment sums —
+        linear in the edge list by construction, so the delta hop (K1 or
+        K2 over the delta edges) simply adds on."""
+        _, _, atom, child, parent = key
+        hit = self.cache.peek(key)
+        if hit is None:
+            return None, None
+        m, mvars = hit
+        schema = self.db.schema
+        cattrs = tuple(attr_var(child, a.name, a.card)
+                       for a in schema.entity(child.etype).attrs)
+        rel_t = schema.relationship(atom.rel)
+        eattrs = tuple(edge_var(rel_t.name, a.name, a.card)
+                       for a in rel_t.attrs)
+        ex = self.executor
+        with self.stats.timer("positive"), ex.local_mode():
+            dm, dvars = ex.leaf_hop(delta_db, atom, child, parent,
+                                    cattrs, eattrs, self.stats)
+        if tuple(dvars) != tuple(mvars):
+            return None, None          # layout drifted: drop instead
+        new_m = m + sign * dm
+        return (new_m, tuple(mvars)), new_m.numel() * new_m.element_size()
+
+
+class _DeltaPositives:
+    """Positive provider over a delta view, for
+    :func:`~repro_torch.core.mobius.complete_ct_delta_many`: contractions
+    hit the delta edges only (exact per-block deltas, by multilinearity)
+    while histograms serve FULL values through the engine's cache (the
+    delta view shares the entity tables, so full histograms are exactly the
+    unchanged factors of the delta's product form).  Results memoise
+    per call only — delta-view positives must never land in the real
+    cache."""
+
+    def __init__(self, engine: CountingEngine, delta_db: RelationalDB):
+        self.engine = engine
+        self.delta_db = delta_db
+        self._memo: Dict[Tuple, CtTable] = {}
+
+    def positive(self, point: LatticePoint,
+                 keep: Tuple[CtVar, ...]) -> CtTable:
+        key = (point.atoms, tuple(keep))
+        hit = self._memo.get(key)
+        if hit is None:
+            eng = self.engine
+            plan = compile_plan_cached(eng.db.schema, point, tuple(keep))
+            with eng.stats.timer("positive"), eng.executor.local_mode():
+                hit = eng.executor.positive(self.delta_db, plan, eng.stats)
+            self._memo[key] = hit
+        return hit
+
+    def hist(self, var: Var, keep: Tuple[CtVar, ...]) -> CtTable:
+        return self.engine.hist(var, keep)
 
 
 class _Policy:

@@ -43,6 +43,7 @@ group is one K1 or K2 launch whose result splits into per-plan tables.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -202,6 +203,14 @@ class Executor:
             if tperm != tuple(range(len(tperm))):
                 y = y.permute(tperm)
         return list(y.unbind(0))
+
+    def local_mode(self):
+        """Context for tiny side computations — the engine's delta count
+        maintenance runs its delta-edge contractions inside it.  The
+        single-device executors are already local (a no-op); a sharded
+        backend would drop to its single-device primitives here, so that a
+        handful of delta edges never pays collectives."""
+        return nullcontext()
 
     # -- positive phase -----------------------------------------------------
     def positive(self, db: RelationalDB, plan: ContractionPlan,

@@ -29,6 +29,12 @@ same-``tree_signature`` families are same-shape by construction, so
 :func:`complete_ct_many` stacks them into one ``[B, 2^k, D]`` tensor and
 runs a single transform per shape group — one negative-phase launch for a
 whole hill-climbing round instead of one per family.
+
+The transform is linear, so a write need not flush the negative phase:
+:func:`complete_ct_delta_many` pushes the per-block deltas of a fact delta
+through the same batched butterfly and the engine adds the result onto the
+resident complete tables (:meth:`repro_torch.core.engine.CountingEngine
+.apply_delta`).
 """
 
 from __future__ import annotations
@@ -487,3 +493,259 @@ def complete_ct_many(queries: Sequence[Tuple[LatticePoint,
                 stats.ct_cells += tab.size
             results[i] = tab
     return results
+
+
+# --------------------------------------------------------------------------
+# delta propagation THROUGH the butterfly: writes stop flushing the
+# negative phase
+# --------------------------------------------------------------------------
+
+def _butterfly_delta_blocks(point: LatticePoint, bp: _ButterflyPlan,
+                            rel: str, provider: PositiveProvider,
+                            memo: Dict, zeros: Dict) -> List[torch.Tensor]:
+    """Transform-input blocks of the COMPLETE-table *delta* for a write to
+    ``rel``, in the same ``{*,T}^k`` corner order as
+    :func:`_butterfly_blocks`.
+
+    Each corner's block is the positive table of the sub-pattern with
+    corner set ``X`` true, so it depends on ``rel``'s edge table iff
+    ``rel in X`` (atoms of other relations never enter the sub-pattern —
+    see :func:`_pattern_table`).  Corners without ``rel`` therefore have an
+    exactly-zero delta and are explicit zero blocks; corners with ``rel``
+    evaluate the SAME pattern assembly against a *delta provider*
+    (positives contracted over the
+    :meth:`~repro_torch.core.database.FactDelta.as_db` view), which by
+    multilinearity yields the exact per-block delta as long as the point
+    uses ``rel`` in exactly one atom (callers guard this).
+
+    ``memo``/``zeros`` are shared across a batch of queries: delta blocks
+    dedupe by sub-pattern exactly like the full path's blocks, and one
+    zero tensor serves every corner of a given ``(attr shape, dtype,
+    device)``.
+    """
+    real: Dict[Tuple[int, ...], torch.Tensor] = {}
+    corners = list(itertools.product((0, 1), repeat=bp.k))
+    for bits in corners:
+        X = {r for r, b in zip(bp.effective, bits) if b == 1}
+        if rel not in X:
+            continue
+        mkey = (tuple(a for a in point.atoms if a.rel in X),
+                tuple(point.vars), bp.kept_attrs)
+        blk = memo.get(mkey)
+        if blk is None:
+            t = _pattern_table(point, X, bp.kept_attrs, provider)
+            blk = memo[mkey] = t.transpose_to(bp.kept_attrs).counts
+        real[bits] = blk
+    attr_shape = tuple(v.card for v in bp.kept_attrs)
+    like = next(iter(real.values()))
+    zkey = (attr_shape, like.dtype, like.device)
+    zblk = zeros.get(zkey)
+    if zblk is None:
+        zblk = zeros[zkey] = torch.zeros(attr_shape, dtype=like.dtype,
+                                         device=like.device)
+    return [real.get(bits, zblk) for bits in corners]
+
+
+def _blockwise_ct_delta(point: LatticePoint, keep: Tuple[CtVar, ...],
+                        rel: str, provider: PositiveProvider,
+                        memo: Dict) -> CtTable:
+    """Blockwise complete-table delta for queries the butterfly cannot
+    serve (kept edge-attr axes need the N/A-slot block assembly).
+
+    Mirrors :func:`complete_ct`'s blockwise branch, but keeps only the
+    inclusion–exclusion terms whose pattern contains ``rel`` — every other
+    term is independent of ``rel``'s edge multiset, so its delta is
+    exactly zero.  ``provider`` serves delta positives, so the assembled
+    tensor is the exact signed-magnitude delta of the resident table;
+    callers guard that ``rel`` appears in exactly one atom.  ``memo``
+    dedupes pattern tables across a batch of queries, with the same keying
+    as :func:`_butterfly_delta_blocks`.
+    """
+    kept_attrs = tuple(v for v in keep if v.kind == "attr")
+    kept_edges: Dict[str, List[CtVar]] = {}
+    for v in keep:
+        if v.kind == "edge":
+            kept_edges.setdefault(v.owner[0], []).append(v)
+    kept_rinds = {v.owner[0] for v in keep if v.kind == "rind"}
+    effective = sorted(set(kept_edges) | kept_rinds)
+    shape = tuple(v.card for v in keep)
+    final: Optional[torch.Tensor] = None   # allocated on the blocks' device
+    disjoint_blocks = all(v.owner[0] in kept_rinds
+                          for v in keep if v.kind == "edge")
+    for r_bits in itertools.product((0, 1), repeat=len(effective)):
+        A = {r for r, b in zip(effective, r_bits) if b == 1}
+        B = [r for r in effective if r not in A]
+        axes_A = kept_attrs + tuple(
+            v for r in sorted(A) for v in kept_edges.get(r, ()))
+        acc: Optional[torch.Tensor] = None
+        for j in range(len(B) + 1):
+            for S in itertools.combinations(B, j):
+                X = A | set(S)
+                if rel not in X:
+                    continue                  # term independent of rel
+                mkey = (tuple(a for a in point.atoms if a.rel in X),
+                        tuple(point.vars), axes_A)
+                blk = memo.get(mkey)
+                if blk is None:
+                    t = _pattern_table(point, X, axes_A, provider)
+                    blk = memo[mkey] = t.transpose_to(axes_A).counts
+                sign = -1.0 if j % 2 else 1.0
+                acc = blk * sign if acc is None else acc + sign * blk
+        if acc is None:
+            continue                          # block independent of rel
+        starts: List[int] = []
+        block_axes: List[CtVar] = []
+        for v in keep:
+            if v.kind == "rind":
+                starts.append(1 if v.owner[0] in A else 0)
+            elif v.kind == "edge" and v.owner[0] not in A:
+                starts.append(v.card - 1)     # N/A slot
+            else:
+                starts.append(0)
+                block_axes.append(v)
+        aligned = CtTable(axes_A, acc).transpose_to(tuple(block_axes))
+        if final is None:
+            final = torch.zeros(shape, dtype=torch.float32,
+                                device=aligned.counts.device)
+        bshape = tuple(v.card if v in block_axes else 1 for v in keep)
+        block = aligned.counts.to(final.dtype).reshape(bshape)
+        idx = tuple(slice(s, s + sh) for s, sh in zip(starts, bshape))
+        if disjoint_blocks:
+            final[idx] = block
+        else:
+            final[idx] += block
+    assert final is not None, "rel is in no term: the caller's guard failed"
+    return CtTable(keep, final)
+
+
+def complete_ct_delta_many(queries: Sequence[Tuple[LatticePoint,
+                                                   Sequence[CtVar]]],
+                           rel: str,
+                           provider: PositiveProvider,
+                           stats: Optional[CostStats] = None,
+                           mobius_fn: Optional[Callable[
+                               [torch.Tensor, int], torch.Tensor]] = None,
+                           mobius_batch_fn: Optional[Callable[
+                               [Sequence[torch.Tensor], int],
+                               List[torch.Tensor]]] = None,
+                           mobius_fused_fn: Optional[Callable[
+                               [Sequence[Sequence[torch.Tensor]], int,
+                                Tuple[int, ...]],
+                               List[torch.Tensor]]] = None
+                           ) -> List[Tuple[str, Optional[CtTable]]]:
+    """Delta tables for many resident complete-CT queries after a write to
+    ``rel``, with the negative phase batched exactly like
+    :func:`complete_ct_many`.
+
+    The Möbius transform is linear in its input blocks, so the delta of a
+    complete table is the transform of the per-block deltas — no resident
+    data is re-read and no full butterfly recompute happens.  ``provider``
+    must serve *delta* positives: contractions over the
+    :meth:`~repro_torch.core.database.FactDelta.as_db` view, so that (by
+    multilinearity of positive counts in each relation's edge multiset)
+    each affected block's delta is exact; the engine adds
+    ``delta.sign * result`` onto the resident table.  With
+    ``mobius_fused_fn`` (the executor's
+    :meth:`~repro_torch.core.executors.Executor.mobius_batch_fused`) each
+    ``(shape, perm)`` group is one K3 launch on the card.
+
+    Args:
+        queries: ``(point, keep)`` pairs for the RESIDENT entries being
+            maintained.
+        rel: the relationship the delta wrote.
+        provider: delta-positive source (full-valued ``hist``; the engine
+            wraps its executor in a view-backed provider).
+        stats / mobius_fn / mobius_batch_fn / mobius_fused_fn: as for
+            :func:`complete_ct_many`.
+
+    Returns:
+        One ``(status, table)`` per query, positionally aligned:
+
+        * ``("delta", ct)`` — ``ct`` is the exact signed-magnitude delta in
+          request axis order; add ``sign * ct`` to the resident table;
+        * ``("zero", None)`` — the entry provably does not depend on
+          ``rel``'s edges (indicator summed out): retain unchanged;
+        * ``("fallback", None)`` — not delta-propagatable: ``rel``
+          appears in more than one atom, where the delta view
+          under-counts cross terms; the caller invalidates.
+          (Kept edge-attr axes take the blockwise N/A-slot assembly
+          instead of the transform — :func:`_blockwise_ct_delta` — but
+          still yield ``"delta"``.)
+
+    Usage::
+
+        outs = complete_ct_delta_many(queries, delta.rel, delta_provider,
+                                      mobius_fused_fn=ex.mobius_batch_fused)
+    """
+    queries = [(point, tuple(keep)) for point, keep in queries]
+    if mobius_batch_fn is None:
+        mobius_batch_fn = lambda stacks, k: butterfly_batch(
+            stacks, k, mobius_fn)
+    results: List[Tuple[str, Optional[CtTable]]] = \
+        [("fallback", None)] * len(queries)
+    eligible: List[Tuple[int, _ButterflyPlan, List[torch.Tensor]]] = []
+    memo: Dict = {}
+    zeros: Dict = {}
+    for i, (point, keep) in enumerate(queries):
+        bp = _butterfly_plan(point, keep)
+        effective = bp.effective if bp is not None else tuple(
+            {v.owner[0] for v in keep if v.kind in ("edge", "rind")})
+        if rel not in effective:
+            # rel's indicator is summed out (or rel is not in the pattern
+            # at all): every transform block is independent of rel's edge
+            # table, so the resident value is already exact
+            results[i] = ("zero", None)
+            continue
+        if sum(1 for a in point.atoms if a.rel == rel) != 1:
+            continue                          # cross terms: fallback
+        if bp is None:
+            # kept edge-attr axes: same linearity, blockwise assembly
+            tab = _blockwise_ct_delta(point, keep, rel, provider, memo)
+            if stats is not None:
+                stats.ct_cells += tab.size
+            results[i] = ("delta", tab)
+            continue
+        eligible.append((i, bp, _butterfly_delta_blocks(
+            point, bp, rel, provider, memo, zeros)))
+    if mobius_fused_fn is not None:
+        groups: Dict[Tuple, List] = {}
+        for item in eligible:
+            _, bp, _ = item
+            attr_shape = tuple(v.card for v in bp.kept_attrs)
+            groups.setdefault((attr_shape, bp.k, bp.perm), []).append(item)
+        for (_, k, perm), members in groups.items():
+            outs = mobius_fused_fn([blks for _, _, blks in members], k,
+                                   perm)
+            for (i, bp, _), arr in zip(members, outs):
+                tab = CtTable(bp.keep, arr)   # already in request layout
+                if stats is not None:
+                    stats.ct_cells += tab.size
+                results[i] = ("delta", tab)
+        return results
+    groups2: Dict[Tuple, List[Tuple[int, _ButterflyPlan, torch.Tensor]]] = {}
+    for i, bp, blks in eligible:
+        attr_shape = tuple(v.card for v in bp.kept_attrs)
+        stack = torch.stack(blks).reshape((2,) * bp.k + attr_shape)
+        groups2.setdefault((tuple(stack.shape), bp.k), []).append(
+            (i, bp, stack))
+    for (_, k), members in groups2.items():
+        outs = mobius_batch_fn([s for _, _, s in members], k)
+        for (i, bp, _), out in zip(members, outs):
+            tab = _butterfly_finalise(bp, out)
+            if stats is not None:
+                stats.ct_cells += tab.size
+            results[i] = ("delta", tab)
+    return results
+
+
+def butterfly_delta(point: LatticePoint, keep: Sequence[CtVar], rel: str,
+                    provider: PositiveProvider,
+                    stats: Optional[CostStats] = None,
+                    mobius_fn: Optional[Callable[[torch.Tensor, int],
+                                                 torch.Tensor]] = None
+                    ) -> Tuple[str, Optional[CtTable]]:
+    """Single-query convenience over :func:`complete_ct_delta_many` — the
+    ``(status, delta table)`` for one resident complete-CT entry after a
+    write to ``rel``."""
+    return complete_ct_delta_many([(point, keep)], rel, provider, stats,
+                                  mobius_fn=mobius_fn)[0]

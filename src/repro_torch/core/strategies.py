@@ -183,6 +183,20 @@ class Strategy:
             return None
         return self.engine.executor.mobius_batch_fused
 
+    # -- mutations -----------------------------------------------------------
+    def apply_delta(self, delta, **kw):
+        """Reconcile this strategy's cache after a store mutation —
+        delegates to :meth:`~repro_torch.core.engine.CountingEngine
+        .apply_delta` (fine-grained invalidation + in-place delta updates
+        of positive and derived tables).
+
+        Usage::
+
+            delta = db.insert_facts("Rated", src, dst, {"rating": vals})
+            report = strategy.apply_delta(delta)
+        """
+        return self.engine.apply_delta(delta, **kw)
+
     def prefetch(self, queries: Sequence[Tuple[LatticePoint,
                                                Tuple[CtVar, ...]]]) -> int:
         """Warm the positive policy's cache for ``queries``: the queries
