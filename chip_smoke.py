@@ -199,6 +199,45 @@ Phases (any failure exits non-zero before the last line is printed):
               reports and every resident entry bit for bit.  The phase's
               launches are the ``mutations`` entries of K1's, K2's and
               K3's kernels-line rows (K4's: the rediscoveries').
+14. served  — model discovery served on the card through
+              ``repro_torch.serve.CountingService`` (its dispatcher thread
+              started, deadline ``SERVED_MAX_WAIT_S``) and
+              ``repro_torch.discover.DiscoveryService``, on copies of the
+              IMDb stand-in at ``IMDB_SCALE``.  (a) One client, traced
+              (``Tracer``): wall (host clock ending in
+              ``torch.cuda.synchronize()``), the service's stats (requests,
+              coalesced, cache hits, batches, bucket sizes, queue-wait,
+              bucket and end-to-end p50/p95/p99), K1-K4 launches (K1 and K2
+              by regime; each at least once, no plain version); models edge
+              for edge phase 3's HYBRID models but at points where a scored
+              family's cells past 2^24 differ (printed with both readings);
+              the host span breakdown by name (seconds and counts), every
+              ``service.exec`` span under a ``service.queue`` span
+              (``build_trees``), the threads that ran the batches; then an
+              untraced copy's wall and a profiled copy's device busy time.
+              (b) ``SERVED_CLIENTS`` threads call ``discover()`` at once on a
+              fresh service, cold and then warm: one signature and version,
+              (a)'s, and some queries coalesced.  (c) The first of
+              ``IMDB_WRITES`` through ``svc.insert_facts`` and
+              ``refresh("imdb_R0")``: some families retained, fewer
+              rescored than known; models against a fresh relearn of the
+              mutated store as in (a); every family score of the refreshed
+              memo equal bit for bit to K4 on the family's table as the
+              service now holds it (a score carried forward stale differs),
+              and against the relearn's scores bit for bit where the table
+              stays below 2^24, past it within the discovery tests'
+              tolerance plus ``4 eps M`` (``refresh_check``); (b)'s service
+              refreshed after the same write naming ``imdb_R1`` (a planted
+              fault) must fail that check; refresh and relearn walls.  Then a
+              writer thread makes the fenced inserts of ``SERVED_WRITES``
+              while ``SERVED_SEARCHERS`` threads run ``discover()``: their
+              final results carry one version and one signature, a fresh
+              relearn's of the final store.  (d) UW at ``UW_SCALE``: served
+              discovery and a refresh after the first of ``UW_WRITES`` on
+              the card and on the CPU, signatures, scores and refresh
+              counts equal bit for bit; the card's served signature equals
+              a local ``DiscoveryService`` over HYBRID.  The phase's launches
+              are the ``served`` entries of K1-K4's kernels-line rows.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -345,6 +384,25 @@ UW_WRITES = (("insert", "Registered", 6), ("delete", "RA", 4),
              ("attrs", "student", 5), ("insert", "RA", 40),
              ("delete", "Registered", 5), ("attrs", "course", 3),
              ("insert", "Registered", 3))
+# The served discovery phase (14): the service's deadline, past which its
+# dispatcher thread drains what waits; the clients of (b) and the
+# searchers of (c), and the small fenced inserts (op, target, count) the
+# writer of (c) makes, drawn from MUTATION_SEED + 1; the ring of the
+# traced runs, large enough that no span of an IMDb discovery falls off;
+# the discovery tests' score tolerance, to which 4 eps M is added (M: the
+# magnitude of the score's lgamma terms, eps = 2^-24).
+SERVED_MAX_WAIT_S = 0.002
+SERVED_CLIENTS = 4
+# The interpreter's thread switch interval while (b)'s clients run: at the
+# default 5 ms one client submits a whole round and flushes it before the
+# next client runs, so no query of one is pending when another asks it.
+SERVED_SWITCH_S = 1e-4
+SERVED_SEARCHERS = 2
+SERVED_WRITES = (("insert", "imdb_R0", 100), ("insert", "imdb_R1", 100),
+                 ("insert", "imdb_R2", 100))
+SERVED_RING = 1 << 21
+SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-2
+EPS32 = 2.0 ** -24
 
 
 def log(msg: str) -> None:
@@ -1656,6 +1714,533 @@ def mutations_phase(ops) -> dict:
                 hybrid_device_busy_ms=busy, uw=uw)
 
 
+def memo_scores(dsvc) -> dict:
+    """A discovery service's family scores under the version its last
+    result settled on, by ``(child, parents)``."""
+    token = dsvc._token
+    return {fam: s for (tok, fam), s in dsvc._memo.items() if tok == token}
+
+
+def family_tables(dsvc, csvc, fams) -> dict:
+    """Each family's table as the counting service ``csvc`` serves it now,
+    at the lattice point the family was scored at (its relation set,
+    ``dsvc._deps``), by family: ``(point, table)``."""
+    axes = {p: set(p.all_ct_vars(dsvc.schema, include_rind=True))
+            for p in dsvc.lattice}
+    out = {}
+    for fam in fams:
+        child, parents = fam
+        keep = tuple(sorted(parents)) + (child,)
+        point = next((p for p in dsvc.lattice
+                      if p.rels == dsvc._deps.get(fam)
+                      and set(keep) <= axes[p]), None)
+        if point is None:
+            fail(f"family {child} <- {sorted(map(str, parents))} was scored "
+                 f"at no lattice point of its relations")
+        out[fam] = (point, csvc.count_complete(point, keep))
+    return out
+
+
+def rescore(tables: dict, ess: float = 1.0) -> dict:
+    """K4 on each family's table (``family_tables``), grouped by ``N_ijk``
+    shape as the search groups them."""
+    from repro_torch.core.bdeu import bdeu_score_batch, family_nijk
+    groups = {}
+    for fam, (_, tab) in tables.items():
+        nijk = family_nijk(tab, fam[0])
+        groups.setdefault(tuple(nijk.shape), []).append((fam, nijk))
+    out = {}
+    for members in groups.values():
+        scores = bdeu_score_batch(torch.stack([n for _, n in members]),
+                                  ess).cpu().numpy()
+        out.update({fam: float(s) for (fam, _), s in zip(members, scores)})
+    return out
+
+
+def score_bound(nijk: torch.Tensor, ess: float = 1.0) -> float:
+    """How far a float32 BDeu score of ``nijk`` may lie from another of the
+    same counts: the discovery tests' ``atol + rtol |score|`` plus ``4 eps
+    M`` (``M``: the magnitude of its lgamma terms, float64)."""
+    n = nijk.double()
+    q, r = n.shape
+    a_j, a_jk = ess / q, ess / (q * r)
+    lg = torch.lgamma
+    row, cell = lg(n.sum(1) + a_j), lg(n + a_jk)
+    c_j = torch.lgamma(torch.tensor(a_j, dtype=torch.float64))
+    c_jk = torch.lgamma(torch.tensor(a_jk, dtype=torch.float64))
+    exact = float((c_j - row + (cell - c_jk).sum(1)).sum())
+    mag = float((c_j.abs() + row.abs()
+                 + (cell.abs() + c_jk.abs()).sum(1)).sum())
+    return SCORE_ATOL + SCORE_RTOL * abs(exact) + 4 * EPS32 * mag
+
+
+def refresh_check(dsvc, csvc, fresh_dsvc, fresh_csvc) -> dict:
+    """A refreshed discovery service (``dsvc`` over ``csvc``) against a
+    fresh relearn of the same store (``fresh_dsvc`` over ``fresh_csvc``),
+    family by family.  ``stale``: families whose refreshed score is not
+    K4's score, bit for bit, of the table the service now holds (a score
+    carried forward across a write to its relations); ``low_differs``:
+    families scored by both whose scores differ where the relearn's table
+    stays below 2^24 (its counts are exact there); ``past_bound``: those
+    past 2^24 whose scores differ by more than ``score_bound``.  A correct
+    refresh has none of the three.  ``tests/test_torch_discovery_service
+    .py`` runs the same check on the CPU and shows that it fails on a
+    refresh that names the wrong relation."""
+    from repro_torch.core.bdeu import family_nijk
+    got, want = memo_scores(dsvc), memo_scores(fresh_dsvc)
+    now = rescore(family_tables(dsvc, csvc, got), dsvc.ess)
+    stale = [fam for fam, s in got.items() if s != now[fam]]
+    fresh = family_tables(fresh_dsvc, fresh_csvc, want)
+    low, over, past, worst = [], [], 0, 0.0
+    common = [fam for fam in want if fam in got]
+    for fam in common:
+        g, w = got[fam], want[fam]
+        tab = fresh[fam][1]
+        if float(tab.counts.abs().max()) < 2.0 ** 24:
+            if g != w:
+                low.append(fam)
+            continue
+        past += 1
+        bound = score_bound(family_nijk(tab, fam[0]), dsvc.ess)
+        worst = max(worst, abs(g - w) / bound)
+        if abs(g - w) > bound:
+            over.append(fam)
+    return dict(families=len(got), compared=len(common),
+                only_in_relearn=len(want) - len(common), stale=stale,
+                low_differs=low, past_2_24=past, past_bound=over,
+                worst_fraction_of_bound=worst)
+
+
+def refresh_faults(check: dict) -> list:
+    """The kinds of fault a :func:`refresh_check` found."""
+    return [k for k in ("stale", "low_differs", "past_bound") if check[k]]
+
+
+def refresh_summary(check: dict) -> dict:
+    """A :func:`refresh_check` with its family lists as their lengths."""
+    return {k: len(v) if isinstance(v, list) else v for k, v in check.items()}
+
+
+def span_breakdown(records) -> dict:
+    """Seconds and counts of a tracer's spans by name (spans nest: a
+    batch's dispatch lies inside its ``service.exec`` span, and each
+    query of a batch has an exec span of its own over the same time)."""
+    out = {}
+    for r in records:
+        n, sec = out.get(r.name, (0, 0.0))
+        out[r.name] = (n + 1, sec + r.duration_s)
+    return {name: dict(count=n, seconds=sec)
+            for name, (n, sec) in sorted(out.items())}
+
+
+def exec_threads(tracer, label: str) -> dict:
+    """The threads that ran the service's batches, by ``service.exec``
+    span; fails unless the ring kept every span and ``build_trees`` nests
+    every ``service.exec`` under a ``service.queue`` span."""
+    from repro_torch.obs import build_trees
+    snap = tracer.snapshot()
+    if snap["dropped"]:
+        fail(f"{label}: the tracer's ring dropped {snap['dropped']} spans")
+    threads, orphans = {}, []
+
+    def walk(node, parent):
+        if node["name"] == "service.exec":
+            threads[node["thread"]] = threads.get(node["thread"], 0) + 1
+            if parent != "service.queue":
+                orphans.append(node["span_id"])
+        for child in node["children"]:
+            walk(child, node["name"])
+
+    for tree in build_trees(tracer.records()):
+        for root in tree["roots"]:
+            walk(root, None)
+    if not threads or orphans:
+        fail(f"{label}: {len(orphans)} of {sum(threads.values())} "
+             f"service.exec spans have no service.queue parent")
+    return threads
+
+
+def explain_model_differences(label: str, lattice, got: dict, want: dict,
+                              cache_a, cache_b) -> list:
+    """The points where two discoveries' models (``edges_of``) differ must
+    be points where a family table the two counting caches both hold
+    differs past 2^24, or points whose climb inherits a differing
+    sub-point's edges; printed with the edges each side alone has.  A
+    family table that differs below 2^24 fails, as does any other
+    difference."""
+    from repro_torch.core import LatticePoint
+    differ = sorted(p for p in set(got) | set(want)
+                    if got.get(p) != want.get(p))
+    if not differ:
+        return differ
+    rounded = set()
+    for key in set(cache_a.keys_snapshot()) & set(cache_b.keys_snapshot()):
+        if key[0] != "fam":
+            continue
+        a, b = cache_a.peek(key), cache_b.peek(key)
+        rel, low = past_2_24(a.counts, b.counts.to(a.counts.device))
+        if low:
+            fail(f"{label}: family {[str(v) for v in key[2]]} of "
+                 f"{LatticePoint(key[1])} differs below 2^24")
+        if rel > 0.0:
+            rounded.add(str(LatticePoint(key[1])))
+    why = {}
+    for point in lattice:                         # bottom-up
+        p = str(point)
+        subs = [str(q) for q in lattice if q.rels < point.rels
+                and str(q) in why]
+        if p in differ and (p in rounded or subs):
+            why[p] = ("a family rounded apart past 2^24 here"
+                      if p in rounded else f"inherits from {subs}")
+    for p in differ:
+        a, b = set(got.get(p, ())), set(want.get(p, ()))
+        log(f"  {label}: models differ at {p} "
+            f"({why.get(p, 'unexplained')}): this run only "
+            f"{sorted(a - b)}, the other only {sorted(b - a)}")
+    if set(differ) - set(why):
+        fail(f"{label}: models differ at {sorted(set(differ) - set(why))}, "
+             f"where no family's cells past 2^24 differ and no sub-point's "
+             f"model differs")
+    return differ
+
+
+def run_clients(n: int, fn, label: str, timeout: float = 900.0) -> list:
+    """``fn()`` on ``n`` threads released together; their results, in
+    thread order.  Fails on an error or a thread still running after
+    ``timeout`` seconds."""
+    import threading
+    barrier = threading.Barrier(n)
+    results, errors = [None] * n, []
+
+    def client(i):
+        try:
+            barrier.wait(60)
+            results[i] = fn()
+        except BaseException as e:                 # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,),
+                                name=f"{label}-{i}") for i in range(n)]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + timeout
+    for t in threads:
+        t.join(max(deadline - time.perf_counter(), 0.0))
+    if any(t.is_alive() for t in threads):
+        fail(f"{label}: a client thread still runs after {timeout} s")
+    if errors:
+        fail(f"{label}: {errors[0]!r}")
+    return results
+
+
+def served_phase(ops, hybrid: dict) -> dict:
+    """14. Served discovery on the IMDb stand-in and on UW (module
+    docstring); ``hybrid`` is phase 3's HYBRID run (its learned edges)."""
+    import copy
+    import threading
+
+    from repro_torch.core import (CountingEngine, build_lattice,
+                                  discover_model, make_strategy,
+                                  paper_benchmark_db)
+    from repro_torch.discover import DiscoveryService
+    from repro_torch.obs import NULL_TRACER, Tracer
+    from repro_torch.serve import CountingService
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    base = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
+    lattice = build_lattice(base.schema, DISCOVERY["max_chain_length"])
+    (write,) = draw_writes(base, IMDB_WRITES[:1], MUTATION_SEED)
+    services = []
+
+    def service(db, tracer=NULL_TRACER, device=None):
+        svc = CountingService(CountingEngine(db, "sparse", device=device),
+                              max_wait_s=SERVED_MAX_WAIT_S, tracer=tracer)
+        services.append(svc)
+        return svc.start()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def stats_line(svc) -> dict:
+        st = svc.stats()
+        return dict(
+            {k: st[k] for k in ("requests", "complete_requests", "coalesced",
+                                "cache_hits", "enqueued", "batches",
+                                "batched_queries", "mobius_batches",
+                                "flushes", "wait_flushes")},
+            buckets=len(st["buckets"]),
+            largest_batch=max((b["max_batch"] for b in st["buckets"]),
+                              default=0),
+            mean_batch=(st["batched_queries"] / st["batches"]
+                        if st["batches"] else 0.0),
+            **{f"{h}_{q}": st[h][f"{q}_s"]
+               for h in ("queue_wait_hist", "bucket_exec_hist", "e2e_hist")
+               for q in ("p50", "p95", "p99")})
+
+    def edges_check(label, got, want_edges, cache_a, ref_cache_fn):
+        if edges_of(got) == want_edges:
+            return []
+        return explain_model_differences(label, lattice, edges_of(got),
+                                         want_edges, cache_a,
+                                         ref_cache_fn())
+
+    launches = {}
+
+    # (a) one client, traced
+    tracer = Tracer(capacity=SERVED_RING, slow_threshold_s=None)
+    svc = service(copy.deepcopy(base), tracer)
+    dsvc = svc.discovery(**DISCOVERY)
+    ops.reset_counts()
+    res, wall = timed(dsvc.discover)
+    launches["a"] = kernel_counts(ops)
+    check_no_plain(ops, "served discovery")
+    if any(launches["a"][k] <= 0 for k in ("k1", "k2", "k3", "k4")):
+        fail(f"served discovery: a kernel of its path was not launched: "
+             f"{launches['a']}")
+    if not all(np.isfinite(m.score) for m in res.models.values()):
+        fail("served discovery: a learned model has a non-finite score")
+
+    def hybrid_cache():
+        _, ref = discover_model(copy.deepcopy(base), make_strategy(
+            "HYBRID", executor="sparse"), **DISCOVERY)
+        return ref.engine.cache
+
+    differ_a = edges_check("served (a) against phase 3", res.models,
+                           hybrid["edges"], svc.engine.cache, hybrid_cache)
+    stats_a = stats_line(svc)
+    spans = span_breakdown(tracer.records())
+    threads_a = exec_threads(tracer, "served (a)")
+    log(f"served (a) IMDb, one client: {wall:.3f} s wall on the card; "
+        f"families scored {res.families_scored}, restarts {res.restarts}; "
+        f"stats {json.dumps(stats_a)}; launches {json.dumps(launches['a'])}; "
+        f"plain calls {sum(ops.PLAIN_CALLS.values())}; models "
+        f"{'edge for edge phase 3' if not differ_a else f'differ at {differ_a}'}")
+    log(f"served (a) host spans (seconds, count): " + json.dumps(
+        {k: [round(v['seconds'], 6), v['count']] for k, v in spans.items()}))
+    log(f"served (a) service.exec spans by thread: {json.dumps(threads_a)}")
+    svc.set_tracer(NULL_TRACER)
+    dsvc.tracer = NULL_TRACER
+    tracer.clear()
+    svc_u = service(copy.deepcopy(base))
+    _, wall_untraced = timed(svc_u.discovery(**DISCOVERY).discover)
+    svc_p = service(copy.deepcopy(base))
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc_p.discovery(**DISCOVERY).discover()
+        sync()
+    wall_profiled = time.perf_counter() - t0
+    on_card = device_events(prof)
+    busy = (sum(e.self_device_time_total for e in on_card) / 1e6
+            if on_card else None)
+    log(f"served (a) untraced copy: {wall_untraced:.3f} s wall; profiled "
+        f"copy: {wall_profiled:.3f} s wall, device busy "
+        + (f"{busy:.4f} s ({100 * busy / wall_profiled:.2f} %)"
+           if busy is not None else "not measured (no device events)")
+        + f" in {sum(e.count for e in on_card)} device events")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:100]}")
+    for extra in (svc_u, svc_p):
+        extra.shutdown(timeout=60)
+    del svc_u, svc_p, prof
+
+    # (b) concurrent clients, cold and then warm
+    tracer_b = Tracer(capacity=SERVED_RING, slow_threshold_s=None)
+    svc_b = service(copy.deepcopy(base), tracer_b)
+    dsvc_b = svc_b.discovery(**DISCOVERY)
+    ops.reset_counts()
+    walls_b = {}
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(SERVED_SWITCH_S)
+    try:
+        runs = {when: timed(lambda: run_clients(
+            SERVED_CLIENTS, dsvc_b.discover, f"served (b) {when}"))
+            for when in ("cold", "warm")}
+    finally:
+        sys.setswitchinterval(switch)
+    for when, (results, walls_b[when]) in runs.items():
+        sigs = {json.dumps(r.signature(), sort_keys=True) for r in results}
+        versions = {r.version for r in results}
+        if len(sigs) != 1 or len(versions) != 1:
+            fail(f"served (b) {when}: {len(sigs)} signatures and "
+                 f"{len(versions)} versions among {SERVED_CLIENTS} clients")
+        if results[0].signature() != res.signature():
+            fail(f"served (b) {when}: the clients' models differ from (a)'s")
+    launches["b"] = kernel_counts(ops)
+    check_no_plain(ops, "served (b)")
+    stats_b = stats_line(svc_b)
+    threads_b = exec_threads(tracer_b, "served (b)")
+    if stats_b["coalesced"] <= 0:
+        fail(f"served (b): no query coalesced among {SERVED_CLIENTS} clients")
+    log(f"served (b) {SERVED_CLIENTS} clients at once: cold "
+        f"{walls_b['cold']:.3f} s, warm {walls_b['warm']:.3f} s wall; one "
+        f"signature and version, (a)'s; stats {json.dumps(stats_b)}; "
+        f"launches {json.dumps(launches['b'])}; service.exec spans by "
+        f"thread {json.dumps(threads_b)}")
+    svc_b.set_tracer(NULL_TRACER)
+    dsvc_b.tracer = NULL_TRACER
+    del tracer_b
+
+    # (c) a fenced write and refresh, the planted fault, then a writer
+    # racing two searchers
+    ops.reset_counts()
+    report, write_wall = timed(lambda: svc.insert_facts(write[2],
+                                                        *write[3:]))
+    rep, refresh_wall = timed(lambda: dsvc.refresh(write[2]))
+    if not (rep.retained > 0 and rep.rescored < rep.total_families):
+        fail(f"served (c): refresh retained {rep.retained} and rescored "
+             f"{rep.rescored} of {rep.total_families} families")
+    svc_f = service(copy.deepcopy(svc.engine.db))
+    dsvc_f = svc_f.discovery(**DISCOVERY)
+    fresh, relearn_wall = timed(dsvc_f.discover)
+    differ_c = edges_check("served (c) refresh against a relearn",
+                           rep.result.models, edges_of(fresh.models),
+                           svc.engine.cache, lambda: svc_f.engine.cache)
+    check = refresh_check(dsvc, svc, dsvc_f, svc_f)
+    if refresh_faults(check):
+        fail(f"served (c): the refreshed scores fail the check at "
+             f"{refresh_faults(check)}: {json.dumps(refresh_summary(check))}")
+    svc_b.insert_facts(write[2], *write[3:])
+    dsvc_b.refresh("imdb_R1")                    # names the wrong relation
+    planted = refresh_check(dsvc_b, svc_b, dsvc_f, svc_f)
+    if not refresh_faults(planted):
+        fail("served (c): a refresh naming the wrong relation passes the "
+             "refresh check: it cannot fail")
+    launches["c_refresh"] = kernel_counts(ops)
+    check_no_plain(ops, "served (c)")
+    log(f"served (c) {write[0]}: write {write_wall:.4f} s "
+        f"({json.dumps(report.as_dict())}); refresh {refresh_wall:.3f} s "
+        f"(rescored {rep.rescored}, retained {rep.retained} of "
+        f"{rep.total_families}) against a fresh relearn {relearn_wall:.3f} s; "
+        f"models {'edge for edge' if not differ_c else f'differ at {differ_c}'}; "
+        f"scores {json.dumps(refresh_summary(check))}; the planted refresh "
+        f"(naming imdb_R1) fails at {refresh_faults(planted)}: "
+        f"{json.dumps(refresh_summary(planted))}")
+    for extra in (svc_b, svc_f):
+        extra.shutdown(timeout=60)
+    del svc_b, dsvc_b, svc_f, dsvc_f
+
+    more = draw_writes(svc.engine.db, SERVED_WRITES, MUTATION_SEED + 1)
+    stop, finals, errors, rounds = threading.Event(), {}, [], {}
+
+    def writer():
+        try:
+            for w in more:
+                svc.insert_facts(w[2], *w[3:])
+                time.sleep(0.05)
+        except BaseException as e:                 # noqa: BLE001
+            errors.append(e)
+        finally:
+            stop.set()
+
+    def searcher(name):
+        try:
+            n = 0
+            while not stop.is_set():
+                dsvc.discover()
+                n += 1
+            finals[name] = dsvc.discover()
+            rounds[name] = n + 1
+        except BaseException as e:                 # noqa: BLE001
+            errors.append(e)
+            stop.set()
+
+    ops.reset_counts()
+    threads = [threading.Thread(target=writer, name="served-writer")]
+    threads += [threading.Thread(target=searcher, args=(f"s{i}",),
+                                 name=f"served-searcher-{i}")
+                for i in range(SERVED_SEARCHERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    race_wall = time.perf_counter() - t0
+    if errors:
+        fail(f"served (c) writer and searchers: {errors[0]!r}")
+    if any(t.is_alive() for t in threads):
+        fail("served (c) writer and searchers: a thread still runs")
+    launches["c_race"] = kernel_counts(ops)
+    check_no_plain(ops, "served (c) race")
+    outs = list(finals.values())
+    if len({r.version for r in outs}) != 1 or len(
+            {json.dumps(r.signature(), sort_keys=True) for r in outs}) != 1:
+        fail("served (c): the searchers' final results differ in version "
+             "or signature")
+    svc_g = service(copy.deepcopy(svc.engine.db))
+    final = svc_g.discovery(**DISCOVERY).discover()
+    differ_race = edges_check("served (c) race against a relearn",
+                              outs[0].models, edges_of(final.models),
+                              svc.engine.cache, lambda: svc_g.engine.cache)
+    log(f"served (c) {len(more)} fenced inserts racing {SERVED_SEARCHERS} "
+        f"searchers: {race_wall:.3f} s; discoveries per searcher "
+        f"{json.dumps(rounds)}; final version {outs[0].version}, restarts "
+        f"{[r.restarts for r in outs]}; models against a relearn of the "
+        f"final store: "
+        f"{'edge for edge' if not differ_race else f'differ at {differ_race}'}"
+        f"; discovery stats {json.dumps(svc.stats()['discovery'])}")
+    svc_g.shutdown(timeout=60)
+    del svc_g
+
+    # (d) UW: the card against the CPU, and served against local
+    ops.reset_counts()
+    uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
+    (uw_write,) = draw_writes(uw, UW_WRITES[:1], MUTATION_SEED)
+    uw_runs = {}
+    for dev in ("card", "cpu"):
+        s = service(copy.deepcopy(uw), device=None if dev == "card"
+                    else "cpu")
+        d = s.discovery(**DISCOVERY)
+        first = d.discover()
+        s.insert_facts(uw_write[2], *uw_write[3:])
+        r = d.refresh(uw_write[2])
+        uw_runs[dev] = (first, r)
+        s.shutdown(timeout=60)
+    for i, label in enumerate(("discovery", "refresh")):
+        a, b = (uw_runs[d][i] if i == 0 else uw_runs[d][i].result
+                for d in ("card", "cpu"))
+        if a.signature() != b.signature() or a.score != b.score:
+            fail(f"served (d) UW {label}: card and CPU differ (scores "
+                 f"{a.score!r}, {b.score!r})")
+    counts = {d: (r.rescored, r.retained, r.total_families)
+              for d, (_, r) in uw_runs.items()}
+    if counts["card"] != counts["cpu"]:
+        fail(f"served (d) UW refresh counts differ: {counts}")
+    local = DiscoveryService(make_strategy("HYBRID", executor="sparse"),
+                             db=copy.deepcopy(uw), **DISCOVERY).discover()
+    if local.signature() != uw_runs["card"][0].signature():
+        fail("served (d) UW: served and local discovery differ on the card")
+    launches["d"] = kernel_counts(ops)
+    log(f"served (d) UW: card and CPU equal bit for bit (score "
+        f"{uw_runs['card'][0].score!r}; after {uw_write[0]} "
+        f"{uw_runs['card'][1].result.score!r}, rescored/retained/total "
+        f"{counts['card']}); local HYBRID {local.score!r}, the same "
+        f"signature")
+    for s in services:
+        s.shutdown(timeout=60)
+        if s.running:
+            fail("served: a dispatcher thread outlived its shutdown")
+    log(f"served phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        launches=launches, wall_s=wall, wall_untraced_s=wall_untraced,
+        wall_profiled_s=wall_profiled, device_busy_s=busy,
+        stats=stats_a, spans=spans, exec_threads=threads_a,
+        clients=dict(walls_s=walls_b, stats=stats_b),
+        refresh=dict(refresh_s=refresh_wall, relearn_s=relearn_wall,
+                     rescored=rep.rescored, retained=rep.retained,
+                     total_families=rep.total_families,
+                     check=refresh_summary(check),
+                     planted=refresh_summary(planted)),
+        race=dict(seconds=race_wall, discoveries=rounds),
+        models_differ_at=dict(a=differ_a, c=differ_c, race=differ_race))
+
+
 def k2_edge_phase(ops) -> dict:
     """9. K2 bit for bit against its plain version on the edge shapes, each
     with ids -1 and P mixed in and a non-zero ``out`` to add into: fresh
@@ -2438,6 +3023,19 @@ def main() -> None:
         elif row["name"] == "bdeu":
             row["mutations"] = dict(rediscovery_launches=sum(
                 r["rediscovery"]["k4"] for r in mutations["readings"]))
+
+    # -- 14. served discovery ------------------------------------------------
+    served = served_phase(ops, hybrid)
+    for row in rows:
+        key = {"segsum_ones": "k1", "segsum_rows": "k2", "mobius": "k3",
+               "bdeu": "k4"}.get(row["name"])
+        if key is not None:
+            row["served"] = dict(
+                launches=served["launches"]["a"][key],
+                by_step={step: c[key]
+                         for step, c in served["launches"].items()})
+            if key in ("k1", "k2"):
+                row["served"]["launches_by_regime"] =                     served["launches"]["a"][f"{key}_regimes"]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -44,6 +44,10 @@ from typing import (Any, Callable, FrozenSet, Hashable, Iterable, List,
 from ..obs.trace import NULL_TRACER
 from .contract import CostStats
 
+#: The logical database a service fronts when none is named: stamped on
+#: service stats and version tokens (one store, one tenant).
+DEFAULT_TENANT = "default"
+
 
 def _nbytes_of(value: Any) -> int:
     nb = getattr(value, "nbytes", None)

@@ -96,6 +96,10 @@ class ContractionPlan:
     root: NodeSpec
     out_vars: Tuple[CtVar, ...]
 
+    @property
+    def out_shape(self) -> Tuple[int, ...]:
+        return tuple(v.card for v in self.keep)
+
     def shape_signature(self) -> Tuple[Tuple[str, int], ...]:
         """Batching key: plans with equal signatures yield same-shape
         ct-tables (axis kinds + cards, in output order)."""

@@ -19,7 +19,11 @@ counts caching pay off.
 
 The counting backend is **pluggable**: any object with the
 ``family_ct(point, keep)`` / ``family_ct_many(point, keeps)`` protocol can
-serve the family tables.  Candidate moves are sorted into a canonical order
+serve the family tables — a bare :class:`~repro_torch.core.strategies
+.Strategy` or a :class:`~repro_torch.serve.service.CountingService` (see
+:mod:`repro_torch.discover.providers`) — so one search loop covers local
+and served execution, and parity between them is a table equality, not a
+code-path equivalence.  Candidate moves are sorted into a canonical order
 before the argmax, so exact score ties break identically no matter which
 backend produced the tables.
 """
@@ -27,8 +31,10 @@ backend produced the tables.
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass
-from typing import Dict, FrozenSet, Iterable, List, Optional, Sequence, Set, Tuple
+from typing import (Callable, Dict, FrozenSet, Iterable, List, MutableMapping,
+                    Optional, Sequence, Set, Tuple)
 
 import torch
 
@@ -51,32 +57,66 @@ class BNModel:
 
 Family = Tuple[CtVar, FrozenSet[CtVar]]          # (child, parents)
 
+# round hook: (point, n_moves, families_scored_this_round, t0, t1)
+RoundCallback = Callable[[LatticePoint, int, int, float, float], None]
+
 
 class StructureSearch:
     """Greedy hill-climbing over one pluggable count provider.
 
     Args:
-        db: the database (used for its schema).
+        db: the database (used for its schema; may be ``None`` when
+            ``schema`` or a ``counts`` provider with a ``schema``
+            attribute is given — the served deployment).
         strategy: the counting strategy; doubles as the default count
             provider (``family_ct`` / ``family_ct_many``).
         counts: count-provider override — any object with the strategy's
-            family-table protocol.
+            family-table protocol (service-backed, see
+            :mod:`repro_torch.discover.providers`).
+        schema: the schema counted over, where ``db`` is ``None``.
+        batch_scoring: score each round's frontier in one batched BDeu
+            call per shape group (``False``: one family at a time).
+        score_cache: external score memo (``in`` / ``[]`` protocol on
+            ``(child, parents)`` keys).  :class:`~repro_torch.discover
+            .service.DiscoveryService` injects a version-scoped view here
+            so concurrent searches share one memo that composes with store
+            mutations; by default each search owns a private dict.
+        round_cb: optional per-climbing-round hook
+            ``(point, n_moves, n_scored, t0, t1)`` — the discovery
+            service's search-round spans and histograms attach here.
     """
 
-    def __init__(self, db: RelationalDB, strategy: Optional[Strategy],
+    def __init__(self, db: Optional[RelationalDB],
+                 strategy: Optional[Strategy],
                  max_parents: int = 3, ess: float = 1.0,
-                 max_moves: int = 200, counts: Optional[object] = None):
+                 max_moves: int = 200, batch_scoring: bool = True,
+                 counts: Optional[object] = None,
+                 schema: Optional[object] = None,
+                 score_cache: Optional[MutableMapping] = None,
+                 round_cb: Optional[RoundCallback] = None):
         self.db = db
         self.strategy = strategy
         self.counts = counts if counts is not None else strategy
         if self.counts is None:
             raise ValueError("StructureSearch needs a strategy or a counts "
                              "provider")
-        self.schema = db.schema
+        if schema is not None:
+            self.schema = schema
+        elif db is not None:
+            self.schema = db.schema
+        else:
+            self.schema = self.counts.schema
         self.max_parents = max_parents
         self.ess = ess
         self.max_moves = max_moves
-        self._score_cache: Dict[Family, float] = {}
+        self.batch_scoring = batch_scoring
+        self.round_cb = round_cb
+        self._score_cache: MutableMapping[Family, float] = (
+            score_cache if score_cache is not None else {})
+        # which relations each scored family's table depended on (the
+        # point's relation set at scoring time) — the delta-refresh layer
+        # uses this to carry forward scores a write cannot have changed
+        self.family_deps: Dict[Family, FrozenSet[str]] = {}
         self.families_scored = 0
         self.batch_calls = 0          # batched BDeu calls issued
 
@@ -88,6 +128,7 @@ class StructureSearch:
             keep = tuple(sorted(parents)) + (child,)
             tab = self.counts.family_ct(point, keep)
             self._score_cache[key] = family_score(tab, child, self.ess)
+            self.family_deps[key] = point.rels
             self.families_scored += 1
         return self._score_cache[key]
 
@@ -123,6 +164,7 @@ class StructureSearch:
             self.batch_calls += 1
             for (fam, _), s in zip(members, scores):
                 self._score_cache[fam] = float(s)
+                self.family_deps[fam] = point.rels
         self.families_scored += len(todo)
 
     # -- acyclicity ----------------------------------------------------------
@@ -178,18 +220,30 @@ class StructureSearch:
         def sc(child: CtVar) -> float:
             return self.local_score(point, child, frozenset(parents[child]))
 
-        self.batch_scores(point, ((n, frozenset(parents[n])) for n in nodes))
+        if self.batch_scoring:
+            self.batch_scores(point, ((n, frozenset(parents[n]))
+                                      for n in nodes))
         total = sum(sc(n) for n in nodes)
         for _ in range(self.max_moves):
+            t0 = time.perf_counter()
+            scored_before = self.families_scored
             moves = self._candidate_moves(nodes, parents)
-            # one batched scoring pass over the whole round's frontier
-            self.batch_scores(point, ((dst, ps) for _, _, dst, ps in moves))
+            if self.batch_scoring:
+                # one batched scoring pass over the whole round's frontier
+                self.batch_scores(point, ((dst, ps)
+                                          for _, _, dst, ps in moves))
             best_delta, best_apply = 0.0, None
             for op, src, dst, new_ps in moves:
                 delta = (self.local_score(point, dst, new_ps) - sc(dst))
                 if delta > best_delta:
                     best_delta = delta
                     best_apply = (op, src, dst)
+            if self.round_cb is not None:
+                # the scores came back to the host, so the round's device
+                # work is done by now: t1 is the card's time, too
+                self.round_cb(point, len(moves),
+                              self.families_scored - scored_before,
+                              t0, time.perf_counter())
             if best_apply is None:
                 break
             op, src, dst = best_apply
@@ -203,11 +257,21 @@ class StructureSearch:
                        total)
 
     # -- learn-and-join over the lattice --------------------------------------
-    def run(self, lattice: Sequence[LatticePoint]
+    def run(self, lattice: Sequence[LatticePoint],
+            init_models: Optional[Dict[LatticePoint, BNModel]] = None
             ) -> Dict[LatticePoint, BNModel]:
         """Learn-and-join bottom-up over the lattice (``lattice`` is
         ordered bottom-up): each point's climb starts from the union of
-        its sub-points' edges."""
+        its sub-points' edges.
+
+        Args:
+            lattice: bottom-up ordered lattice points.
+            init_models: warm-start models (the refresh hook) — each
+                point's climb starts from its previous model's edges on
+                top of the usual sub-point inheritance, so an online
+                refresh hill-climbs locally from the current model
+                instead of from scratch.
+        """
         models: Dict[LatticePoint, BNModel] = {}
         for point in lattice:          # lattice is bottom-up ordered
             init: Dict[CtVar, Set[CtVar]] = {}
@@ -215,6 +279,9 @@ class StructureSearch:
                 if sub.rels < point.rels:      # inherit sub-point edges
                     for c, ps in m.parents.items():
                         init.setdefault(c, set()).update(ps)
+            if init_models is not None and point in init_models:
+                for c, ps in init_models[point].parents.items():
+                    init.setdefault(c, set()).update(ps)
             models[point] = self.climb_point(point, init)
         return models
 

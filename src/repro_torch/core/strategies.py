@@ -54,11 +54,6 @@ from .mobius import (butterfly_batch, complete_ct, complete_ct_many,
 from .variables import CtVar, LatticePoint
 
 
-#: micro-batch cap of :meth:`Strategy.prefetch`, the JAX package's
-#: ``CountingService`` default ``max_batch_size``
-PREFETCH_BATCH = 64
-
-
 def _freeze(point: LatticePoint, keep: Sequence[CtVar]) -> Tuple:
     return (point.atoms, tuple(keep))
 
@@ -112,6 +107,7 @@ class Strategy:
                 cache_budget_bytes=self.cache_budget_bytes, dtype=self.dtype,
                 device=self.device)
             self.provider = self._policy_cls(self.engine)
+            self._service = None           # rebuilt lazily over this engine
             self._rows_counted = set()
             if self._warm_hists:
                 for point in lattice:
@@ -167,6 +163,17 @@ class Strategy:
         self.engine.cache.put(key, tab)
         return tab
 
+    # -- batched search phase (the serve layer as counting backend) ----------
+    def service(self):
+        """Lazy per-strategy :class:`~repro_torch.serve.service
+        .CountingService` over the shared engine — the batching front-end
+        for this strategy's positive contractions."""
+        svc = getattr(self, "_service", None)
+        if svc is None:
+            from ..serve.service import CountingService
+            svc = self._service = CountingService(self.engine)
+        return svc
+
     def _mobius_batch_fn(self):
         """The batched negative-phase step, honouring a ``mobius_fn``
         override the same way :meth:`_mobius_fn` does."""
@@ -197,45 +204,17 @@ class Strategy:
         """
         return self.engine.apply_delta(delta, **kw)
 
-    def prefetch(self, queries: Sequence[Tuple[LatticePoint,
-                                               Tuple[CtVar, ...]]]) -> int:
-        """Warm the positive policy's cache for ``queries``: the queries
-        the policy would have to count from data
-        (:meth:`~repro_torch.core.engine._Policy.batchable_misses`) run in
-        shape-signature micro-batches of at most ``PREFETCH_BATCH``
-        through :func:`~repro_torch.serve.batching.execute_bucketed`
-        (stack-compatible plans as one flattened evaluation,
-        :meth:`~repro_torch.core.executors.Executor.positive_batch`), and
-        each table goes back through the policy's absorb hook.  Runs on
-        the calling thread; batched equals unbatched, so the tables are
-        those the Möbius join would have contracted on its own.
-
-        Returns:
-            The number of queries contracted (cache misses).
-        """
-        from ..serve.batching import execute_bucketed
-        todo = self.provider.batchable_misses(list(queries))
-        if not todo:
-            return 0
-        eng = self.engine
-        plans = [eng.plan(point, keep) for point, keep in todo]
-        with self.stats.timer("positive"):
-            tabs = execute_bucketed(eng.executor, eng.db, plans, self.stats,
-                                    max_batch_size=PREFETCH_BATCH,
-                                    tracer=eng.tracer)
-        for (point, _), plan, tab in zip(todo, plans, tabs):
-            self.provider.absorb(point, plan.keep, tab)
-        return len(todo)
-
     def family_ct_many(self, point: LatticePoint,
                        keeps: Sequence[Sequence[CtVar]]) -> list:
-        """Fetch a whole round of family tables at once.
+        """Fetch a whole round of family tables at once — both Möbius
+        phases batched.
 
         The positive sub-queries every missing family's Möbius join will
         issue are enumerated up front (:func:`~repro_torch.core.mobius
-        .positive_queries`) and the policy's misses among them are
-        contracted first (:meth:`prefetch`).  The *negative* phase of the
-        missing families then runs through
+        .positive_queries`), filtered to what the positive policy would
+        actually contract from data, and executed through the counting
+        service (:meth:`service`) in signature-bucketed stacked dispatches.
+        The *negative* phase of the missing families then runs through
         :func:`~repro_torch.core.mobius.complete_ct_many`: butterfly input
         stacks are grouped by shape (same-signature families are
         same-shape by construction) and each group is transformed in ONE
@@ -255,7 +234,7 @@ class Strategy:
             for keep in missing:
                 queries.extend(positive_queries(point, keep,
                                                 self.use_butterfly))
-            self.prefetch(queries)
+            self.service().prefetch(self.provider, queries)
         fresh = {}
         if missing:
             with self.stats.disjoint_timer("negative"):

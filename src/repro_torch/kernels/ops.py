@@ -8,7 +8,9 @@ contiguity and raises on anything the kernel does not take.
 ``LAUNCHES[name]`` counts kernel launches and ``PLAIN_CALLS[name]`` counts
 calls served by the plain version, so a run can show which path it went
 through.  A call with no work (no edges, an empty batch) returns its
-(zero) result without either.
+(zero) result without either.  The counting service's dispatcher and every
+searcher thread call the wrappers at once, so each count moves under one
+lock (:func:`_bump`).
 
 Unlike the JAX package's predicate (``repro.kernels.ops
 .segsum_kernel_enabled``), segment sums are not capped by segment count:
@@ -18,6 +20,7 @@ kernel is an atomic scatter of O(edges).
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -38,6 +41,8 @@ ROW_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
 #: Launches of K1 by regime.
 ONES_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
 
+_COUNT_LOCK = threading.Lock()
+
 _INT32_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535                  # CUDA's limit on gridDim.y and .z
 _ROW_WIDTH_MAX = 2 ** 30           # the row scatter's int32 column offsets
@@ -45,12 +50,25 @@ _ROW_WIDTH_MAX = 2 ** 30           # the row scatter's int32 column offsets
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0."""
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-        PLAIN_CALLS[name] = 0
-    for regime in REGIMES:
-        ROW_REGIMES[regime] = 0
-        ONES_REGIMES[regime] = 0
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+            PLAIN_CALLS[name] = 0
+        for regime in REGIMES:
+            ROW_REGIMES[regime] = 0
+            ONES_REGIMES[regime] = 0
+
+
+def _bump(counts: Dict[str, int], key: str,
+          regimes: Optional[Dict[str, int]] = None,
+          regime: Optional[str] = None) -> None:
+    """Add one to ``counts[key]`` (and to ``regimes[regime]``) under the
+    counters' lock: a bare ``+=`` on a shared dict loses increments when
+    threads switch between its read and its write."""
+    with _COUNT_LOCK:
+        counts[key] += 1
+        if regimes is not None:
+            regimes[regime] += 1
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -61,7 +79,7 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
     if dev.type == "cpu":
-        PLAIN_CALLS[name] += 1
+        _bump(PLAIN_CALLS, name)
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
@@ -109,8 +127,7 @@ def segsum_ones(seg: torch.Tensor, w: torch.Tensor,
                            device=seg.device)
     plan = ones_plan(seg.shape[0], num_segments, card_of(seg.device))
     out = segsum_ones_cuda(seg, w, num_segments, plan)
-    LAUNCHES["segsum_ones"] += 1
-    ONES_REGIMES[plan.regime] += 1
+    _bump(LAUNCHES, "segsum_ones", ONES_REGIMES, plan.regime)
     return out
 
 
@@ -134,18 +151,18 @@ def segsum_rows(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
         out = torch.zeros(shape, dtype=torch.float32, device=rows.device)
     if rows.numel() == 0 or num_segments == 0:
         return out
-    _row_scatter(seg, rows, num_segments, out)
-    LAUNCHES["segsum_rows"] += 1
+    _row_scatter(seg, rows, num_segments, out, "segsum_rows")
     return out
 
 
 def _row_scatter(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
-                 out: torch.Tensor) -> None:
-    """K2's kernel in the regime :func:`.segsum.rows_plan` picks."""
+                 out: torch.Tensor, name: str) -> None:
+    """K2's kernel in the regime :func:`.segsum.rows_plan` picks, counted
+    as a launch of ``name``."""
     plan = rows_plan(rows.shape[0], rows.shape[1], num_segments,
                      card_of(rows.device))
     segsum_rows_cuda(seg, rows, num_segments, out, plan)
-    ROW_REGIMES[plan.regime] += 1
+    _bump(LAUNCHES, name, ROW_REGIMES, plan.regime)
 
 
 def mobius(x: torch.Tensor) -> torch.Tensor:
@@ -157,7 +174,7 @@ def mobius(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return x.clone()
     out = mobius_cuda(x)
-    LAUNCHES["mobius"] += 1
+    _bump(LAUNCHES, "mobius")
     return out
 
 
@@ -172,7 +189,7 @@ def bdeu(nijk: torch.Tensor, ess: float = 1.0) -> torch.Tensor:
         raise ValueError(f"bdeu: the kernel takes q >= 1 and 1 <= r <= "
                          f"{MAX_R}, got {tuple(nijk.shape)}")
     out = bdeu_cuda(nijk, ess)
-    LAUNCHES["bdeu"] += 1
+    _bump(LAUNCHES, "bdeu")
     return out
 
 
@@ -188,8 +205,7 @@ def segment_hist(codes: torch.Tensor, values: torch.Tensor,
                       device=values.device)
     if values.numel() == 0 or num_segments == 0:
         return out
-    _row_scatter(codes, values, num_segments, out)
-    LAUNCHES["segment_hist"] += 1
+    _row_scatter(codes, values, num_segments, out, "segment_hist")
     return out
 
 
@@ -223,5 +239,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0 or k.shape[1] == 0:
         return torch.zeros_like(q)
     out = flash_attention_cuda(q, k, v, causal)
-    LAUNCHES["flash_attention"] += 1
+    _bump(LAUNCHES, "flash_attention")
     return out

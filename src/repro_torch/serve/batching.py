@@ -23,8 +23,9 @@ butterfly stacks and transforms each group in one launch.
 
 ``metrics`` is duck-typed: anything with ``observe_batch(sig, n, seconds)``
 and ``observe_mobius(n_stacks, seconds)``.  Latencies are host-clock
-seconds around the dispatch; on the card they count enqueue time unless
-the caller synchronises.
+seconds around the dispatch; where ``metrics`` is given, each dispatch
+ends with a synchronisation of the device, so on the card they hold the
+kernels' time and not only the time it took to enqueue them.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 from ..core.contract import CostStats
 from ..core.ct import CtTable
 from ..core.database import RelationalDB
+from ..core.device import synchronize
 from ..core.engine import CountingEngine
 from ..core.executors import Executor
 from ..core.mobius import complete_ct_many, positive_queries
@@ -66,7 +68,7 @@ def execute_bucketed(executor: Executor, db: RelationalDB,
         max_batch_size: cap per micro-batch (``None``/0 = one batch per
             signature bucket).
         metrics: optional sink with ``observe_batch(sig, n, seconds)``,
-            called once per micro-batch.
+            called once per micro-batch (after a synchronisation).
         tracer: optional tracer; each micro-batch dispatch becomes a
             ``batch.dispatch`` span.
 
@@ -89,6 +91,8 @@ def execute_bucketed(executor: Executor, db: RelationalDB,
             with span:
                 tabs = executor.positive_batch(db, [plans[i] for i in chunk],
                                                stats)
+                if metrics is not None:
+                    synchronize(executor.device)
             if metrics is not None:
                 metrics.observe_batch(sig, len(chunk),
                                       time.perf_counter() - t0)
@@ -167,6 +171,8 @@ def execute_complete_bucketed(engine: CountingEngine, policy,
                   if tracer.enabled else nullcontext()):
                 t0 = time.perf_counter()
                 out = inner_fused(blocks, k, perm)
+                if metrics is not None:
+                    synchronize(engine.device)
                 dt = time.perf_counter() - t0
             if metrics is not None:
                 metrics.observe_mobius(len(blocks), dt)
