@@ -238,6 +238,49 @@ Phases (any failure exits non-zero before the last line is printed):
               counts equal bit for bit; the card's served signature equals
               a local ``DiscoveryService`` over HYBRID.  The phase's launches
               are the ``served`` entries of K1-K4's kernels-line rows.
+15. sharded — the IMDb stand-in at ``IMDB_SCALE`` hash-partitioned into
+              ``SHARDS`` shards (``shard_database``) behind
+              ``repro_torch.serve.CountingRouter`` (one counting service per
+              shard, all on the card).  (a) ``complete_many`` over every
+              lattice point's complete table, over its entity attributes
+              and indicators (the butterfly, K3) and over every axis (the
+              blockwise negative phase): each table against the single
+              database's service on the card, below 2^24 bit for bit and
+              past it within ``ROUNDING_PAST_2_24``; every merged positive
+              table in the router's cache against the single database's
+              contraction, bit for bit while its largest cell (printed)
+              stays below 2^24; the router's counters, its fused flush
+              groups and the flushes that fell back to the shard services.
+              (b) Router discovery (``router.discovery().discover()``) on
+              fresh routers, untraced, traced (``Tracer``: the host spans
+              by name) and under ``torch.profiler`` (device busy share,
+              host-to-device copies, top kernels): each learns phase 14's
+              one-client served models and score exactly.  (c)
+              ``SHARDED_WRITES`` (4,000 edges into partitioned
+              ``imdb_R0``, 1,000 into shared ``imdb_R2``) through
+              ``router.insert_facts``, then ``refresh``: the refreshed
+              models and score those of a fresh router's discovery of the
+              written store, the scores through ``refresh_check``; the
+              write check (``write_check``: every partitioned edge on its
+              own shard, every resident shard entry equal to a recount of
+              its shard's store, the router's complete tables equal to
+              the single written database's); a planted fault (the
+              partitioned insert routed one shard over) must fail its
+              merged tables.  (d) (a)'s router splits its shard with the
+              most partitioned rows (``rebalance``): (a)'s tables again,
+              bit for bit, and the untouched shards keep every cache entry
+              (the same table objects: nothing counted again).  (e) A
+              ``TenantRegistry`` (sparse, on the card) of IMDb seeds 0 and
+              1 at ``IMDB_SCALE`` (one shape, so their plans stack), UW and
+              UW in ``TENANT_UW_SHARDS`` shards: ``count_many`` across the
+              tenants launches fewer K1+K2 kernels than the tenants served
+              one after another, each table bit for bit its own service's
+              (or router's) alone; under a tight global budget the reserved
+              tenant keeps its floor while its neighbour floods.  (f) UW:
+              a router and a registry on the card against the same on the
+              CPU, tables and models bit for bit.  Every step's K1-K4
+              launches (no plain version) are the ``sharded`` entries of
+              K1-K4's kernels-line rows.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -401,6 +444,15 @@ SERVED_SEARCHERS = 2
 SERVED_WRITES = (("insert", "imdb_R0", 100), ("insert", "imdb_R1", 100),
                  ("insert", "imdb_R2", 100))
 SERVED_RING = 1 << 21
+# The sharded phase (15): IMDb at ``IMDB_SCALE`` in ``SHARDS`` hash
+# partitions behind ``repro_torch.serve.CountingRouter`` (the reference
+# picks root ``imdb_e1``: ``imdb_R0`` and ``imdb_R1`` split by edge,
+# ``imdb_R2`` shared); its writes (one partitioned insert, one into the
+# shared relation) drawn from ``MUTATION_SEED + 2``; the tenancy step's
+# sharded UW tenant in ``TENANT_UW_SHARDS`` shards.
+SHARDS = 4
+SHARDED_WRITES = (("insert", "imdb_R0", 4000), ("insert", "imdb_R2", 1000))
+TENANT_UW_SHARDS = 2
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-2
 EPS32 = 2.0 ** -24
 
@@ -2238,7 +2290,497 @@ def served_phase(ops, hybrid: dict) -> dict:
                      check=refresh_summary(check),
                      planted=refresh_summary(planted)),
         race=dict(seconds=race_wall, discoveries=rounds),
-        models_differ_at=dict(a=differ_a, c=differ_c, race=differ_race))
+        models_differ_at=dict(a=differ_a, c=differ_c, race=differ_race),
+        signature=res.signature(), score=res.score,
+        edges=edges_of(res.models))
+
+
+def table_faults(got: list, want: list) -> dict:
+    """Two lists of aligned tables, table by table: the tables whose axes
+    differ or whose cells below 2^24 differ (``low_differs``: counts there
+    are exact), those whose cells past 2^24 differ at all (``rounded``) and
+    by more than ``ROUNDING_PAST_2_24`` of a cell (``past_bound``), the
+    largest such relative difference, and the largest cell."""
+    low, rounded, high, worst, top = [], [], [], 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if tuple(a.vars) != tuple(b.vars) or a.counts.shape != b.counts.shape:
+            low.append(i)
+            continue
+        rel, differs_low = past_2_24(a.counts, b.counts.to(a.counts.device))
+        if differs_low:
+            low.append(i)
+        if rel > 0.0:
+            rounded.append(i)
+        if rel > ROUNDING_PAST_2_24:
+            high.append(i)
+        worst = max(worst, rel)
+        top = max(top, float(a.counts.abs().max()))
+    if len(got) != len(want):
+        low.append(len(got))
+    return dict(tables=len(got), low_differs=low, rounded=rounded,
+                past_bound=high, worst_past_2_24=worst, largest_cell=top)
+
+
+def table_summary(check: dict) -> dict:
+    """A :func:`table_faults` (or :func:`recount_shards`) result with its
+    lists as their lengths."""
+    return {k: len(v) if isinstance(v, list) else v for k, v in check.items()}
+
+
+def merged_positives(router, engine) -> dict:
+    """Every merged positive table in ``router``'s result cache against
+    ``engine`` (the single database's) counting the same query: bit for
+    bit while the largest merged cell stays below 2^24 (counts are exact
+    there and a sum of shard tables in any order is exact), by
+    :func:`table_faults`' rule past it."""
+    from repro_torch.core import LatticePoint
+    with router._lock:
+        items = [(k, t) for k, t in router._results.items()
+                 if k[0] != "complete"]
+    got = [t for _, t in items]
+    want = [engine.contract(LatticePoint(k[0]), k[1]) for k, _ in items]
+    check = table_faults(got, want)
+    exact = check["largest_cell"] < 2.0 ** 24
+    check["rule"] = "bit for bit" if exact else "2^-18 past 2^24"
+    if exact and (check["low_differs"] or check["rounded"]):
+        fail(f"merged positives: {table_summary(check)} differ from the "
+             f"single database's below 2^24")
+    return check
+
+
+def misplaced_edges(sdb) -> int:
+    """Partitioned edges that live on another shard than their root id
+    hashes to (the class's own hash, whatever an instance was patched
+    with)."""
+    from repro_torch.core import ShardedDatabase
+    bad = 0
+    for rel in sdb.partitioned:
+        for s, shard in enumerate(sdb.shards):
+            tab = shard.relations[rel]
+            ids = tab.src if tab.type.src == sdb.root_etype else tab.dst
+            bad += int((ShardedDatabase.shard_of_ids(sdb, ids) != s).sum())
+    return bad
+
+
+def recount_shards(router) -> dict:
+    """Every resident ``"pos"`` entry of every shard's cache against a
+    fresh engine's recount on that shard's store (``recount_entries``'
+    rule), summed over the shards."""
+    from types import SimpleNamespace
+    from repro_torch.core import CountingEngine
+    out = dict(entries=0, low_differs=[], rounded=[], past_bound=[],
+               worst_past_2_24=0.0)
+    for s, eng in enumerate(router.engines):
+        fresh = SimpleNamespace(engine=CountingEngine(eng.db, "sparse",
+                                                      device=eng.device))
+        r = recount_entries(SimpleNamespace(engine=eng), fresh)
+        out["entries"] += r["entries"]
+        for k in ("low_differs", "rounded", "past_bound"):
+            out[k] += [(s, key) for key in r[k]]
+        out["worst_past_2_24"] = max(out["worst_past_2_24"],
+                                     r["worst_past_2_24"])
+    return out
+
+
+def write_check(router, queries, want) -> dict:
+    """A written router against the single database with the same writes:
+    partitioned edges on their own shards, every resident shard entry
+    equal to a recount of its shard's store, and the router's complete
+    tables over ``queries`` against ``want`` (the single database's) by
+    :func:`table_faults`' rule.  ``faults`` names what failed."""
+    router.invalidate()
+    check = dict(misplaced=misplaced_edges(router.sdb),
+                 recount=table_summary(recount_shards(router)),
+                 merged=table_summary(table_faults(
+                     router.complete_many(queries), want)))
+    check["faults"] = [k for k, bad in (
+        ("misplaced", check["misplaced"]),
+        ("recount", check["recount"]["low_differs"]
+         or check["recount"]["past_bound"]),
+        ("merged", check["merged"]["low_differs"]
+         or check["merged"]["past_bound"])) if bad]
+    return check
+
+
+def count_fallbacks(router) -> list:
+    """Spy on ``router``'s drained flushes that fall back to the shard
+    services (queues that do not align for a fused evaluation): a list
+    that gains each fallback's number of entries."""
+    seen, inner = [], router._execute_drained
+
+    def execute_drained(services, drained):
+        seen.append(sum(map(len, drained)))
+        return inner(services, drained)
+    router._execute_drained = execute_drained
+    return seen
+
+
+def copies_to_card(on_card) -> dict:
+    """Host-to-device copies in a trace's device events: count and ms."""
+    hd = [e for e in on_card if "HtoD" in e.key]
+    return dict(count=sum(e.count for e in hd),
+                ms=sum(e.self_device_time_total for e in hd) / 1e3)
+
+
+def sharded_phase(ops, served: dict) -> dict:
+    """15. IMDb served from ``SHARDS`` shards, writes, a rebalance and a
+    tenant registry (module docstring); ``served`` is phase 14's result
+    (its one-client models)."""
+    import copy
+
+    from repro_torch.core import (CountingEngine, build_lattice,
+                                  paper_benchmark_db, shard_database)
+    from repro_torch.obs import NULL_TRACER, Tracer
+    from repro_torch.serve import (CountingRouter, CountingService,
+                                   TenantRegistry)
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    base = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
+    lattice = build_lattice(base.schema, DISCOVERY["max_chain_length"])
+    # each point's complete table over its entity attributes and
+    # indicators (the butterfly: K3) and over every axis (edge attributes
+    # too: the blockwise negative phase)
+    queries = [(p, tuple(v for v in p.all_ct_vars(base.schema,
+                                                    include_rind=True)
+                         if v.kind != "edge")) for p in lattice]
+    queries += [(p, None) for p in lattice]
+    routers, launches = [], {}
+
+    def new_router(db, **kw):
+        r = CountingRouter(shard_database(db, SHARDS), executor="sparse",
+                           **kw)
+        routers.append(r)
+        return r
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def need(step: str, kernels) -> None:
+        check_no_plain(ops, f"sharded ({step})")
+        got = kernel_counts(ops)
+        launches[step] = got
+        if any(got[k] <= 0 for k in kernels):
+            fail(f"sharded ({step}): a kernel of its path was not launched: "
+                 f"{got}")
+
+    def same_models(label, res) -> None:
+        if res.signature() != served["signature"] or \
+                res.score != served["score"]:
+            differ = sorted(p for p in set(edges_of(res.models))
+                            | set(served["edges"])
+                            if edges_of(res.models).get(p)
+                            != served["edges"].get(p))
+            fail(f"sharded {label}: models differ from phase 14's served "
+                 f"models at {differ} (scores {res.score!r}, "
+                 f"{served['score']!r})")
+
+    def router_line(r) -> dict:
+        st = r.stats()["router"]
+        return {k: st[k] for k in (
+            "requests", "fanout_requests", "single_shard_requests",
+            "complete_requests", "cache_hits", "coalesced", "merged_tables",
+            "fused_dispatches", "device_merges", "partial_merges",
+            "not_routable", "deltas", "rebalances")}
+
+    # (a) the router's complete tables against the single database's
+    router = new_router(copy.deepcopy(base))
+    log(f"sharded: IMDb in {SHARDS} shards: root {router.sdb.root_etype}, "
+        f"partitioned {sorted(router.sdb.partitioned)}; partitioned rows "
+        f"by shard {[router.sdb.partitioned_rows(s) for s in range(SHARDS)]}")
+    fallbacks = count_fallbacks(router)
+    ops.reset_counts()
+    tabs_a, wall_a = timed(lambda: router.complete_many(queries))
+    need("a", ("k1", "k2", "k3"))
+    single = CountingService(CountingEngine(copy.deepcopy(base), "sparse"))
+    want_a, wall_single = timed(lambda: single.complete_many(queries))
+    check_a = table_faults(tabs_a, want_a)
+    if check_a["low_differs"] or check_a["past_bound"]:
+        fail(f"sharded (a): complete tables differ from the single "
+             f"database's: {table_summary(check_a)}")
+    pos_a = merged_positives(router, single.engine)
+    if pos_a["low_differs"] or pos_a["past_bound"]:
+        fail(f"sharded (a): merged positives differ from the single "
+             f"database's: {table_summary(pos_a)}")
+    counters_a = router_line(router)
+    log(f"sharded (a) complete_many of {len(queries)} tables: "
+        f"{wall_a:.3f} s through the router, {wall_single:.3f} s on the "
+        f"single database; complete tables "
+        f"{json.dumps(table_summary(check_a))}; merged positives "
+        f"({pos_a['rule']}, largest cell {pos_a['largest_cell']:.0f}) "
+        f"{json.dumps(table_summary(pos_a))}; router "
+        f"{json.dumps(counters_a)}; fused flush groups "
+        f"{counters_a['fused_dispatches']}, flushes that fell back to the "
+        f"shard services {len(fallbacks)} ({sum(fallbacks)} entries); "
+        f"launches {json.dumps(launches['a'])}")
+    single.shutdown(timeout=60)
+
+    # (b) router discovery: untraced, traced, profiled
+    r_u = new_router(copy.deepcopy(base))
+    fallbacks_b = count_fallbacks(r_u)
+    ops.reset_counts()
+    res_u, wall_u = timed(r_u.discovery(**DISCOVERY).discover)
+    need("b", ("k1", "k2", "k3", "k4"))
+    same_models("(b) untraced", res_u)
+    tracer = Tracer(capacity=SERVED_RING, slow_threshold_s=None)
+    r_t = new_router(copy.deepcopy(base), tracer=tracer)
+    res_t, wall_t = timed(r_t.discovery(**DISCOVERY).discover)
+    same_models("(b) traced", res_t)
+    if tracer.snapshot()["dropped"]:
+        fail("sharded (b): the tracer's ring dropped spans")
+    spans = span_breakdown(tracer.records())
+    r_t.set_tracer(NULL_TRACER)
+    del tracer
+    r_p = new_router(copy.deepcopy(base))
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res_p = r_p.discovery(**DISCOVERY).discover()
+        sync()
+    wall_p = time.perf_counter() - t0
+    same_models("(b) profiled", res_p)
+    on_card = device_events(prof)
+    busy = (sum(e.self_device_time_total for e in on_card) / 1e6
+            if on_card else None)
+    copies = copies_to_card(on_card)
+    counters_b = router_line(r_u)
+    log(f"sharded (b) router discovery: {wall_u:.3f} s untraced, "
+        f"{wall_t:.3f} s traced; families scored {res_u.families_scored}, "
+        f"restarts {res_u.restarts}; models edge for edge phase 14's "
+        f"served models, score {res_u.score!r}; router "
+        f"{json.dumps(counters_b)}; fused flush groups "
+        f"{counters_b['fused_dispatches']}, flushes that fell back to the "
+        f"shard services {len(fallbacks_b)} ({sum(fallbacks_b)} entries); "
+        f"shard services "
+        f"{json.dumps({k: r_u.stats()['aggregate'][k] for k in ('requests', 'cache_hits', 'batches', 'batched_queries')})}"
+        f"; launches {json.dumps(launches['b'])}")
+    log(f"sharded (b) profiled copy: {wall_p:.3f} s wall, device busy "
+        + (f"{busy:.4f} s ({100 * busy / wall_p:.2f} % of it, "
+           f"{100 * busy / wall_u:.2f} % of the untraced wall)"
+           if busy is not None else "not measured (no device events)")
+        + f" in {sum(e.count for e in on_card)} device events; "
+          f"host-to-device copies {copies['count']}, {copies['ms']:.3f} ms")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:100]}")
+    top = sorted(spans.items(), key=lambda kv: -kv[1]["seconds"])[:10]
+    log(f"sharded (b) host spans (seconds, count): " + json.dumps(
+        {k: [round(v['seconds'], 6), v['count']] for k, v in top}))
+    del prof, on_card
+
+    # (c) a partitioned and a shared-relation insert, refresh, recount
+    writes = draw_writes(base, SHARDED_WRITES, MUTATION_SEED + 2)
+    written = copy.deepcopy(base)
+    for w in writes:
+        apply_write(written, w)
+    single_w = CountingService(CountingEngine(copy.deepcopy(written),
+                                              "sparse"))
+    want_c = single_w.complete_many(queries)
+    single_w.shutdown(timeout=60)
+    r_w = new_router(copy.deepcopy(base))
+    d_w = r_w.discovery(**DISCOVERY)
+    d_w.discover()
+    ops.reset_counts()
+    reports, write_wall = timed(lambda: [r_w.insert_facts(w[2], *w[3:])
+                                         for w in writes])
+    rep, refresh_wall = timed(lambda: d_w.refresh([w[2] for w in writes]))
+    need("c", ("k1", "k2", "k4"))
+    r_f = new_router(copy.deepcopy(written))
+    d_f = r_f.discovery(**DISCOVERY)
+    fresh, relearn_wall = timed(d_f.discover)
+    if rep.result.signature() != fresh.signature() or \
+            rep.result.score != fresh.score:
+        fail(f"sharded (c): the refreshed models differ from a fresh router "
+             f"discovery on the written store (scores {rep.result.score!r}, "
+             f"{fresh.score!r})")
+    scores = refresh_check(d_w, r_w, d_f, r_f)
+    if refresh_faults(scores):
+        fail(f"sharded (c): the refreshed scores fail the check at "
+             f"{refresh_faults(scores)}: {json.dumps(refresh_summary(scores))}")
+    check_c = write_check(r_w, queries, want_c)
+    if check_c["faults"]:
+        fail(f"sharded (c): the written router fails the write check at "
+             f"{check_c['faults']}: {json.dumps(check_c)}")
+    # the planted fault: the partitioned insert routed one shard over
+    r_x = new_router(copy.deepcopy(base))
+    r_x.complete_many(queries)                   # warm shard caches
+    right = r_x.sdb.shard_of_ids
+    r_x.sdb.shard_of_ids = lambda ids: (right(ids) + 1) % SHARDS
+    r_x.insert_facts(writes[0][2], *writes[0][3:])
+    del r_x.sdb.shard_of_ids
+    for w in writes[1:]:
+        r_x.insert_facts(w[2], *w[3:])
+    planted = write_check(r_x, queries, want_c)
+    if "merged" not in planted["faults"]:
+        fail(f"sharded (c): a partitioned insert routed to the wrong shard "
+             f"passes the write check: {json.dumps(planted)}")
+    touched = {w[0]: [s for s, r in enumerate(reps) if r is not None]
+               for w, reps in zip(writes, reports)}
+    log(f"sharded (c) {' and '.join(w[0] for w in writes)} through the "
+        f"router: {write_wall:.4f} s (shards reconciled {json.dumps(touched)}"
+        f"); refresh {refresh_wall:.3f} s (rescored {rep.rescored}, "
+        f"retained {rep.retained} of {rep.total_families}) against a fresh "
+        f"router's discovery {relearn_wall:.3f} s: the same models and "
+        f"score; scores {json.dumps(refresh_summary(scores))}; write check "
+        f"{json.dumps(check_c)}; the planted misroute fails it at "
+        f"{planted['faults']}: {json.dumps(planted)}; launches "
+        f"{json.dumps(launches['c'])}")
+
+    # (d) rebalance (a)'s router: split the shard with the most rows
+    sizes = [router.sdb.partitioned_rows(s) for s in range(SHARDS)]
+    hot = int(np.argmax(sizes))
+    kept = {s: (router.engines[s],
+                {k: router.engines[s].cache.peek(k)
+                 for k in router.engines[s].cache.keys_snapshot()},
+                router.engines[s].stats.joins)
+            for s in range(SHARDS) if s != hot}
+    ops.reset_counts()
+    new_shard, split_wall = timed(lambda: router.rebalance(hot))
+    tabs_d, wall_d = timed(lambda: router.complete_many(queries))
+    need("d", ("k1", "k2", "k3"))
+    for i, (a, d) in enumerate(zip(tabs_a, tabs_d)):
+        if a.vars != d.vars or not torch.equal(a.counts, d.counts):
+            fail(f"sharded (d): after the split, complete table {i} "
+                 f"({queries[i][0]}) differs from (a)'s")
+    # kept, not counted again: the same table objects, still resident
+    for s, (eng, entries, joins) in kept.items():
+        lost = [k for k, v in entries.items() if eng.cache.peek(k) is not v]
+        if router.engines[s] is not eng or lost:
+            fail(f"sharded (d): untouched shard {s} lost or recounted "
+                 f"{len(lost)} of its {len(entries)} cache entries")
+    log(f"sharded (d) split shard {hot} (partitioned rows {sizes}) into "
+        f"{hot} and {new_shard}: {split_wall:.4f} s; the {len(queries)} "
+        f"complete tables again in {wall_d:.3f} s, equal to (a)'s bit for "
+        f"bit; the {len(kept)} untouched shards kept their "
+        f"{sum(len(k) for _, k, _ in kept.values())} entries (joins since, "
+        f"for single-shard queries now routed there: "
+        f"{[eng.stats.joins - j for eng, _, j in kept.values()]}); rows now "
+        f"{[router.sdb.partitioned_rows(s) for s in range(router.n_shards)]}"
+        f"; launches {json.dumps(launches['d'])}")
+
+    # (e) tenancy: two IMDb tenants of one shape, UW, UW in shards
+    uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
+    tenants = {"imdb0": copy.deepcopy(base),
+               "imdb1": paper_benchmark_db("IMDb", seed=1,
+                                           scale=IMDB_SCALE),
+               "uw": copy.deepcopy(uw),
+               "uw_sharded": shard_database(copy.deepcopy(uw),
+                                            TENANT_UW_SHARDS)}
+    lattices = {t: build_lattice(db.schema, DISCOVERY["max_chain_length"])
+                for t, db in tenants.items()}
+    tq = [(t, p, None) for t in tenants for p in lattices[t]]
+    reg = TenantRegistry(executor="sparse")
+    for t, db in tenants.items():
+        reg.add_tenant(t, db)
+    ops.reset_counts()
+    tabs_e, wall_e = timed(lambda: reg.count_many(tq))
+    need("e", ("k1", "k2"))
+    fused = launches["e"]["k1"] + launches["e"]["k2"]
+    serial, wall_serial, alone = 0, 0.0, []
+    for t, db in tenants.items():
+        qs = [(p, None) for p in lattices[t]]
+        fe = (CountingRouter(shard_database(copy.deepcopy(uw),
+                                            TENANT_UW_SHARDS),
+                             executor="sparse")
+              if t == "uw_sharded" else CountingService(CountingEngine(
+                  copy.deepcopy(uw if t == "uw" else db), "sparse")))
+        ops.reset_counts()
+        got, dt = timed(lambda: fe.count_many(qs))
+        check_no_plain(ops, f"sharded (e) {t} alone")
+        counts = kernel_counts(ops)
+        serial += counts["k1"] + counts["k2"]
+        wall_serial += dt
+        alone += got
+        fe.shutdown(timeout=60)
+    for i, (a, b) in enumerate(zip(tabs_e, alone)):
+        if a.vars != b.vars or not torch.equal(a.counts, b.counts):
+            fail(f"sharded (e): tenant table {i} ({tq[i][0]}, "
+                 f"{tq[i][1]}) differs from its service alone")
+    if not fused < serial:
+        fail(f"sharded (e): cross-tenant dispatch launched {fused} K1+K2 "
+             f"kernels, the tenants one after another {serial}")
+    floor_t, flood_t = "imdb1", "imdb0"
+    floor = reg.cache.tenants_info()[floor_t]["nbytes"]
+    reg.set_tenant_budget(floor_t, reserved_bytes=floor)
+    reg.cache.budget_bytes = floor + floor // 2
+    flood_q = [(flood_t, p, None) for p in lattices[flood_t]]
+    for _ in range(2):
+        reg.tenant(flood_t).service.engine.cache.invalidate()
+        reg.count_many(flood_q)
+    info = reg.cache.tenants_info()
+    if reg.cache.evictions <= 0 or info[floor_t]["nbytes"] < floor:
+        fail(f"sharded (e): under a budget of {reg.cache.budget_bytes} B "
+             f"the flood evicted {reg.cache.evictions} entries and left "
+             f"{info[floor_t]['nbytes']} B of {floor_t}'s reserved {floor}")
+    log(f"sharded (e) registry of {len(tenants)} tenants ({len(tq)} "
+        f"queries): {wall_e:.3f} s and {fused} K1+K2 launches at once "
+        f"against {wall_serial:.3f} s and {serial} one tenant after "
+        f"another; every table bit for bit its own service's; under a "
+        f"{reg.cache.budget_bytes} B budget {flood_t}'s flood evicted "
+        f"{reg.cache.evictions} entries and left {floor_t} "
+        f"{info[floor_t]['nbytes']} B of its reserved {floor}; launches "
+        f"{json.dumps(launches['e'])}")
+    reg.shutdown()
+    del reg, tenants, tabs_e, alone
+
+    # (f) UW: router and registry on the card against the CPU
+    ops.reset_counts()
+    uw_runs = {}
+    for dev in ("card", "cpu"):
+        device = None if dev == "card" else "cpu"
+        r = CountingRouter(shard_database(copy.deepcopy(uw),
+                                          TENANT_UW_SHARDS),
+                           executor="sparse", device=device)
+        uq = [(p, None) for p in build_lattice(uw.schema,
+                                               DISCOVERY["max_chain_length"])]
+        tabs = r.complete_many(uq)
+        res = r.discovery(**DISCOVERY).discover()
+        reg = TenantRegistry(executor="sparse", device=device)
+        reg.add_tenant("uw0", copy.deepcopy(uw))
+        reg.add_tenant("uw1", paper_benchmark_db("UW", seed=1,
+                                                 scale=UW_SCALE))
+        tabs += reg.count_many([(t, p, None) for t in ("uw0", "uw1")
+                                for p, _ in uq])
+        res_r = reg.discovery("uw1", **DISCOVERY).discover()
+        uw_runs[dev] = ([t.counts.cpu() for t in tabs], res, res_r)
+        r.shutdown(timeout=60)
+        reg.shutdown()
+        if dev == "card":              # the CPU half runs the plain versions
+            need("f", ("k1", "k2", "k3", "k4"))
+    (ct, cres, crr), (ht, hres, hrr) = uw_runs["card"], uw_runs["cpu"]
+    if any(not torch.equal(a, b) for a, b in zip(ct, ht)) \
+            or len(ct) != len(ht):
+        fail("sharded (f) UW: a table differs between the card and the CPU")
+    for label, a, b in (("router", cres, hres), ("registry", crr, hrr)):
+        if a.signature() != b.signature() or a.score != b.score:
+            fail(f"sharded (f) UW {label} discovery: card and CPU differ "
+                 f"(scores {a.score!r}, {b.score!r})")
+    log(f"sharded (f) UW: router ({TENANT_UW_SHARDS} shards) and registry "
+        f"on the card equal the CPU bit for bit: {len(ct)} tables, "
+        f"router discovery score {cres.score!r}, registry tenant "
+        f"{crr.score!r}")
+    for r in routers:
+        r.shutdown(timeout=60)
+    log(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        launches=launches, fallbacks=dict(a=len(fallbacks),
+                                          b=len(fallbacks_b)),
+        a=dict(wall_s=wall_a, single_s=wall_single, router=counters_a,
+               tables=table_summary(check_a),
+               positives=table_summary(pos_a)),
+        b=dict(wall_s=wall_u, traced_s=wall_t, profiled_s=wall_p,
+               device_busy_s=busy, copies=copies, router=counters_b),
+        c=dict(write_s=write_wall, refresh_s=refresh_wall,
+               relearn_s=relearn_wall, rescored=rep.rescored,
+               retained=rep.retained, total_families=rep.total_families,
+               check=check_c, planted=planted["faults"]),
+        d=dict(split_s=split_wall, complete_s=wall_d),
+        e=dict(wall_s=wall_e, serial_s=wall_serial, fused=fused,
+               serial=serial))
 
 
 def k2_edge_phase(ops) -> dict:
@@ -3036,6 +3578,21 @@ def main() -> None:
                          for step, c in served["launches"].items()})
             if key in ("k1", "k2"):
                 row["served"]["launches_by_regime"] =                     served["launches"]["a"][f"{key}_regimes"]
+
+    # -- 15. IMDb in shards: router, writes, rebalance, tenancy ----------------
+    sharded = sharded_phase(ops, served)
+    for row in rows:
+        key = {"segsum_ones": "k1", "segsum_rows": "k2", "mobius": "k3",
+               "bdeu": "k4"}.get(row["name"])
+        if key is not None:
+            row["sharded"] = dict(
+                launches=sharded["launches"]["b"][key],
+                by_step={step: c[key]
+                         for step, c in sharded["launches"].items()})
+            if key in ("k1", "k2"):
+                row["sharded"]["launches_by_regime"] = {
+                    step: c[f"{key}_regimes"]
+                    for step, c in sharded["launches"].items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

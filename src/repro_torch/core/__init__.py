@@ -9,7 +9,8 @@ Entry points take ``device=None``, which means the CUDA card; pass
 
 from .schema import Attribute, EntityType, Relationship, Schema
 from .database import (RelationalDB, FactDelta, db_from_arrays, synth_db,
-                       paper_benchmark_db, PAPER_DATASETS)
+                       paper_benchmark_db, PAPER_DATASETS, NotRoutableError,
+                       ShardedDatabase, fanout_view, shard_database)
 from .device import resolve_device
 from .variables import (Var, Atom, CtVar, LatticePoint, attr_var, edge_var,
                         rind_var, build_lattice, point_from_rels)
@@ -18,7 +19,7 @@ from .contract import CostStats, positive_ct, entity_hist
 from .plan import ContractionPlan, compile_plan, group_by_signature
 from .executors import (DenseExecutor, Executor, SparseExecutor, EXECUTORS,
                         make_executor)
-from .cache import CtCache
+from .cache import DEFAULT_TENANT, CtCache, TenantCache
 from .engine import (CountingEngine, CachedFullPositives, DeltaReport,
                      OnDemandPositives, TupleIdPositives, key_deps)
 from .mobius import (butterfly_batch, complete_ct, complete_ct_many,
@@ -32,13 +33,14 @@ __all__ = [
     "Attribute", "EntityType", "Relationship", "Schema",
     "RelationalDB", "FactDelta", "db_from_arrays", "synth_db",
     "paper_benchmark_db", "PAPER_DATASETS", "resolve_device",
+    "NotRoutableError", "ShardedDatabase", "fanout_view", "shard_database",
     "Var", "Atom", "CtVar", "LatticePoint", "attr_var", "edge_var", "rind_var",
     "build_lattice", "point_from_rels", "CtTable",
     "CostStats", "positive_ct", "entity_hist",
     "ContractionPlan", "compile_plan", "group_by_signature",
     "Executor", "DenseExecutor", "SparseExecutor", "EXECUTORS",
     "make_executor",
-    "CtCache", "CountingEngine", "DeltaReport", "key_deps",
+    "CtCache", "TenantCache", "DEFAULT_TENANT", "CountingEngine", "DeltaReport", "key_deps",
     "CachedFullPositives", "OnDemandPositives", "TupleIdPositives",
     "butterfly_batch", "complete_ct", "complete_ct_many",
     "positive_queries", "superset_mobius",

@@ -16,7 +16,7 @@ compared against the paper's Table 5 numbers.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,3 +97,43 @@ class CtTable:
 
 def scalar_table(value: float, dtype=torch.float32, device=None) -> CtTable:
     return CtTable((), torch.tensor(value, dtype=dtype, device=device))
+
+
+def sum_partials(per_query: Sequence[Sequence[CtTable]]
+                 ) -> Tuple[List[CtTable], int]:
+    """The exact sum of each query's partial tables (one per shard, same
+    vars and shape), batched by shape: the partials of every query in one
+    ``(n_partials, shape)`` group are stacked on their device and summed
+    over the partial axis in ONE ``torch.sum``.  Counts are integers, so
+    any summation order gives the same float32 bits below 2^24.
+
+    Args:
+        per_query: one list of aligned partial tables per query.
+
+    Returns:
+        ``(merged, dispatches)``: one merged table per query in input
+        order (a query of one partial is that table itself), and the number
+        of stacked sums issued.
+
+    Usage::
+
+        merged, n = sum_partials([[tab_shard0, tab_shard1]])
+    """
+    merged: List[Optional[CtTable]] = [None] * len(per_query)
+    groups: Dict[Tuple, List[int]] = {}
+    for i, tabs in enumerate(per_query):
+        if len(tabs) == 1:
+            merged[i] = tabs[0]
+            continue
+        groups.setdefault((len(tabs), tuple(tabs[0].counts.shape)),
+                          []).append(i)
+    for (n_partials, _), idxs in groups.items():
+        stacked = torch.stack([torch.stack([per_query[i][s].counts
+                                            for i in idxs])
+                               for s in range(n_partials)])
+        rows = list(torch.sum(stacked, dim=0).unbind(0))
+        if len(rows) > 1:     # each merged table owns its storage, so that
+            rows = [r.clone() for r in rows]   # a cached one pins no group
+        for row, i in zip(rows, idxs):
+            merged[i] = CtTable(per_query[i][0].vars, row)
+    return merged, len(groups)                             # type: ignore

@@ -20,6 +20,14 @@ carrying the exact ``(entity-type, attribute)`` dependency tags
 Writes are validated with vectorised membership tests over int64 pair codes
 (:func:`_pair_codes`), never a Python set per write.
 
+A database too large for one counting stack is hash-partitioned by a root
+entity type into a :class:`ShardedDatabase` (:func:`shard_database`):
+entity tables and the relationships away from the root type are shared by
+every shard, the root type's relationships are split by edge.
+:meth:`ShardedDatabase.route` decides, per query, whether the shards'
+tables sum to the answer (fan-out) or one shard holds it (single), and
+:func:`fanout_view` reassembles the unsharded edge tables as one view.
+
 The synthetic generator plants real statistical dependencies (attribute
 values correlated along edges) so that structure search has signal to find,
 and lets benchmarks dial ``rows`` up to the paper's Visual Genome scale
@@ -29,8 +37,10 @@ so the same ``(name, seed, scale)`` gives byte-identical arrays in both.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+import warnings
+import zlib
+from dataclasses import dataclass, field, replace as _dc_replace
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -458,6 +468,455 @@ def synth_db(schema: Schema,
     db = RelationalDB(schema, entities, relations)
     db.validate()
     return db
+
+
+# ---------------------------------------------------------------------------
+# Horizontal partitioning: ShardedDatabase
+# ---------------------------------------------------------------------------
+
+class NotRoutableError(ValueError):
+    """A counting query cannot be answered by fan-out + count addition over
+    the shards of a :class:`ShardedDatabase` (see
+    :meth:`ShardedDatabase.route` for the exact condition)."""
+
+
+def _shard_hash(ids: np.ndarray, n_shards: int) -> np.ndarray:
+    """Deterministic multiplicative hash of entity ids onto shard indices
+    (Knuth's 2654435761 mod 2^32) — stable across processes and platforms,
+    unlike Python's salted ``hash``."""
+    h = (ids.astype(np.int64) * 2654435761) & 0xFFFFFFFF
+    return (h % n_shards).astype(np.int64)
+
+
+def _route_key(point) -> int:
+    """Stable small hash of a lattice point, used only to spread
+    replicated-only queries across shards."""
+    return zlib.crc32(str(point).encode())
+
+
+@dataclass
+class ShardedDatabase:
+    """A horizontally partitioned :class:`RelationalDB`.
+
+    Every shard is itself a complete, valid ``RelationalDB`` over the SAME
+    schema and the SAME entity-id space:
+
+    * **entity tables are replicated** on every shard (they are the small
+      attribute tables — ``n_entities`` rows each — and replication keeps
+      every edge index valid everywhere);
+    * **relationship tables incident to ``root_etype``** are
+      hash-partitioned by the ``root_etype`` endpoint of each edge
+      (``src`` for self-relationships): every edge lives on exactly one
+      shard, and all edges touching the same root entity live together;
+    * **other relationship tables are replicated** (every shard sees every
+      edge), subject to the size heuristic in :func:`shard_database`.
+
+    Partition assignment goes through a level of indirection: root-entity
+    ids hash onto ``n_buckets`` fixed **buckets** and ``bucket_map`` sends
+    each bucket to a shard.  The bucket space never changes, so
+    :meth:`split_shard` rebalances a hot shard by *moving buckets* — only
+    that shard's rows move, every other shard's data (and caches) stay
+    untouched.
+
+    Positive-count queries are answered by running the ordinary counting
+    stack per shard and merging tables at a front-end
+    (:class:`repro_torch.serve.router.CountingRouter`); :meth:`route` decides,
+    per query, whether the merge is a fan-out **sum** or a **single-shard**
+    lookup.  Use :func:`shard_database` to build one.
+
+    Usage::
+
+        sdb = shard_database(db, n_shards=4)
+        assert sdb.route(point)[0] in ("fanout", "single")
+    """
+
+    schema: Schema
+    shards: Tuple[RelationalDB, ...]
+    root_etype: str
+    partitioned: frozenset = field(default_factory=frozenset)  # rel names
+    n_buckets: int = 0                 # 0 = legacy 1-bucket-per-shard
+    bucket_map: Tuple[int, ...] = ()   # bucket -> shard index
+
+    def __post_init__(self) -> None:
+        if not self.bucket_map:        # direct construction: identity map
+            self.n_buckets = self.n_buckets or len(self.shards)
+            self.bucket_map = tuple(b % len(self.shards)
+                                    for b in range(self.n_buckets))
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def shard_of_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Shard index of each root-entity id (hash -> bucket -> shard)."""
+        buckets = _shard_hash(np.asarray(ids), self.n_buckets)
+        return np.asarray(self.bucket_map, dtype=np.int64)[buckets]
+
+    def partitioned_rows(self, shard_id: int) -> int:
+        """Rows of partitioned relationship tables living on one shard —
+        the size the rebalancing threshold watches (replicated tables are
+        everywhere, so they don't distinguish shards)."""
+        shard = self.shards[shard_id]
+        return sum(shard.relations[r].num_edges for r in self.partitioned)
+
+    # -- writes --------------------------------------------------------------
+    def _key_ids(self, rel: str, src: np.ndarray,
+                 dst: np.ndarray) -> np.ndarray:
+        rt = self.schema.relationship(rel)
+        return src if rt.src == self.root_etype else dst
+
+    def insert_facts(self, rel: str, src, dst,
+                     attrs: Optional[Mapping[str, np.ndarray]] = None
+                     ) -> List[Optional[FactDelta]]:
+        """Apply one insert batch across the shards.
+
+        Partitioned relationships: each edge goes to the shard its
+        root-entity endpoint hashes to (same assignment as
+        :func:`shard_database`).  Replicated relationships: the shared
+        table is mutated ONCE and every shard's version bumps.
+
+        Returns:
+            One entry per shard, aligned with ``shards``: the
+            :class:`FactDelta` that shard must reconcile, or ``None`` when
+            the shard received no edges (its data — and caches — are
+            untouched).
+
+        Usage::
+
+            deltas = sdb.insert_facts("Rated", src, dst, {"rating": vals})
+        """
+        src = np.asarray(src, dtype=np.int32)
+        dst = np.asarray(dst, dtype=np.int32)
+        attrs = {k: np.asarray(v, dtype=np.int32)
+                 for k, v in (attrs or {}).items()}
+        if rel not in self.partitioned:
+            return self._apply_replicated(rel, "insert", src, dst, attrs)
+        assign = self.shard_of_ids(self._key_ids(rel, src, dst))
+        out: List[Optional[FactDelta]] = []
+        for s, shard in enumerate(self.shards):
+            m = assign == s
+            if not m.any():
+                out.append(None)
+                continue
+            out.append(shard.insert_facts(
+                rel, src[m], dst[m], {k: v[m] for k, v in attrs.items()}))
+        return out
+
+    def delete_facts(self, rel: str, src, dst) -> List[Optional[FactDelta]]:
+        """Apply one delete batch across the shards (edges matched by
+        ``(src, dst)`` pair; see :meth:`insert_facts` for the routing and
+        return convention)."""
+        src = np.asarray(src, dtype=np.int32)
+        dst = np.asarray(dst, dtype=np.int32)
+        if rel not in self.partitioned:
+            return self._apply_replicated(rel, "delete", src, dst, {})
+        assign = self.shard_of_ids(self._key_ids(rel, src, dst))
+        out: List[Optional[FactDelta]] = []
+        for s, shard in enumerate(self.shards):
+            m = assign == s
+            out.append(shard.delete_facts(rel, src[m], dst[m])
+                       if m.any() else None)
+        return out
+
+    def update_attrs(self, etype: str, rows,
+                     attrs: Mapping[str, np.ndarray]
+                     ) -> List[Optional[AttrDelta]]:
+        """Apply one entity-attribute write batch across the shards.
+
+        Entity tables are SHARED objects replicated to every shard, so the
+        columns are mutated ONCE (through shard 0) and every shard's
+        version bumps; each shard gets an equivalent :class:`AttrDelta`
+        with its own version bracket (same convention as replicated
+        relationship writes)."""
+        first = self.shards[0].update_attrs(etype, rows, attrs)
+        if first is None:
+            return [None] * self.n_shards
+        out: List[Optional[AttrDelta]] = [first]
+        for shard in self.shards[1:]:
+            old, shard.version = shard.version, shard.version + 1
+            out.append(_dc_replace(first, old_version=old,
+                                   new_version=shard.version))
+        return out
+
+    def _apply_replicated(self, rel: str, op: str, src: np.ndarray,
+                          dst: np.ndarray, attrs: Dict[str, np.ndarray]
+                          ) -> List[Optional[FactDelta]]:
+        """Replicated tables are SHARED objects: mutate through shard 0,
+        then bump the other shards' versions and hand each an equivalent
+        delta (same edges, that shard's version bracket)."""
+        first = (self.shards[0].insert_facts(rel, src, dst, attrs)
+                 if op == "insert"
+                 else self.shards[0].delete_facts(rel, src, dst))
+        if first is None:
+            return [None] * self.n_shards
+        out: List[Optional[FactDelta]] = [first]
+        for shard in self.shards[1:]:
+            old, shard.version = shard.version, shard.version + 1
+            out.append(_dc_replace(first, old_version=old,
+                                   new_version=shard.version))
+        return out
+
+    # -- online rebalancing --------------------------------------------------
+    def split_shard(self, shard_id: int) -> "ShardedDatabase":
+        """Split one shard by moving half of its hash buckets to a NEW
+        shard (index ``n_shards``), re-partitioning only that shard's
+        relationship tables.
+
+        The receiver (``self``) is left untouched — in-flight queries
+        against the old shard set stay consistent; callers swap to the
+        returned :class:`ShardedDatabase` atomically (see
+        :meth:`repro_torch.serve.router.CountingRouter.rebalance`).  Entity
+        tables and replicated relationship tables are shared with the old
+        generation, so a split moves only the partitioned rows of the one
+        shard being split.
+
+        Raises:
+            IndexError: ``shard_id`` out of range.
+            ValueError: the shard owns fewer than two buckets (nothing
+                left to split; re-shard with a larger ``n_buckets``).
+
+        Usage::
+
+            sdb2 = sdb.split_shard(0)
+            assert sdb2.n_shards == sdb.n_shards + 1
+        """
+        if not 0 <= shard_id < self.n_shards:
+            raise IndexError(f"shard {shard_id} out of range")
+        owned = [b for b, s in enumerate(self.bucket_map) if s == shard_id]
+        if len(owned) < 2:
+            raise ValueError(
+                f"shard {shard_id} owns {len(owned)} bucket(s); cannot "
+                f"split further (re-shard with a larger n_buckets)")
+        new_idx = self.n_shards
+        moving = set(owned[len(owned) // 2:])
+        new_map = list(self.bucket_map)
+        for b in moving:
+            new_map[b] = new_idx
+        old = self.shards[shard_id]
+        keep_rels: Dict[str, RelationTable] = {}
+        move_rels: Dict[str, RelationTable] = {}
+        for name, tab in old.relations.items():
+            if name not in self.partitioned:
+                keep_rels[name] = tab          # replicated: shared reference
+                move_rels[name] = tab
+                continue
+            key_ids = tab.src if tab.type.src == self.root_etype else tab.dst
+            buckets = _shard_hash(np.asarray(key_ids), self.n_buckets)
+            mv = np.isin(buckets, list(moving))
+            move_rels[name] = RelationTable(
+                tab.type, tab.src[mv], tab.dst[mv],
+                {a: col[mv] for a, col in tab.attrs.items()})
+            keep_rels[name] = RelationTable(
+                tab.type, tab.src[~mv], tab.dst[~mv],
+                {a: col[~mv] for a, col in tab.attrs.items()})
+        shrunk = RelationalDB(self.schema, old.entities, keep_rels,
+                              version=old.version)
+        fresh = RelationalDB(self.schema, old.entities, move_rels,
+                             version=old.version)
+        shards = (self.shards[:shard_id] + (shrunk,)
+                  + self.shards[shard_id + 1:] + (fresh,))
+        return ShardedDatabase(self.schema, shards, self.root_etype,
+                               self.partitioned, self.n_buckets,
+                               tuple(new_map))
+
+    def _partition_side_var(self, atom) -> "object":
+        """The variable at the partition-key endpoint of a partitioned
+        atom: the ``root_etype`` end of the relationship (``src`` wins for
+        self-relationships, matching :func:`shard_database`)."""
+        rel = self.schema.relationship(atom.rel)
+        return atom.src if rel.src == self.root_etype else atom.dst
+
+    def route(self, point) -> Tuple[str, Optional[int]]:
+        """Decide how a positive-count query over ``point`` is answered.
+
+        Per-shard counts sum to the true count exactly when every satisfied
+        grounding finds ALL of its partitioned edges on one shard.  That
+        holds in exactly two cases:
+
+        * no atom of the point uses a partitioned relationship — every
+          shard holds the full (replicated) data, so the query is answered
+          by ONE shard (summing would over-count ``n_shards``-fold);
+        * every partitioned atom touches the *same* first-order variable at
+          its partition-key endpoint — that grounding value hashes all the
+          edges of the grounding onto one shard, so fan-out + sum is exact.
+
+        Args:
+            point: a :class:`~repro_torch.core.variables.LatticePoint`.
+
+        Returns:
+            ``("fanout", None)`` — query every shard, add the tables; or
+            ``("single", shard_index)`` — query that one shard.
+
+        Raises:
+            NotRoutableError: partitioned atoms disagree on the
+                partition-key variable (e.g. a chain entering the root
+                entity type at two different variables); no additive
+                merge over this partitioning exists.
+        """
+        part_atoms = [a for a in point.atoms if a.rel in self.partitioned]
+        if not part_atoms:
+            return ("single", _route_key(point) % self.n_shards)
+        side_vars = {self._partition_side_var(a) for a in part_atoms}
+        if len(side_vars) > 1:
+            raise NotRoutableError(
+                f"point {point} joins partitioned relationships "
+                f"{sorted(a.rel for a in part_atoms)} at different "
+                f"{self.root_etype!r} variables {sorted(map(str, side_vars))}; "
+                f"per-shard counts are not additive under this partitioning "
+                f"(re-shard with a different root_etype or replicate one "
+                f"of the relationships)")
+        return ("fanout", None)
+
+
+def _replicated_bytes(db: RelationalDB, root_etype: str) -> int:
+    """Bytes of relationship tables that would be REPLICATED to every
+    shard under ``root_etype`` — the footprint the partition-side
+    heuristic minimises."""
+    return sum(tab.nbytes for name, tab in db.relations.items()
+               if root_etype not in (tab.type.src, tab.type.dst))
+
+
+def shard_database(db: RelationalDB, n_shards: int,
+                   root_etype: Optional[str] = None,
+                   n_buckets: Optional[int] = None,
+                   max_replicated_bytes: int = 64 << 20,
+                   on_oversized_replicated: str = "warn") -> ShardedDatabase:
+    """Hash-partition ``db`` into ``n_shards`` complete sub-databases.
+
+    Relationship tables incident to ``root_etype`` are split by the hash of
+    their ``root_etype`` endpoint (the *root entity* of a counting query);
+    entity tables and the remaining relationship tables are replicated —
+    see :class:`ShardedDatabase` for the exact layout and the merge
+    semantics it buys.  Assignment goes through ``n_buckets`` fixed hash
+    buckets so :meth:`ShardedDatabase.split_shard` can later rebalance a
+    hot shard by moving buckets instead of re-hashing the world.
+
+    Args:
+        db: the database to partition (left untouched; shards share its
+            entity/replicated arrays and hold views of partitioned ones).
+        n_shards: number of shards (>= 1).
+        root_etype: entity type whose ids are the partition key.  Defaults
+            to the **smaller-footprint partition side**: the incident type
+            whose choice replicates the fewest relationship-table bytes
+            (ties broken by incident-relationship count, entity size, then
+            name).
+        n_buckets: size of the fixed bucket space (defaults to
+            ``max(64, 8 * n_shards)``); must be >= ``n_shards``.
+        max_replicated_bytes: replication heuristic — a relationship table
+            larger than this that would be replicated to every shard
+            triggers ``on_oversized_replicated``.
+        on_oversized_replicated: ``"warn"`` (default) emits a
+            ``ResourceWarning``; ``"error"`` refuses with ``ValueError``
+            (re-shard with a root type incident to that relationship);
+            ``"ignore"`` replicates silently.
+
+    Returns:
+        A :class:`ShardedDatabase` whose shards each pass
+        :meth:`RelationalDB.validate`.
+
+    Raises:
+        ValueError: ``n_shards < 1``, ``n_buckets < n_shards``,
+            ``root_etype`` names no entity type / touches no relationship,
+            or an oversized replicated table under ``"error"``.
+
+    Usage::
+
+        sdb = shard_database(paper_benchmark_db("UW"), n_shards=2)
+        assert sum(s.relations["Registered"].num_edges
+                   for s in sdb.shards) == db.relations["Registered"].num_edges
+    """
+    if n_shards < 1:
+        raise ValueError("n_shards must be >= 1")
+    if n_buckets is None:
+        n_buckets = max(64, 8 * n_shards)
+    if n_buckets < n_shards:
+        raise ValueError(f"n_buckets={n_buckets} < n_shards={n_shards}")
+    incident: Dict[str, int] = {et.name: 0 for et in db.schema.entities}
+    for rt in db.schema.relationships:
+        incident[rt.src] += 1
+        if rt.dst != rt.src:
+            incident[rt.dst] += 1
+    if root_etype is None:
+        candidates = [n for n in incident if incident[n] > 0]
+        if not candidates:
+            raise ValueError("schema has no relationships to partition")
+        root_etype = min(
+            candidates,
+            key=lambda n: (_replicated_bytes(db, n), -incident[n],
+                           -db.schema.entity(n).size, n))
+    elif root_etype not in incident:
+        raise ValueError(f"unknown entity type {root_etype!r}")
+    if incident[root_etype] == 0:
+        raise ValueError(f"root_etype {root_etype!r} touches no relationship; "
+                         f"nothing would be partitioned")
+
+    partitioned = frozenset(rt.name for rt in db.schema.relationships
+                            if root_etype in (rt.src, rt.dst))
+    for name, tab in db.relations.items():
+        if name in partitioned or tab.nbytes <= max_replicated_bytes:
+            continue
+        msg = (f"relationship {name!r} ({tab.nbytes} bytes) would be "
+               f"replicated to every shard under root_etype="
+               f"{root_etype!r} and exceeds max_replicated_bytes="
+               f"{max_replicated_bytes}; re-shard with a root type "
+               f"incident to it")
+        if on_oversized_replicated == "error":
+            raise ValueError(msg)
+        if on_oversized_replicated == "warn":
+            warnings.warn(msg, ResourceWarning, stacklevel=2)
+
+    bucket_map = tuple(b % n_shards for b in range(n_buckets))
+    bmap = np.asarray(bucket_map, dtype=np.int64)
+    assign: Dict[str, np.ndarray] = {}         # hash each edge list once
+    for name in partitioned:
+        tab = db.relations[name]
+        key_ids = tab.src if tab.type.src == root_etype else tab.dst
+        assign[name] = bmap[_shard_hash(np.asarray(key_ids), n_buckets)]
+    shards: List[RelationalDB] = []
+    for s in range(n_shards):
+        relations: Dict[str, RelationTable] = {}
+        for name, tab in db.relations.items():
+            if name not in partitioned:
+                relations[name] = tab          # replicated: shared reference
+                continue
+            mask = assign[name] == s
+            relations[name] = RelationTable(
+                tab.type, tab.src[mask], tab.dst[mask],
+                {a: col[mask] for a, col in tab.attrs.items()})
+        shard = RelationalDB(db.schema, db.entities, relations)
+        shard.validate()
+        shards.append(shard)
+    return ShardedDatabase(db.schema, tuple(shards), root_etype, partitioned,
+                           n_buckets, bucket_map)
+
+
+def fanout_view(dbs, partitioned: frozenset) -> RelationalDB:
+    """The UNSHARDED database reassembled from its shards, as one view:
+    each partitioned relationship's edge arrays are the shards' arrays
+    concatenated (every edge lives on exactly one shard, so the
+    concatenation is the whole edge table); entity tables and replicated
+    relationship tables are shard 0's, shared with no copy (replicas are
+    the same objects on every shard).  Counting a routable fan-out plan on
+    this view gives the merged table directly — the same argument that
+    makes the fan-out sum exact, with one segment space in place of
+    ``len(dbs)``.  The view's version is shard 0's.
+
+    Usage::
+
+        view = fanout_view(sdb.shards, sdb.partitioned)
+    """
+    dbs = list(dbs)
+    relations = dict(dbs[0].relations)
+    for name in partitioned:
+        parts = [db.relations[name] for db in dbs]
+        tab = parts[0]
+        relations[name] = RelationTable(
+            tab.type, np.concatenate([p.src for p in parts]),
+            np.concatenate([p.dst for p in parts]),
+            {a: np.concatenate([p.attrs[a] for p in parts])
+             for a in tab.attrs})
+    return RelationalDB(dbs[0].schema, dbs[0].entities, relations,
+                        version=dbs[0].version)
 
 
 # ---------------------------------------------------------------------------

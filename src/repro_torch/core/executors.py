@@ -39,6 +39,17 @@ and its gathers by ``i`` entity tables, and each hop step of the whole
 group is one K1 or K2 launch whose result splits into per-plan tables.
 :meth:`Executor.positive` is the group of one.  Counts are integers below
 2^24, so the tables equal the one-plan tables bit for bit.
+
+Each plan of a group reads its own database, so the group may span many
+databases of one schema and one size: the tenants of a registry
+(:meth:`Executor.positive_batch_multi`) or the shards of a router
+(:meth:`Executor.positive_stacked_merged`, which also sums the shards'
+tables).  :meth:`Executor.positive_fanout_merged` instead evaluates a
+fan-out flood once on the shards' edge tables laid end to end
+(:func:`~repro_torch.core.database.fanout_view`), which is the merged
+answer itself.  The JAX package's padded input packs (``plan_input_arrays``,
+``_ArrayCursor``, ``fanout_input_arrays``) have no counterpart: a group
+here needs no equal-length arrays.
 """
 
 from __future__ import annotations
@@ -53,8 +64,8 @@ from ..kernels import ops
 from ..obs.profile import annotate
 from ..obs.trace import NULL_TRACER
 from .contract import CostStats, _khatri_rao_reduce, _onehot
-from .ct import CtTable
-from .database import RelationalDB
+from .ct import CtTable, sum_partials
+from .database import RelationalDB, fanout_view
 from .device import resolve_device
 from .plan import ContractionPlan, FactorSpec, HopSpec, NodeSpec
 from .variables import Atom, CtVar, Var
@@ -217,7 +228,7 @@ class Executor:
                  stats: Optional[CostStats] = None) -> CtTable:
         """Evaluate a compiled plan: one message per root hop, then the
         root combine (the one-plan case of :meth:`positive_batch`)."""
-        return self._evaluate(db, [plan], stats)[0]
+        return self._evaluate([db], [plan], [stats])[0]
 
     def positive_batch(self, db: RelationalDB,
                        plans: Sequence[ContractionPlan],
@@ -249,48 +260,169 @@ class Executor:
 
             tabs = executor.positive_batch(db, plans)
         """
+        return self._batched([db] * len(plans), plans,
+                             [stats] * len(plans), "exec.positive_batch")
+
+    def _batched(self, dbs: Sequence[RelationalDB],
+                 plans: Sequence[ContractionPlan],
+                 stats: Sequence[Optional[CostStats]],
+                 span: str) -> List[CtTable]:
+        """Group ``(dbs[i], plans[i])`` items by :func:`plan_stack_key` and
+        evaluate each group in int32-sized sub-batches (see
+        :meth:`positive_batch`); one table per item, in input order."""
         results: List[Optional[CtTable]] = [None] * len(plans)
         groups: dict = {}
-        for i, plan in enumerate(plans):
+        for i, (db, plan) in enumerate(zip(dbs, plans)):
             groups.setdefault(plan_stack_key(db, plan), []).append(i)
         for idxs in groups.values():
             per = max(1, _INT32_LIMIT
-                      // self._stack_space(db, plans[idxs[0]]))
+                      // self._stack_space(dbs[idxs[0]], plans[idxs[0]]))
             for lo in range(0, len(idxs), per):
                 part = idxs[lo:lo + per]
-                with self.tracer.span("exec.positive_batch",
-                                      plans=len(part)), \
-                        annotate("exec.positive_batch"):
-                    tabs = self._evaluate(db, [plans[i] for i in part],
-                                          stats)
+                with self.tracer.span(span, plans=len(part)), \
+                        annotate(span):
+                    tabs = self._evaluate([dbs[i] for i in part],
+                                          [plans[i] for i in part],
+                                          [stats[i] for i in part])
                 for i, tab in zip(part, tabs):
                     results[i] = tab
-        return results
+        return results                                     # type: ignore
 
-    def _evaluate(self, db: RelationalDB, plans: Sequence[ContractionPlan],
-                  stats: Optional[CostStats]) -> List[CtTable]:
-        """Stack-compatible plans as one problem: each root hop of the
-        whole group is one message matrix (plan ``i``'s entity rows ``i``
-        tables down), then one root combine; one table per plan."""
+    def _evaluate(self, dbs: Sequence[RelationalDB],
+                  plans: Sequence[ContractionPlan],
+                  stats: Sequence[Optional[CostStats]]) -> List[CtTable]:
+        """Stack-compatible plans as one problem, plan ``i`` against
+        ``dbs[i]`` (whose entity sizes the stack key holds equal): each
+        root hop of the whole group is one message matrix (plan ``i``'s
+        entity rows ``i`` tables down), then one root combine; one table
+        per plan, with plan ``i``'s joins, rows and cells in
+        ``stats[i]``."""
         roots = [p.root for p in plans]
-        factors = [self._hop_group(db, [r.hops[j] for r in roots], stats)
+        factors = [self._hop_group(dbs, [r.hops[j] for r in roots], stats)
                    for j in range(len(roots[0].hops))]
-        return self._root(db, [r.own for r in roots], factors,
+        return self._root(dbs, [r.own for r in roots], factors,
                           [p.keep for p in plans], stats)
 
-    def _hop_group(self, db: RelationalDB, hops: Sequence[HopSpec],
-                   stats: Optional[CostStats]
+    # -- many databases -----------------------------------------------------
+    def positive_batch_multi(self, dbs: Sequence[RelationalDB],
+                             plans: Sequence[ContractionPlan],
+                             stats_list: Optional[Sequence[
+                                 Optional[CostStats]]] = None
+                             ) -> List[CtTable]:
+        """:meth:`positive_batch` across MANY databases: item ``i`` is
+        ``plans[i]`` evaluated against ``dbs[i]``.
+
+        The stack key holds the entity sizes, topology, cards and
+        bucketed edge counts a group shares; each plan's index and code
+        arrays come from its own database, laid end to end as the group's
+        plans' are.  So same-shape plans of *different* databases — the
+        tenants of one registry, the shards of one router — share one
+        K1/K2 launch per hop step.
+
+        Args:
+            dbs: one database per plan (repeats allowed and common).
+            plans: compiled plans, positionally paired with ``dbs``.
+            stats_list: optional per-item
+                :class:`~repro_torch.core.contract.CostStats` (typically
+                each tenant engine's); accounting matches each database
+                running its own plans.
+
+        Returns:
+            One :class:`~repro_torch.core.ct.CtTable` per item, in input
+            order, bit-identical to evaluating each ``(db, plan)`` pair
+            alone (integer counts below 2^24).
+
+        Usage::
+
+            tabs = executor.positive_batch_multi(dbs, plans)
+        """
+        stats = (list(stats_list) if stats_list is not None
+                 else [None] * len(plans))
+        return self._batched(list(dbs), list(plans), stats,
+                             "exec.positive_batch_multi")
+
+    def positive_stacked_merged(self, dbs: Sequence[RelationalDB],
+                                plans: Sequence[ContractionPlan],
+                                stats_list: Optional[Sequence[
+                                    Optional[CostStats]]] = None
+                                ) -> Tuple[List[List[CtTable]],
+                                           List[CtTable]]:
+        """A whole cross-shard flood group at once: every shard's plans
+        in one :meth:`positive_batch_multi` evaluation (shard-major), and
+        the per-plan tables summed over the shards (one stacked sum per
+        table shape) — the per-shard tables for the shard services'
+        caches and the merged tables for the router, from one call.
+
+        The caller (``CountingRouter._flush_fused``) pre-checks that the
+        SAME plan objects run on every shard with equal
+        :func:`plan_stack_key` (entity tables are replicated and edge
+        counts bucket alike, so this is the common case).
+
+        Returns:
+            ``(per_shard, merged)`` — ``per_shard[s][q]`` is shard ``s``'s
+            table for plan ``q``; ``merged[q]`` is their exact sum.
+        """
+        dbs, plans = list(dbs), list(plans)
+        n, m = len(dbs), len(plans)
+        stats = (list(stats_list) if stats_list is not None
+                 else [None] * n)
+        tabs = self.positive_batch_multi(
+            [db for db in dbs for _ in plans], plans * n,
+            [st for st in stats for _ in plans])
+        per_shard = [tabs[s * m:(s + 1) * m] for s in range(n)]
+        merged, _ = sum_partials([[per_shard[s][q] for s in range(n)]
+                                  for q in range(m)])
+        return per_shard, merged
+
+    def positive_fanout_merged(self, dbs: Sequence[RelationalDB],
+                               plans: Sequence[ContractionPlan],
+                               partitioned: frozenset,
+                               stats_list: Optional[Sequence[
+                                   Optional[CostStats]]] = None
+                               ) -> List[CtTable]:
+        """Merged fan-out tables at SINGLE-DATABASE cost: the shards' edge
+        tables are reassembled into one view of the unsharded database
+        (:func:`~repro_torch.core.database.fanout_view`: partitioned
+        relationships concatenated, everything else shard 0's, no copy)
+        and the plans are evaluated once on it — the answer IS the merged
+        table, by the same argument that makes the fan-out sum exact
+        (every partitioned edge lives on exactly one shard; replicated
+        tables are the same on every shard).
+
+        The caller pre-checks a routable fan-out group (equal
+        :func:`fanout_stack_key`).  Joins and rows are accounted per shard
+        in ``stats_list``, cells in the first.
+
+        Returns:
+            One merged :class:`~repro_torch.core.ct.CtTable` per plan.
+        """
+        dbs, plans = list(dbs), list(plans)
+        view = fanout_view(dbs, partitioned)
+        tabs = self._batched([view] * len(plans), plans,
+                             [None] * len(plans), "exec.positive_fanout")
+        if stats_list:
+            for db, st in zip(dbs, stats_list):
+                if st is not None:
+                    for p in plans:
+                        _count_plan_joins(db, p, st)
+            if stats_list[0] is not None:
+                stats_list[0].ct_cells += sum(t.size for t in tabs)
+        return tabs
+
+    def _hop_group(self, dbs: Sequence[RelationalDB],
+                   hops: Sequence[HopSpec],
+                   stats: Sequence[Optional[CostStats]]
                    ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
         """The messages ``(b * n_parent, D)`` of ``b`` aligned hops (rows
-        plan-major), each including its child's entire subtree, with each
-        plan's column vars."""
+        plan-major, hop ``i`` over ``dbs[i]``), each including its child's
+        entire subtree, with each plan's column vars."""
         raise NotImplementedError
 
-    def _root(self, db: RelationalDB, owns: Sequence[FactorSpec],
+    def _root(self, dbs: Sequence[RelationalDB], owns: Sequence[FactorSpec],
               factors: Sequence[Tuple[torch.Tensor,
                                       List[Tuple[CtVar, ...]]]],
               keeps: Sequence[Sequence[CtVar]],
-              stats: Optional[CostStats]) -> List[CtTable]:
+              stats: Sequence[Optional[CostStats]]) -> List[CtTable]:
         """Combine ``b`` aligned root variables' own attributes with
         factor matrices ``(b * n_root, D_i)`` (each with its per-plan
         vars) into one ct-table per plan."""
@@ -306,7 +438,7 @@ class Executor:
                     ) -> Tuple[torch.Tensor, Tuple[CtVar, ...]]:
         """Full message matrix ``(n_parent, D)`` of one root-adjacent hop,
         including the child's entire subtree."""
-        m, mvars = self._hop_group(db, [hop], stats)
+        m, mvars = self._hop_group([db], [hop], [stats])
         return m, mvars[0]
 
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
@@ -332,8 +464,9 @@ class Executor:
                     stats: Optional[CostStats] = None) -> CtTable:
         """Combine the root variable's own attributes with entity-indexed
         factor matrices ``(n_root, D_i)`` into a ct-table."""
-        return self._root(db, [own], [(m, [tuple(vs)]) for m, vs in factors],
-                          [keep], stats)[0]
+        return self._root([db], [own],
+                          [(m, [tuple(vs)]) for m, vs in factors],
+                          [keep], [stats])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +537,45 @@ def _rows(flat: torch.Tensor, b: int) -> List[torch.Tensor]:
     return rows if b == 1 else [r.clone() for r in rows]
 
 
+def fanout_stack_key(dbs: Sequence[RelationalDB], plan: ContractionPlan,
+                     partitioned: frozenset) -> Tuple:
+    """Stacking key of a plan's reassembled fan-out evaluation
+    (:func:`~repro_torch.core.database.fanout_view`), equal to the JAX
+    package's: :func:`plan_stack_key` with each partitioned
+    relationship's edge length the SUM of the shards' bucketed lengths.
+    Shards bucket their edge counts apart, so one plan's per-shard keys
+    may differ; this key is one per plan, and plans with equal keys share
+    one fan-out evaluation."""
+    def node(n: NodeSpec) -> Tuple:
+        hops = []
+        for h in n.hops:
+            lens = []
+            for db in dbs:
+                _, g, _, n_parent = _hop_indices(db, h.atom, h.child,
+                                                 h.parent)
+                lens.append(_edge_bucket(int(np.asarray(g).shape[0])))
+            length = sum(lens) if h.atom.rel in partitioned else lens[0]
+            hops.append((length, n_parent,
+                         tuple(cv.card for cv in h.edge_attrs),
+                         node(h.child_node)))
+        return (dbs[0].entities[n.var.etype].size,
+                tuple(cv.card for cv in n.own.attrs), tuple(hops))
+    return node(plan.root)
+
+
+def _count_plan_joins(db: RelationalDB, plan: ContractionPlan,
+                      stats: CostStats) -> None:
+    """The per-hop join and row accounting of evaluating ``plan`` on
+    ``db``, without evaluating it."""
+    def node(n: NodeSpec) -> None:
+        for h in n.hops:
+            node(h.child_node)
+            _, g, _, _ = _hop_indices(db, h.atom, h.child, h.parent)
+            stats.joins += 1
+            stats.rows_scanned += int(np.asarray(g).shape[0])
+    node(plan.root)
+
+
 # ---------------------------------------------------------------------------
 # dense executor (one-hot contraction)
 # ---------------------------------------------------------------------------
@@ -411,35 +583,38 @@ def _rows(flat: torch.Tensor, b: int) -> List[torch.Tensor]:
 class DenseExecutor(Executor):
     name = "dense"
 
-    def _entity_factor(self, db: RelationalDB, fss: Sequence[FactorSpec]
+    def _entity_factor(self, dbs: Sequence[RelationalDB],
+                       fss: Sequence[FactorSpec]
                        ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
         """The one-hot attribute message ``(b * n, prod cards)`` of ``b``
-        aligned entity factors, rows plan-major."""
-        n = db.entities[fss[0].var.etype].size
+        aligned entity factors (factor ``i`` over ``dbs[i]``), rows
+        plan-major."""
+        n = dbs[0].entities[fss[0].var.etype].size
         msg = torch.ones((len(fss) * n, 1), dtype=self.dtype,
                          device=self.device)
         for k, cv in enumerate(fss[0].attrs):
             col = _end_to_end([np.asarray(db.entities[fs.var.etype].attrs[
-                fs.attrs[k].owner[1]]) for fs in fss])
+                fs.attrs[k].owner[1]]) for db, fs in zip(dbs, fss)])
             hot = _onehot(_host_to(col, self.device), cv.card, self.dtype)
             nn, d = msg.shape
             msg = (msg[:, :, None] * hot[:, None, :]).reshape(nn, d * cv.card)
         return msg, [tuple(fs.attrs) for fs in fss]
 
-    def _hop(self, db: RelationalDB, hops: Sequence[HopSpec],
+    def _hop(self, dbs: Sequence[RelationalDB], hops: Sequence[HopSpec],
              child_msg: torch.Tensor,
              child_vars: Sequence[Tuple[CtVar, ...]],
-             stats: Optional[CostStats]
+             stats: Sequence[Optional[CostStats]]
              ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
-        idx = [_hop_indices(db, h.atom, h.child, h.parent) for h in hops]
+        idx = [_hop_indices(db, h.atom, h.child, h.parent)
+               for db, h in zip(dbs, hops)]
         n_parent = idx[0][3]
-        if stats is not None:
-            stats.joins += len(hops)
-            stats.rows_scanned += sum(int(np.asarray(g).shape[0])
-                                      for _, g, _, _ in idx)
+        for st, (_, g, _, _) in zip(stats, idx):
+            if st is not None:
+                st.joins += 1
+                st.rows_scanned += int(np.asarray(g).shape[0])
         # plan i reads the i-th child table and writes the i-th parent one
         gathers = _end_to_end([g for _, g, _, _ in idx],
-                              db.entities[hops[0].child.etype].size)
+                              dbs[0].entities[hops[0].child.etype].size)
         m = child_msg[_host_to(gathers, self.device).long()]  # (edges, D)
         for k, cv in enumerate(hops[0].edge_attrs):
             col = _end_to_end([np.asarray(rt.attrs[h.edge_attrs[k].owner[1]])
@@ -455,46 +630,50 @@ class DenseExecutor(Executor):
         return out, [tuple(vs) + tuple(h.edge_attrs)
                      for vs, h in zip(child_vars, hops)]
 
-    def _node_message(self, db: RelationalDB, nodes: Sequence[NodeSpec],
-                      stats: Optional[CostStats]
+    def _node_message(self, dbs: Sequence[RelationalDB],
+                      nodes: Sequence[NodeSpec],
+                      stats: Sequence[Optional[CostStats]]
                       ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
-        msg, mvars = self._entity_factor(db, [n.own for n in nodes])
+        msg, mvars = self._entity_factor(dbs, [n.own for n in nodes])
         for j in range(len(nodes[0].hops)):
-            h, hvars = self._hop_group(db, [n.hops[j] for n in nodes], stats)
+            h, hvars = self._hop_group(dbs, [n.hops[j] for n in nodes],
+                                       stats)
             n, d = msg.shape
             msg = (msg[:, :, None] * h[:, None, :]).reshape(n, d * h.shape[1])
             mvars = [a + b for a, b in zip(mvars, hvars)]
         return msg, mvars
 
-    def _hop_group(self, db: RelationalDB, hops: Sequence[HopSpec],
-                   stats: Optional[CostStats]
+    def _hop_group(self, dbs: Sequence[RelationalDB],
+                   hops: Sequence[HopSpec],
+                   stats: Sequence[Optional[CostStats]]
                    ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
         child_msg, child_vars = self._node_message(
-            db, [h.child_node for h in hops], stats)
-        return self._hop(db, hops, child_msg, child_vars, stats)
+            dbs, [h.child_node for h in hops], stats)
+        return self._hop(dbs, hops, child_msg, child_vars, stats)
 
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
              stats: Optional[CostStats] = None) -> CtTable:
-        msg, (mvars,) = self._entity_factor(db, [FactorSpec(var,
-                                                            tuple(attrs))])
+        msg, (mvars,) = self._entity_factor([db], [FactorSpec(var,
+                                                              tuple(attrs))])
         flat = torch.sum(msg, dim=0)
         counts = flat.reshape(tuple(v.card for v in mvars)) if mvars \
             else flat[0]
         return CtTable(mvars, counts)
 
-    def _root(self, db: RelationalDB, owns: Sequence[FactorSpec],
+    def _root(self, dbs: Sequence[RelationalDB], owns: Sequence[FactorSpec],
               factors: Sequence[Tuple[torch.Tensor,
                                       List[Tuple[CtVar, ...]]]],
               keeps: Sequence[Sequence[CtVar]],
-              stats: Optional[CostStats]) -> List[CtTable]:
+              stats: Sequence[Optional[CostStats]]) -> List[CtTable]:
         b = len(owns)
-        fs = [self._entity_factor(db, owns)] + list(factors)
+        fs = [self._entity_factor(dbs, owns)] + list(factors)
         # each axis carries its var in every plan, so that the reduce's
         # widest-last reorder applies to all plans at once
         flat, axes = _khatri_rao_reduce(
             [(m, list(zip(*vs))) for m, vs in fs], batch=b)
-        return [_finalise(row, tuple(ax[i] for ax in axes), keep, stats)
-                for i, (row, keep) in enumerate(zip(_rows(flat, b), keeps))]
+        return [_finalise(row, tuple(ax[i] for ax in axes), keep, st)
+                for i, (row, keep, st) in enumerate(
+                    zip(_rows(flat, b), keeps, stats))]
 
     def _stack_space(self, db: RelationalDB, plan: ContractionPlan) -> int:
         def node(n: NodeSpec) -> int:
@@ -565,15 +744,17 @@ class SparseExecutor(Executor):
         code = _np_codes(cols, [cv.card for cv in fs.attrs])
         return code.astype(np.int32), fs.card
 
-    def _hop(self, db: RelationalDB, hops: Sequence[HopSpec],
-             msg: _SparseMsg, stats: Optional[CostStats]
+    def _hop(self, dbs: Sequence[RelationalDB], hops: Sequence[HopSpec],
+             msg: _SparseMsg, stats: Sequence[Optional[CostStats]]
              ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
         """Push ``b`` aligned child messages through one relationship each.
         Scalar-coded axes travel as index arithmetic inside the segment
         ids; only genuinely dense axes (from deeper aggregations) are
-        carried as row vectors.  Plan ``i`` scatters into the ``i``-th of
-        ``b`` segment spaces laid end to end: one launch for the group."""
-        idx = [_hop_indices(db, h.atom, h.child, h.parent) for h in hops]
+        carried as row vectors.  Plan ``i`` (over ``dbs[i]``) scatters into
+        the ``i``-th of ``b`` segment spaces laid end to end: one launch for
+        the group."""
+        idx = [_hop_indices(db, h.atom, h.child, h.parent)
+               for db, h in zip(dbs, hops)]
         n_parent = idx[0][3]
         ds = msg.ds
         for cv in hops[0].edge_attrs:
@@ -609,15 +790,15 @@ class SparseExecutor(Executor):
                 seg += i * total
             out_vars.append(svars if msg.dense is None
                             else svars + tuple(msg.dvars[i]))
-            if stats is not None:
-                stats.joins += 1
-                stats.rows_scanned += n
+            if stats[i] is not None:
+                stats[i].joins += 1
+                stats[i].rows_scanned += n
         b = len(hops)
         if msg.dense is None:
             flat = self._edge_segment_sum(seg_np, None, b * total)
             return flat.reshape(b * n_parent, ds), out_vars
         gathers = _end_to_end([g for _, g, _, _ in idx],
-                              db.entities[hops[0].child.etype].size)
+                              dbs[0].entities[hops[0].child.etype].size)
         rows = msg.dense[_host_to(gathers, self.device).long()]
         agg = self._edge_segment_sum(seg_np, rows, b * total)
         return agg.reshape(b * n_parent, ds * msg.dense.shape[1]), out_vars
@@ -636,13 +817,15 @@ class SparseExecutor(Executor):
             return ops.segsum_ones(seg, ones, total).to(self.dtype)
         return ops.segsum_rows(seg, rows.contiguous(), total).to(self.dtype)
 
-    def _node_message(self, db: RelationalDB, nodes: Sequence[NodeSpec],
-                      stats: Optional[CostStats]) -> _SparseMsg:
-        codes = [self._entity_code(db, n.own) for n in nodes]
+    def _node_message(self, dbs: Sequence[RelationalDB],
+                      nodes: Sequence[NodeSpec],
+                      stats: Sequence[Optional[CostStats]]) -> _SparseMsg:
+        codes = [self._entity_code(db, n.own) for db, n in zip(dbs, nodes)]
         dense: Optional[torch.Tensor] = None
         dvars: List[Tuple[CtVar, ...]] = [() for _ in nodes]
         for j in range(len(nodes[0].hops)):
-            h, hvars = self._hop_group(db, [n.hops[j] for n in nodes], stats)
+            h, hvars = self._hop_group(dbs, [n.hops[j] for n in nodes],
+                                       stats)
             if dense is None:
                 dense, dvars = h, hvars
             else:
@@ -653,11 +836,12 @@ class SparseExecutor(Executor):
         return _SparseMsg([c for c, _ in codes], codes[0][1],
                           [tuple(n.own.attrs) for n in nodes], dense, dvars)
 
-    def _hop_group(self, db: RelationalDB, hops: Sequence[HopSpec],
-                   stats: Optional[CostStats]
+    def _hop_group(self, dbs: Sequence[RelationalDB],
+                   hops: Sequence[HopSpec],
+                   stats: Sequence[Optional[CostStats]]
                    ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
-        child = self._node_message(db, [h.child_node for h in hops], stats)
-        return self._hop(db, hops, child, stats)
+        child = self._node_message(dbs, [h.child_node for h in hops], stats)
+        return self._hop(dbs, hops, child, stats)
 
     def _ones_segment_sum(self, code: torch.Tensor, ds: int) -> torch.Tensor:
         """Segment sum of ones — the histogram primitive (K1)."""
@@ -694,14 +878,14 @@ class SparseExecutor(Executor):
             return CtTable((), flat[0])
         return CtTable(fs.attrs, flat.reshape(tuple(v.card for v in fs.attrs)))
 
-    def _root(self, db: RelationalDB, owns: Sequence[FactorSpec],
+    def _root(self, dbs: Sequence[RelationalDB], owns: Sequence[FactorSpec],
               factors: Sequence[Tuple[torch.Tensor,
                                       List[Tuple[CtVar, ...]]]],
               keeps: Sequence[Sequence[CtVar]],
-              stats: Optional[CostStats]) -> List[CtTable]:
+              stats: Sequence[Optional[CostStats]]) -> List[CtTable]:
         b = len(owns)
-        n = db.entities[owns[0].var.etype].size
-        codes = [self._entity_code(db, own) for own in owns]
+        n = dbs[0].entities[owns[0].var.etype].size
+        codes = [self._entity_code(db, own) for db, own in zip(dbs, owns)]
         ds = codes[0][1]
         if b == 1:
             code_t = self._code_tensor(codes[0][0], n)
@@ -713,8 +897,9 @@ class SparseExecutor(Executor):
         mvars = [tuple(own.attrs) for own in owns]
         for _, vs in factors:
             mvars = [a + tuple(v) for a, v in zip(mvars, vs)]
-        return [_finalise(row, mv, keep, stats)
-                for row, mv, keep in zip(_rows(flat, b), mvars, keeps)]
+        return [_finalise(row, mv, keep, st)
+                for row, mv, keep, st in zip(_rows(flat, b), mvars, keeps,
+                                             stats)]
 
     def _stack_space(self, db: RelationalDB, plan: ContractionPlan) -> int:
         def node(n: NodeSpec) -> int:

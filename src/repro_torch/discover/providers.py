@@ -10,15 +10,16 @@ The provider protocol is deliberately tiny::
     provider.family_ct(point, keep)      # one complete family CT
     provider.family_ct_many(point, ks)   # batched complete family CTs
 
-Two adapters implement it:
+Three adapters implement it:
 
 * :class:`LocalCounts` — wraps a bare :class:`~repro_torch.core.strategies
   .Strategy` (the in-process oracle path).
 * :class:`ServiceCounts` — wraps a :class:`~repro_torch.serve.service
   .CountingService`, so floods go through the batching/coalescing queue
   and share its warm CT cache with every other client.
-
-A sharded router's adapter is not part of the port yet.
+* :class:`RouterCounts` — wraps a :class:`~repro_torch.serve.router
+  .CountingRouter`: per-shard positives merge on the device and the
+  Möbius completion runs once at the front-end.
 
 Because contingency-table counts are exact integers in every backend
 (below 2^24, where float32 holds them), a family's N_ijk tensor is
@@ -26,10 +27,12 @@ Because contingency-table counts are exact integers in every backend
 lets the discovery parity tests demand edge-identical models rather than
 score-approximate ones.
 
-``version()`` is the mutability hook: it returns ``("db", v)``, so a
-score memo keyed by ``(version, family)`` composes with the delta
-pipeline — any committed :class:`~repro_torch.core.database.FactDelta`
-moves the token and stale scores stop being addressable.
+``version()`` is the mutability hook: it returns ``("db", v)`` (a
+router's: ``("shards", v0, v1, ...)``), so a score memo keyed by
+``(version, family)`` composes with the delta pipeline — any committed
+:class:`~repro_torch.core.database.FactDelta` moves the token and stale
+scores stop being addressable.  A backend serving a named tenant prefixes
+its token with the tenant id.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ def _tenant_token(backend, base: Tuple) -> Tuple:
 __all__ = [
     "LocalCounts",
     "ServiceCounts",
+    "RouterCounts",
     "as_count_provider",
 ]
 
@@ -128,28 +132,58 @@ class ServiceCounts:
         return self.service.complete_many([(point, tuple(k)) for k in keeps])
 
 
+class RouterCounts:
+    """Count provider over a :class:`CountingRouter` front-end.
+
+    Each family flood fans out across the database shards; per-shard
+    positives merge on the device and the Möbius completion runs once at
+    the front-end, so the search loop sees exactly the same integer
+    tables a single-database run would.
+    """
+
+    def __init__(self, router):
+        self.router = router
+        self.tracer = getattr(router, "tracer", None)
+
+    @property
+    def schema(self):
+        return self.router.sdb.schema
+
+    def prepare(self, lattice: Sequence[LatticePoint]) -> None:
+        pass
+
+    def version(self) -> Tuple:
+        sdb = self.router._snapshot()[0]
+        return _tenant_token(
+            self.router,
+            ("shards",) + tuple(sh.version for sh in sdb.shards))
+
+    def family_ct(self, point: LatticePoint, keep):
+        return self.router.count_complete(point, keep)
+
+    def family_ct_many(self, point: LatticePoint, keeps) -> List:
+        return self.router.complete_many([(point, tuple(k)) for k in keeps])
+
+
 def as_count_provider(backend, db: Optional[RelationalDB] = None):
     """Adapt ``backend`` into a count provider.
 
     Accepts a bare :class:`Strategy` (plus ``db``), a
-    :class:`CountingService`, or any object already satisfying the
-    provider protocol (returned unchanged).
+    :class:`CountingService`, a :class:`CountingRouter`, or any object
+    already satisfying the provider protocol (returned unchanged).
 
     Raises:
-        TypeError: ``backend`` fits none of these — a sharded router among
-            them: its adapter comes with database sharding (ROADMAP item
-            11).
+        TypeError: ``backend`` fits none of these.
     """
-    # Lazy import keeps core importable without the serve layer and avoids
+    # Lazy imports keep core importable without the serve layer and avoid
     # an import cycle (serve imports discover for its entry points).
+    from ..serve.router import CountingRouter
     from ..serve.service import CountingService
 
     if isinstance(backend, CountingService):
         return ServiceCounts(backend)
-    if type(backend).__name__ == "CountingRouter":
-        raise TypeError("a CountingRouter backend needs database sharding "
-                        "and the router, which are not ported yet (ROADMAP "
-                        "item 11)")
+    if isinstance(backend, CountingRouter):
+        return RouterCounts(backend)
     if isinstance(backend, Strategy):
         return LocalCounts(backend, db)
     needed = ("schema", "prepare", "version", "family_ct", "family_ct_many")

@@ -3,12 +3,14 @@
 :class:`DiscoveryService` runs the learn-and-join structure search of
 :mod:`repro_torch.core.search` with its candidate-family floods routed
 through a pluggable count provider (:mod:`repro_torch.discover.providers`)
-— a bare :class:`~repro_torch.core.strategies.Strategy` or a batching
-:class:`~repro_torch.serve.service.CountingService` — so ONE search code
-path covers local and served execution, and the parity tests can demand
-the served model be *edge-identical* to the local oracle (counts are exact
-integers below 2^24; the search sorts candidate moves canonically before
-the argmax, so ties break the same way on every backend).
+— a bare :class:`~repro_torch.core.strategies.Strategy`, a batching
+:class:`~repro_torch.serve.service.CountingService`, or a sharded
+:class:`~repro_torch.serve.router.CountingRouter` — so ONE search code
+path covers local, served and sharded execution, and the parity tests can
+demand the served and sharded models be *edge-identical* to the local
+oracle (counts are exact integers below 2^24; the search sorts candidate
+moves canonically before the argmax, so ties break the same way on every
+backend).
 
 Each search runs on its caller's thread and scores its families there
 (K4 on the card), while the counting service's dispatcher, or whichever
@@ -171,7 +173,8 @@ class DiscoveryService:
 
     Args:
         backend: a :class:`Strategy` (with ``db``), a
-            :class:`CountingService`, or a ready-made count provider.
+            :class:`CountingService`, a :class:`CountingRouter`, or a
+            ready-made count provider.
         db: database for a bare-strategy backend (ignored otherwise).
         max_chain_length: lattice depth (relationship-chain length).
         max_parents/ess/max_moves/batch_scoring: forwarded to
@@ -182,7 +185,8 @@ class DiscoveryService:
             one (so search-round spans land in the same ring as the
             counting spans they caused).
         memo: share an existing score-memo dict across several discovery
-            services.  Safe because memo keys are
+            services — the multi-tenant registry passes ONE dict to every
+            tenant's service.  Safe because memo keys are
             ``(version_token, family)`` and a backend naming a tenant
             prefixes its tokens with the tenant id, so entries stay
             disjoint: one tenant's writes move only its own token, and a
@@ -191,7 +195,7 @@ class DiscoveryService:
 
     Usage::
 
-        svc = DiscoveryService(counting_service)    # or a strategy + db
+        svc = DiscoveryService(router)      # or a service, or strategy + db
         result = svc.discover()
         report = svc.refresh(delta)             # selective re-score
     """

@@ -21,6 +21,13 @@ negative phase then runs through
 :func:`~repro_torch.core.mobius.complete_ct_many`, which groups same-shape
 butterfly stacks and transforms each group in one launch.
 
+:func:`execute_bucketed_multi` is :func:`execute_bucketed` over many
+databases (the tenants of one registry): same-shape plans of different
+databases share a micro-batch and one evaluation
+(:meth:`~repro_torch.core.executors.Executor.positive_batch_multi`).
+:class:`TableMerger` sums a sharded router's per-shard tables, batched by
+shape (:func:`~repro_torch.core.ct.sum_partials`).
+
 ``metrics`` is duck-typed: anything with ``observe_batch(sig, n, seconds)``
 and ``observe_mobius(n_stacks, seconds)``.  Latencies are host-clock
 seconds around the dispatch; where ``metrics`` is given, each dispatch
@@ -32,10 +39,12 @@ from __future__ import annotations
 
 import time
 from contextlib import nullcontext
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from ..core.contract import CostStats
-from ..core.ct import CtTable
+from ..core.ct import CtTable, sum_partials
 from ..core.database import RelationalDB
 from ..core.device import synchronize
 from ..core.engine import CountingEngine
@@ -44,6 +53,49 @@ from ..core.mobius import complete_ct_many, positive_queries
 from ..core.plan import ContractionPlan, group_by_signature
 from ..core.variables import CtVar, LatticePoint
 from ..obs.trace import NULL_TRACER, NullTracer
+
+
+class TableMerger:
+    """Device-side sum of a sharded router's per-shard count tables.
+
+    Count-table merging is exact addition, so it runs where the tables
+    are: same-shape shard tables — across MANY queries at once — are
+    stacked and summed in ONE ``torch.sum`` per ``(n_partials, shape)``
+    group (:func:`~repro_torch.core.ct.sum_partials`), instead of
+    ``n_shards - 1`` adds per query.  Stateless, so one instance serves
+    concurrent floods.
+
+    Usage::
+
+        merged, n = TableMerger().merge_tables([[tab_shard0, tab_shard1]])
+    """
+
+    def reduce_arrays(self, arrays: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Sum one query's partial count tensors (same shape) in one
+        stacked sum — the overlapped path's partial fold."""
+        arrays = list(arrays)
+        if len(arrays) == 1:
+            return arrays[0]
+        return torch.sum(torch.stack(arrays), dim=0)
+
+    def merge_tables(self, per_query: Sequence[Sequence[CtTable]]
+                     ) -> Tuple[List[CtTable], int]:
+        """Merge many queries' per-shard tables, batched by shape.
+
+        Args:
+            per_query: one list of same-``vars`` shard tables per query
+                (per-shard plans are compiled against the same schema, so
+                one query's shard tables align axis for axis).
+
+        Returns:
+            ``(merged, dispatches)``: one merged table per query in input
+            order, and the number of stacked sums issued.
+
+        Usage::
+
+            merged, n_disp = merger.merge_tables(shard_tables)
+        """
+        return sum_partials(per_query)
 
 
 def execute_bucketed(executor: Executor, db: RelationalDB,
@@ -96,6 +148,77 @@ def execute_bucketed(executor: Executor, db: RelationalDB,
             if metrics is not None:
                 metrics.observe_batch(sig, len(chunk),
                                       time.perf_counter() - t0)
+            for i, tab in zip(chunk, tabs):
+                results[i] = tab
+    return results                                         # type: ignore
+
+
+def execute_bucketed_multi(executor: Executor,
+                           dbs: Sequence[RelationalDB],
+                           plans: Sequence[ContractionPlan],
+                           stats_list: Optional[Sequence[
+                               Optional[CostStats]]] = None,
+                           max_batch_size: Optional[int] = None,
+                           metrics_list: Optional[Sequence] = None,
+                           tracer: NullTracer = NULL_TRACER
+                           ) -> List[CtTable]:
+    """:func:`execute_bucketed` across MANY databases — the cross-tenant
+    dispatch path.  Item ``i`` is ``plans[i]`` against ``dbs[i]``; plans
+    from different databases that share a shape signature land in the same
+    micro-batch and, when their stack keys match too, the same evaluation
+    (:meth:`~repro_torch.core.executors.Executor.positive_batch_multi`:
+    one K1/K2 launch per hop step of the group on the card).
+
+    Args:
+        executor: the SHARED backend.
+        dbs: one database per plan.
+        plans: compiled plans, positionally paired with ``dbs``.
+        stats_list: optional per-item :class:`~repro_torch.core.contract
+            .CostStats` (each tenant engine's).
+        max_batch_size: cap per micro-batch (``None``/0 = one batch per
+            signature bucket).
+        metrics_list: optional per-item metrics sinks; each distinct sink
+            in a micro-batch receives one ``observe_batch`` with its own
+            query count and its share of the dispatch's seconds (after a
+            synchronisation, as in :func:`execute_bucketed`).
+        tracer: optional tracer; each micro-batch becomes a
+            ``batch.dispatch`` span carrying the database fan-in.
+
+    Returns:
+        One :class:`~repro_torch.core.ct.CtTable` per item, in input order.
+
+    Usage::
+
+        tabs = execute_bucketed_multi(executor, dbs, plans)
+    """
+    results: List[Optional[CtTable]] = [None] * len(plans)
+    for sig, idxs in group_by_signature(plans, key="shape").items():
+        step = max(max_batch_size or len(idxs), 1)
+        for s in range(0, len(idxs), step):
+            chunk = idxs[s:s + step]
+            c_dbs = [dbs[i] for i in chunk]
+            span = (tracer.span("batch.dispatch", sig=sig,
+                                queries=len(chunk),
+                                dbs=len({id(d) for d in c_dbs}))
+                    if tracer.enabled else nullcontext())
+            t0 = time.perf_counter()
+            with span:
+                tabs = executor.positive_batch_multi(
+                    c_dbs, [plans[i] for i in chunk],
+                    [stats_list[i] for i in chunk]
+                    if stats_list is not None else None)
+                if metrics_list is not None:
+                    synchronize(executor.device)
+            dt = time.perf_counter() - t0
+            if metrics_list is not None:
+                shares: Dict[int, Tuple[object, int]] = {}
+                for i in chunk:
+                    m = metrics_list[i]
+                    if m is not None:
+                        _, n = shares.get(id(m), (m, 0))
+                        shares[id(m)] = (m, n + 1)
+                for m, n in shares.values():
+                    m.observe_batch(sig, n, dt * n / len(chunk))
             for i, tab in zip(chunk, tabs):
                 results[i] = tab
     return results                                         # type: ignore

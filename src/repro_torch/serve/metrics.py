@@ -24,6 +24,13 @@ newly added counter appears in dashboards automatically instead of
 silently vanishing — and renders one JSON-able dict for dashboards and
 benchmarks (histograms as their count/mean/percentile summaries).
 
+When one front-end routes over many database shards
+(:class:`~repro_torch.serve.router.CountingRouter`), each shard's service
+keeps its own :class:`ServiceMetrics`; :meth:`ServiceMetrics.merged` rolls
+the per-shard counters (and their signature buckets and histograms) up
+into one aggregate view, and :class:`RouterMetrics` adds the
+routing-level counters on top.
+
 On the CUDA card the service synchronises at the end of each batch, so
 the execution and end-to-end latencies it records are the card's, not
 its launch queue's.
@@ -268,3 +275,43 @@ class ServiceMetrics(_LockedMetrics):
         if cache is not None:
             out["cache"] = cache.info()
         return out
+
+
+@dataclass
+class RouterMetrics(_LockedMetrics):
+    """Routing-level counters of one :class:`~repro_torch.serve.router
+    .CountingRouter` — what happens *above* the per-shard services."""
+    requests: int = 0             # router submit() calls
+    fanout_requests: int = 0      # fanned out to every shard, tables summed
+    single_shard_requests: int = 0  # answered by one shard (replicated data)
+    merged_tables: int = 0        # per-shard tables merged into answers
+    device_merges: int = 0        # stacked device-side merge sums
+    partial_merges: int = 0       # overlapped folds while shards still ran
+    fused_dispatches: int = 0     # cross-shard count+merge fused evaluations
+    not_routable: int = 0         # rejected with NotRoutableError
+    cache_hits: int = 0           # served from the router's own result cache
+    coalesced: int = 0            # joined an identical in-flight fan-out
+    complete_requests: int = 0    # routed complete-CT (Möbius) queries
+    deltas: int = 0               # apply_delta() mutations routed to shards
+    rebalances: int = 0           # online shard splits performed
+    merge_hist: LatencyHistogram = field(
+        default_factory=LatencyHistogram)   # per-ticket shard-merge latency
+    e2e_hist: LatencyHistogram = field(
+        default_factory=LatencyHistogram)   # router submit -> settled result
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def observe_merge(self, dt: float) -> None:
+        with self._lock:
+            self.merge_hist.observe(dt)
+
+    def observe_e2e(self, dt: float) -> None:
+        with self._lock:
+            self.e2e_hist.observe(dt)
+
+    def snapshot(self) -> dict:
+        """JSON-able dict of the routing counters, derived from the
+        dataclass fields (one flat level plus histogram summaries; the
+        per-shard service counters live in
+        :meth:`~repro_torch.serve.router.CountingRouter.stats`)."""
+        return self._base_snapshot()

@@ -367,7 +367,8 @@ class CountingService:
         self._dispatcher_thread: Optional[threading.Thread] = None
         self._shut_down = False
         # > 0 suspends the size/deadline triggers while a caller queues a
-        # whole flood it flushes itself; nothing in this service raises it
+        # whole flood it flushes itself (defer_drains: the router, the
+        # tenant registry)
         self._defer_depth = 0
         self._discovery = None         # lazily built DiscoveryService
         if dispatcher:
@@ -933,10 +934,77 @@ class CountingService:
         if entries:
             self._execute(entries)
 
+    @contextmanager
+    def defer_drains(self):
+        """Suspend the size/deadline dispatch triggers inside the block:
+        submits only QUEUE, nothing executes on the caller's thread until
+        its own :meth:`flush`.  For callers that hold a whole flood and
+        flush right after — the router queues every shard's full query
+        list under this and then drains the shards together, so one
+        shard's inline size-triggered drain cannot serialise the others
+        behind it.  Backpressure (in-flight count/byte limits) and the
+        "queue" admission policy stay armed.  Re-entrant and thread-safe.
+
+        Usage::
+
+            with svc.defer_drains():
+                tickets = [svc.submit(p) for p in points]
+            svc.flush()
+        """
+        with self._lock:
+            self._defer_depth += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._defer_depth -= 1
+
     def pending(self) -> int:
         """Number of queries currently queued (not yet dispatched)."""
         with self._lock:
             return len(self._pending)
+
+    # -- external (router- or registry-fused) execution ----------------------
+    def drain_pending(self) -> List[_Pending]:
+        """Take the whole queue for an EXTERNAL executor — the router's
+        fused cross-shard evaluation, the registry's cross-tenant one.  The
+        caller OWNS the drained entries: it must hand each a table through
+        :meth:`deliver_external`, run them with :meth:`execute_drained`, or
+        settle them with an error — an entry dropped on the floor hangs
+        its waiters forever."""
+        with self._lock:
+            return self._drain_all()
+
+    def execute_drained(self, entries: List[_Pending]) -> None:
+        """Run previously drained entries through the normal batch path
+        (the fused router flush falls back here when shard queues do not
+        align)."""
+        if entries:
+            self._execute(entries)
+
+    def deliver_external(self, delivered: Sequence[Tuple[_Pending,
+                                                         CtTable]]) -> None:
+        """Deliver externally computed tables for drained entries: the
+        usual sink/cache/result routing under the exec lock, then a
+        synchronisation of the engine's device (every table is computed
+        before any waiter wakes, as in a batch of this service's own), then
+        settle.  The tables must be what this service's own batch would
+        have produced (the fused paths evaluate the same plans)."""
+        tr = self.tracer
+        try:
+            with self._exec_lock, self._device():
+                now = time.perf_counter()
+                for e, tab in delivered:
+                    self.metrics.observe_wait(now - e.enqueued_at)
+                    if tr.enabled:
+                        e.trace_ctx = tr.record(
+                            "service.queue", e.enqueued_at, now,
+                            parent=e.trace_ctx, external=True,
+                            tenant=self.tenant)
+                    self._deliver(e, tab)
+                synchronize(self.engine.device)
+        finally:
+            self._settle_all([e for e, _ in delivered])
 
     def _drain_all(self) -> List[_Pending]:
         """Take the whole queue (lock held)."""

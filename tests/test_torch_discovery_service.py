@@ -39,9 +39,9 @@ from chip_smoke import (family_tables, memo_scores, refresh_check,
 from repro.discover import DiscoveryService as JaxDiscovery
 from repro.serve import CountingService as JaxService
 from repro_torch.discover import (DiscoveryService, LocalCounts,
-                                  ServiceCounts, as_count_provider,
-                                  models_signature)
-from repro_torch.serve import CountingService
+                                  RouterCounts, ServiceCounts,
+                                  as_count_provider, models_signature)
+from repro_torch.serve import CountingRouter, CountingService
 from tests.test_counting_core import tiny_db as jax_tiny_db
 from tests.test_mutations import fresh_pairs
 from tests.test_torch_data import to_port
@@ -121,11 +121,16 @@ def test_count_providers_adapt_backends():
     with pytest.raises(ValueError):
         LocalCounts(strategy("HYBRID"))           # no db, never prepared
 
-    class CountingRouter:                          # stands in by name
+    router = CountingRouter(tc.shard_database(tiny_db(0), 2),
+                            executor="sparse", device=CPU)
+    assert isinstance(as_count_provider(router), RouterCounts)
+    assert as_count_provider(router).version() == ("shards", 0, 0)
+
+    class CountingRouter_:                         # a look-alike by name
         pass
 
-    with pytest.raises(TypeError, match="item 11"):
-        as_count_provider(CountingRouter())
+    with pytest.raises(TypeError):
+        as_count_provider(CountingRouter_())
     with pytest.raises(TypeError):
         as_count_provider(object())
 
