@@ -281,6 +281,38 @@ Phases (any failure exits non-zero before the last line is printed):
               CPU, tables and models bit for bit.  Every step's K1-K4
               launches (no plain version) are the ``sharded`` entries of
               K1-K4's kernels-line rows.
+16. mesh    — mesh sharding (``repro_torch.core.distributed``) with ranks
+              that share the card: this process is rank 0 (the
+              controller), workers are spawned on the same card and meet
+              it at a ``FileStore`` under gloo (NCCL refuses two ranks on
+              one device).  At the first of ``MESH_WORLDS``: (a) every
+              IMDb lattice point's positive table (chains <= 2, every
+              attribute) through ``sharded_sparse_positive_ct`` and
+              ``sharded_positive_ct`` on meshes (2,1) and (1,2), each the
+              single device's bit for bit, and ``superset_mobius_sharded``
+              over ``model`` against K3 alone; (b) HYBRID discovery over
+              ``ShardedSparseExecutor`` (untraced, then under
+              ``torch.profiler``: device busy time on rank 0) learning
+              phase 3's models and score exactly, with its sharded steps,
+              bytes scattered and reduced, and K1-K4 launches on every rank
+              (``rank_counts``: no plain version anywhere); (c) the first
+              of ``IMDB_WRITES`` on (b)'s warm cache, reconciled with no
+              sharded step (``local_mode``), against a recount
+              (``recount_entries``); (d) ``CountingRouter`` over
+              ``SHARDS`` shards with ``executor="sparse_sharded"``: phase
+              15 (a)'s complete tables bit for bit; (e) VisualGenome:
+              every chain-3 point that carries the largest dense-message
+              hop, each the single device's table (computed before the
+              counts are reset, so (e)'s launches are the mesh path's).
+              Then (b) at the other worlds; (f) NCCL at world 1 (one rank:
+              the single-device steps, no sharded step); (g) the launcher
+              under ``torch.distributed.run`` (``repro_torch.launch
+              .discover`` on UW, ``MESH_LAUNCH``), its per-point scores and
+              edge counts those of one device.  Walls are printed beside
+              the card's name and power limit; no speed-up is claimed
+              (every rank shares one card).  K1-K4 launches by step and
+              by rank are the ``mesh`` entries of K1-K4's kernels-line
+              rows.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -453,6 +485,14 @@ SERVED_RING = 1 << 21
 SHARDS = 4
 SHARDED_WRITES = (("insert", "imdb_R0", 4000), ("insert", "imdb_R2", 1000))
 TENANT_UW_SHARDS = 2
+# The mesh phase (16): ranks sharing the card (gloo; NCCL refuses two ranks
+# on one device) at ``MESH_WORLDS``: steps (a), (c)-(e) at the first, (b)'s
+# discovery at each; a collective that waits ``MESH_TIMEOUT_S`` raises; (c)'s
+# write is the first of ``IMDB_WRITES``; (g) runs the launcher under
+# ``torch.distributed.run`` on UW at ``UW_SCALE`` with ``MESH_LAUNCH``.
+MESH_WORLDS = (2, 4)
+MESH_TIMEOUT_S = 300.0
+MESH_LAUNCH = dict(max_chain_length=2, max_parents=2)   # launch/discover.py
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-2
 EPS32 = 2.0 ** -24
 
@@ -2422,6 +2462,15 @@ def copies_to_card(on_card) -> dict:
                 ms=sum(e.self_device_time_total for e in hd) / 1e3)
 
 
+def complete_queries(schema, lattice) -> list:
+    """Each point's complete table over its entity attributes and
+    indicators (the butterfly: K3) and over every axis (edge attributes
+    too: the blockwise negative phase): phase 15 (a)'s and 16 (d)'s."""
+    queries = [(p, tuple(v for v in p.all_ct_vars(schema, include_rind=True)
+                         if v.kind != "edge")) for p in lattice]
+    return queries + [(p, None) for p in lattice]
+
+
 def sharded_phase(ops, served: dict) -> dict:
     """15. IMDb served from ``SHARDS`` shards, writes, a rebalance and a
     tenant registry (module docstring); ``served`` is phase 14's result
@@ -2437,13 +2486,7 @@ def sharded_phase(ops, served: dict) -> dict:
     t_phase = time.perf_counter()
     base = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
     lattice = build_lattice(base.schema, DISCOVERY["max_chain_length"])
-    # each point's complete table over its entity attributes and
-    # indicators (the butterfly: K3) and over every axis (edge attributes
-    # too: the blockwise negative phase)
-    queries = [(p, tuple(v for v in p.all_ct_vars(base.schema,
-                                                    include_rind=True)
-                         if v.kind != "edge")) for p in lattice]
-    queries += [(p, None) for p in lattice]
+    queries = complete_queries(base.schema, lattice)
     routers, launches = [], {}
 
     def new_router(db, **kw):
@@ -2769,6 +2812,7 @@ def sharded_phase(ops, served: dict) -> dict:
     return dict(
         launches=launches, fallbacks=dict(a=len(fallbacks),
                                           b=len(fallbacks_b)),
+        tables_a=[(tuple(t.vars), t.counts.cpu()) for t in tabs_a],
         a=dict(wall_s=wall_a, single_s=wall_single, router=counters_a,
                tables=table_summary(check_a),
                positives=table_summary(pos_a)),
@@ -2781,6 +2825,365 @@ def sharded_phase(ops, served: dict) -> dict:
         d=dict(split_s=split_wall, complete_s=wall_d),
         e=dict(wall_s=wall_e, serial_s=wall_serial, fused=fused,
                serial=serial))
+
+
+def rank_kernel_counts(mdist, device, label: str) -> list:
+    """K1-K4 launches on every rank since the last ``reset_rank_counts``,
+    rank 0 first; fails if a plain version ran on any rank."""
+    out = []
+    for rank, c in enumerate(mdist.rank_counts(device)):
+        if any(c["plain_calls"].values()):
+            fail(f"mesh ({label}): plain versions ran on rank {rank}: "
+                 f"{c['plain_calls']}")
+        out.append(dict(k1=c["launches"]["segsum_ones"],
+                        k2=c["launches"]["segsum_rows"],
+                        k3=c["launches"]["mobius"],
+                        k4=c["launches"]["bdeu"]))
+    return out
+
+
+def largest_dense_hop(db, plan) -> int:
+    """``E * D`` of the largest dense-message hop ``plan`` takes on the
+    sparse executor (a hop whose child has hops of its own: ``E`` edges,
+    ``D`` the child's dense columns), 0 without one."""
+    def width(node) -> int:               # dense columns a node sends up
+        out = 1
+        for h in node.hops:
+            ds = h.child_node.own.card
+            for cv in h.edge_attrs:
+                ds *= cv.card
+            out *= ds * width(h.child_node)
+        return out
+
+    def walk(node) -> int:
+        best = 0
+        for h in node.hops:
+            if h.child_node.hops:
+                best = max(best, db.relations[h.atom.rel].num_edges
+                           * width(h.child_node))
+            best = max(best, walk(h.child_node))
+        return best
+    return walk(plan.root)
+
+
+def dense_hops(executor) -> list:
+    """Wrap ``executor``'s hop step to record each dense-message hop as
+    ``(E, D, P)``; returns the list it appends to."""
+    seen, inner = [], executor._edge_segment_sum
+
+    def spy(seg_np, rows, total):
+        if rows is not None:
+            seen.append((int(seg_np.shape[0]), int(rows.shape[1]), total))
+        return inner(seg_np, rows, total)
+    executor._edge_segment_sum = spy
+    return seen
+
+
+def mesh_phase(ops, hybrid: dict, tables_15: list, vg, smi: str) -> dict:
+    """16. Mesh sharding with ranks sharing the card (module docstring);
+    ``hybrid`` is phase 3's run, ``tables_15`` phase 15 (a)'s tables,
+    ``vg`` phase 3's VisualGenome store (read only)."""
+    import copy
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core import (SparseExecutor, build_lattice,
+                                  discover_model, make_strategy,
+                                  paper_benchmark_db, shard_database,
+                                  sharded_positive_ct,
+                                  sharded_sparse_positive_ct)
+    from repro_torch.core import distributed as mdist
+    from repro_torch.core.distributed import (ShardedSparseExecutor,
+                                              superset_mobius_sharded)
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.launch.discover import model_lines
+    from repro_torch.launch.mesh import (init_group, make_local_mesh,
+                                         spawn_ranks, stop_spawned)
+    from repro_torch.serve import CountingRouter
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    tmp = tempfile.mkdtemp(prefix="mesh_phase_")
+    base = paper_benchmark_db("IMDb", seed=0, scale=IMDB_SCALE)
+    lattice = build_lattice(base.schema, DISCOVERY["max_chain_length"])
+    plans = [compile_plan(base.schema, p, p.all_ct_vars(
+        base.schema, include_rind=False)) for p in lattice]
+    single = SparseExecutor()
+    want_a = [single.positive(base, plan) for plan in plans]
+    launches, out = {}, {}
+
+    def start(world: int, backend: str = "gloo"):
+        torch.cuda.empty_cache()       # phase 11 left Nemotron's cache
+        path = os.path.join(tmp, f"{backend}{world}")
+        t0 = time.perf_counter()
+        procs = spawn_ranks(world, path, device, backend, MESH_TIMEOUT_S)
+        init_group(0, world, path, backend, MESH_TIMEOUT_S)
+        log(f"mesh: {world} ranks ({backend}, all on {device}) met in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return procs
+
+    def same_table(label: str, got, want) -> None:
+        if tuple(got.vars) != tuple(want.vars):
+            got = got.transpose_to(tuple(want.vars))
+        if float(want.counts.abs().max()) >= 2.0 ** 24:
+            fail(f"mesh {label}: a cell past 2^24 (the check is bit for bit)")
+        if not torch.equal(got.counts, want.counts):
+            fail(f"mesh {label}: the table differs from the single device's")
+
+    def discover(world: int, db, profiled: bool):
+        """(b): HYBRID over the sharded executor, held to phase 3."""
+        ops.reset_counts()
+        mdist.reset_rank_counts(device)
+        sync()
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                models, st = discover_model(db, make_strategy(
+                    "HYBRID", executor="sparse_sharded"), **DISCOVERY)
+                sync()
+        else:
+            models, st = discover_model(db, make_strategy(
+                "HYBRID", executor="sparse_sharded"), **DISCOVERY)
+            sync()
+        wall = time.perf_counter() - t0
+        ex = st.engine.executor
+        if ex.n_ranks != world:
+            fail(f"mesh (b): the executor spans {ex.n_ranks} ranks, not "
+                 f"{world}")
+        score = sum(m.score for m in models.values())
+        if edges_of(models) != hybrid["edges"] or score != hybrid["score"]:
+            fail(f"mesh (b) world {world}: models or score differ from "
+                 f"phase 3's ({score!r}, {hybrid['score']!r})")
+        by_rank = rank_kernel_counts(mdist, device, f"b, world {world}")
+        if any(r["k1"] <= 0 or r["k2"] <= 0 for r in by_rank) or \
+                by_rank[0]["k3"] <= 0 or by_rank[0]["k4"] <= 0:
+            fail(f"mesh (b) world {world}: a kernel of the path did not "
+                 f"launch on some rank: {by_rank}")
+        if not profiled:
+            launches[f"b{world}"] = by_rank
+        reading = dict(wall_s=wall, profiled=profiled, score=score,
+                       steps=sum(ex.step_counts.values()),
+                       step_kinds=len(ex.step_counts),
+                       bytes_scattered=ex.bytes_scattered,
+                       bytes_reduced=ex.bytes_reduced)
+        if profiled:
+            on_card = device_events(prof)
+            reading["device_busy_s"] = (sum(
+                e.self_device_time_total for e in on_card) / 1e6
+                if on_card else None)
+        log(f"mesh (b) HYBRID over {world} ranks: {wall:.3f} s wall"
+            f"{' under the profiler' if profiled else ''}; phase 3's models "
+            f"and score {score!r} exactly; {reading['steps']} sharded steps "
+            f"({reading['step_kinds']} shapes), {ex.bytes_scattered} B "
+            f"scattered, {ex.bytes_reduced} B reduced; device busy on rank "
+            f"0: {reading.get('device_busy_s', 'not measured')} s; K1-K4 by "
+            f"rank {json.dumps(by_rank)}; {smi}")
+        return st, reading
+
+    # (a) - (e) at the first world
+    world = MESH_WORLDS[0]
+    procs = start(world)
+    try:
+        # (a) every lattice point's positive table, three ways
+        ops.reset_counts()
+        mdist.reset_rank_counts(device)
+        meshes = {"(2,1)": make_local_mesh(1), "(1,2)": make_local_mesh(2)}
+        walls_a = {}
+        for path in ("sparse",) + tuple(meshes):
+            t0 = time.perf_counter()
+            for point, plan, want in zip(lattice, plans, want_a):
+                got = (sharded_sparse_positive_ct(base, point, plan.keep)
+                       if path == "sparse" else sharded_positive_ct(
+                           base, point, plan.keep, mesh=meshes[path]))
+                same_table(f"(a) {path} {point}", got, want)
+            sync()
+            walls_a[path] = time.perf_counter() - t0
+        wall_a = sum(walls_a.values())
+        gen = torch.Generator(device=device).manual_seed(MUTATION_SEED)
+        stack = torch.randint(0, 1 << 20, (2,) * 4 + (3, 3, 3, 3, 27),
+                              generator=gen, device=device).float()
+        got = superset_mobius_sharded(stack, 4, mesh=meshes["(1,2)"])
+        if not torch.equal(got, ops.mobius(stack.reshape(1, 16, -1))
+                           .reshape(stack.shape)):
+            fail("mesh (a): superset_mobius_sharded differs from K3 alone")
+        launches["a"] = rank_kernel_counts(mdist, device, "a")
+        if any(r["k1"] <= 0 or r["k2"] <= 0 or r["k3"] <= 0
+               for r in launches["a"]):
+            fail(f"mesh (a): a kernel did not launch on some rank: "
+                 f"{launches['a']}")
+        log(f"mesh (a) {len(lattice)} points x (sparse, dense (2,1), dense "
+            f"(1,2)) at {world} ranks: {json.dumps(walls_a)} s, each the "
+            f"single device's table bit for bit (largest cell "
+            f"{max(float(w.counts.max()) for w in want_a):.0f}); "
+            f"superset_mobius_sharded over model={world} on "
+            f"{tuple(stack.shape)} equals K3 bit for bit; K1-K4 by rank "
+            f"{json.dumps(launches['a'])}")
+        out["a"] = dict(wall_s=walls_a, tables=3 * len(lattice))
+
+        # (b) HYBRID discovery over the ranks
+        db_b = copy.deepcopy(base)
+        st_b, out["b2"] = discover(world, db_b, profiled=False)
+        _, out["b2_profiled"] = discover(world, copy.deepcopy(base),
+                                         profiled=True)
+
+        # (c) a write on (b)'s warm cache: delta maintenance issues no
+        # sharded step (local_mode)
+        write = draw_writes(db_b, IMDB_WRITES[:1], MUTATION_SEED)[0]
+        ex = st_b.engine.executor
+        steps = dict(ex.step_counts)
+        ops.reset_counts()
+        mdist.reset_rank_counts(device)
+        delta = apply_write(db_b, write)
+        sync()
+        t0 = time.perf_counter()
+        report = st_b.apply_delta(delta)
+        sync()
+        wall_c = time.perf_counter() - t0
+        launches["c"] = rank_kernel_counts(mdist, device, "c")
+        if ex.step_counts != steps or any(
+                sum(r.values()) for r in launches["c"][1:]):
+            fail("mesh (c): the reconciliation issued sharded steps")
+        if report.updated <= 0:
+            fail(f"mesh (c): nothing reconciled in place: {report}")
+        recount = recount_entries(st_b, prepared("HYBRID", db_b, lattice))
+        if recount["low_differs"] or recount["past_bound"]:
+            fail(f"mesh (c): reconciled entries differ from a recount: "
+                 f"{table_summary(recount)}")
+        log(f"mesh (c) {write[0]} on (b)'s warm cache: {wall_c:.3f} s, "
+            f"{json.dumps(report.as_dict())}; no sharded step; "
+            f"{recount['entries']} entries against a recount "
+            f"{json.dumps(table_summary(recount))}; K1-K4 by rank "
+            f"{json.dumps(launches['c'])}")
+        log(f"mesh: {time.perf_counter() - t_phase:.1f} s into the phase")
+        out["c"] = dict(wall_s=wall_c, updated=report.updated,
+                        recount=table_summary(recount))
+        del st_b, db_b
+
+        # (d) database sharding composed with mesh sharding
+        ops.reset_counts()
+        mdist.reset_rank_counts(device)
+        router = CountingRouter(shard_database(copy.deepcopy(base), SHARDS),
+                                executor="sparse_sharded")
+        sync()
+        t0 = time.perf_counter()
+        tabs_d = router.complete_many(complete_queries(base.schema, lattice))
+        sync()
+        wall_d = time.perf_counter() - t0
+        steps_d = sum(sum(e.executor.step_counts.values())
+                      for e in router.engines)
+        router.shutdown(timeout=60)
+        launches["d"] = rank_kernel_counts(mdist, device, "d")
+        if len(tabs_d) != len(tables_15) or any(
+                tuple(t.vars) != v or not torch.equal(t.counts.cpu(), c)
+                for t, (v, c) in zip(tabs_d, tables_15)):
+            fail("mesh (d): the router's complete tables differ from phase "
+                 "15 (a)'s")
+        if steps_d <= 0 or any(r["k1"] + r["k2"] <= 0
+                               for r in launches["d"]):
+            fail(f"mesh (d): the shard executors did not split over the "
+                 f"ranks ({steps_d} steps, {launches['d']})")
+        log(f"mesh (d) CountingRouter({SHARDS} shards, sparse_sharded) at "
+            f"{world} ranks: {len(tabs_d)} complete tables in {wall_d:.3f} s, "
+            f"phase 15 (a)'s bit for bit; {steps_d} sharded steps; K1-K4 by "
+            f"rank {json.dumps(launches['d'])}")
+        out["d"] = dict(wall_s=wall_d, tables=len(tabs_d), steps=steps_d)
+        del router, tabs_d
+
+        # (e) VisualGenome: the points of the largest dense-message hop
+        vlat = [p for p in build_lattice(vg.schema, 3) if len(p.atoms) == 3]
+        vplans = [compile_plan(vg.schema, p, p.all_ct_vars(
+            vg.schema, include_rind=False)) for p in vlat]
+        one = SparseExecutor()
+        hops = dense_hops(one)
+        largest = [largest_dense_hop(vg, plan) for plan in vplans]
+        top = max(largest)
+        carry = [(p, pl) for p, pl, e in zip(vlat, vplans, largest)
+                 if e == top]
+        wants, readings = [], []
+        for point, plan in carry:        # the single device's, uncounted
+            del hops[:]
+            wants.append(one.positive(vg, plan))
+            readings.append(dict(point=str(point), hops=list(hops)))
+        ops.reset_counts()
+        mdist.reset_rank_counts(device)
+        sync()
+        t0 = time.perf_counter()
+        for (point, plan), want in zip(carry, wants):
+            got = sharded_sparse_positive_ct(vg, point, plan.keep)
+            same_table(f"(e) {point}", got, want)
+        sync()
+        wall_e = time.perf_counter() - t0
+        launches["e"] = rank_kernel_counts(mdist, device, "e")
+        if any(r["k2"] <= 0 for r in launches["e"]):
+            fail(f"mesh (e): K2 did not launch on some rank: "
+                 f"{launches['e']}")
+        if any(max(e * d for e, d, _ in r["hops"]) != top
+               for r in readings):
+            fail(f"mesh (e): the points' hops are not the largest: "
+                 f"{readings}")
+        log(f"mesh (e) VisualGenome: {len(carry)} chain-3 points carry the "
+            f"largest dense-message hop (E*D {top}); at {world} ranks each "
+            f"equals the single device's table bit for bit "
+            f"({json.dumps(readings)}); {wall_e:.3f} s; K1-K4 by rank "
+            f"{json.dumps(launches['e'])}")
+        log(f"mesh: {time.perf_counter() - t_phase:.1f} s into the phase")
+        out["e"] = dict(wall_s=wall_e, points=readings)
+        del vplans, one, wants
+    finally:
+        stop_spawned(procs, device)
+
+    # (b) at the larger worlds
+    for world in MESH_WORLDS[1:]:
+        procs = start(world)
+        try:
+            _, out[f"b{world}"] = discover(world, copy.deepcopy(base),
+                                           profiled=False)
+        finally:
+            stop_spawned(procs, device)
+
+    log(f"mesh: {time.perf_counter() - t_phase:.1f} s into the phase")
+    # (f) NCCL at world 1: one rank, the single-device steps
+    path = os.path.join(tmp, "nccl1")
+    init_group(0, 1, path, "nccl", MESH_TIMEOUT_S)
+    try:
+        ex = ShardedSparseExecutor()
+        for point, plan, want in zip(lattice, plans, want_a):
+            same_table(f"(f) {point}", ex.positive(base, plan), want)
+        if ex.n_ranks != 1 or ex.step_counts:
+            fail(f"mesh (f): {ex.n_ranks} ranks, {ex.step_counts} steps")
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh (f) NCCL at world 1: n_ranks 1, {len(plans)} tables equal "
+        f"SparseExecutor's bit for bit, no sharded step")
+
+    # (g) the launcher under torch.distributed.run, against one device
+    uw = paper_benchmark_db("UW", seed=0, scale=UW_SCALE)
+    models, _ = discover_model(uw, make_strategy("HYBRID", executor="sparse"),
+                               **MESH_LAUNCH)
+    want_lines = model_lines(models)
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MESH_WORLDS[0]), "-m",
+           "repro_torch.launch.discover", "--db", "UW", "--scale",
+           str(UW_SCALE)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(root / "src")))
+    wall_g = time.perf_counter() - t0
+    got_lines = [line for line in res.stdout.splitlines()
+                 if line.startswith("  [")]
+    if res.returncode != 0 or got_lines != want_lines:
+        fail(f"mesh (g): the launcher (rc {res.returncode}) printed\n"
+             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}\nnot\n"
+             + "\n".join(want_lines))
+    log(f"mesh (g) {' '.join(cmd[1:])}: rc 0 in {wall_g:.1f} s; its "
+        f"{len(got_lines)} points' scores and edge counts equal one device's")
+    out["g"] = dict(wall_s=wall_g, points=len(got_lines))
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, **out)
 
 
 def k2_edge_phase(ops) -> dict:
@@ -3336,7 +3739,8 @@ def main() -> None:
     sync()
     wall = time.perf_counter() - t0
     hybrid = dict(reading=counting_reading(ops, strategy, wall),
-                  edges=edges_of(models))
+                  edges=edges_of(models),
+                  score=sum(m.score for m in models.values()))
     launches = dict(ops.LAUNCHES)
     imdb_regimes = dict(ops.ROW_REGIMES)
     imdb_ones_regimes = dict(ops.ONES_REGIMES)
@@ -3395,7 +3799,6 @@ def main() -> None:
     make_strategy("HYBRID", executor="sparse").prepare(
         vg, build_lattice(vg.schema, 3))
     vg_spy.remove()
-    del vg
     vg_k2 = {key: k2_reading(ops, *vg_spy.big[big][1])
              for key, big in (("largest", "segsum_rows"), ("hop", "direct"))}
     for key, reading in vg_k2.items():
@@ -3593,6 +3996,18 @@ def main() -> None:
                 row["sharded"]["launches_by_regime"] = {
                     step: c[f"{key}_regimes"]
                     for step, c in sharded["launches"].items()}
+
+    # -- 16. mesh sharding: ranks sharing the card -------------------------
+    sharded_tables = sharded.pop("tables_a")
+    mesh = mesh_phase(ops, hybrid, sharded_tables, vg, smi)
+    for row in rows:
+        key = {"segsum_ones": "k1", "segsum_rows": "k2", "mobius": "k3",
+               "bdeu": "k4"}.get(row["name"])
+        if key is not None:
+            row["mesh"] = dict(
+                launches=sum(r[key] for r in mesh["launches"]["b2"]),
+                by_step={step: [r[key] for r in by_rank]
+                         for step, by_rank in mesh["launches"].items()})
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

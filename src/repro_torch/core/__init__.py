@@ -18,7 +18,10 @@ from .ct import CtTable
 from .contract import CostStats, positive_ct, entity_hist
 from .plan import ContractionPlan, compile_plan, group_by_signature
 from .executors import (DenseExecutor, Executor, SparseExecutor, EXECUTORS,
-                        make_executor)
+                        make_executor, plan_stack_key)
+from .distributed import (ShardedSparseExecutor, sharded_positive_ct,
+                          sharded_sparse_positive_ct)  # registers the
+                          # "sparse_sharded" backend in EXECUTORS on import
 from .cache import DEFAULT_TENANT, CtCache, TenantCache
 from .engine import (CountingEngine, CachedFullPositives, DeltaReport,
                      OnDemandPositives, TupleIdPositives, key_deps)
@@ -38,8 +41,9 @@ __all__ = [
     "build_lattice", "point_from_rels", "CtTable",
     "CostStats", "positive_ct", "entity_hist",
     "ContractionPlan", "compile_plan", "group_by_signature",
-    "Executor", "DenseExecutor", "SparseExecutor", "EXECUTORS",
-    "make_executor",
+    "Executor", "DenseExecutor", "SparseExecutor", "ShardedSparseExecutor",
+    "EXECUTORS", "make_executor", "plan_stack_key",
+    "sharded_positive_ct", "sharded_sparse_positive_ct",
     "CtCache", "TenantCache", "DEFAULT_TENANT", "CountingEngine", "DeltaReport", "key_deps",
     "CachedFullPositives", "OnDemandPositives", "TupleIdPositives",
     "butterfly_batch", "complete_ct", "complete_ct_many",

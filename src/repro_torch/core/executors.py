@@ -580,6 +580,23 @@ def _count_plan_joins(db: RelationalDB, plan: ContractionPlan,
 # dense executor (one-hot contraction)
 # ---------------------------------------------------------------------------
 
+def gather_hop(child: torch.Tensor, gidx: torch.Tensor, sidx: torch.Tensor,
+               cols: Sequence[torch.Tensor], cards: Sequence[int],
+               total: int, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A dense hop on its device: the child message's rows gathered by
+    edge (times the edge weights ``w``, if given), expanded by each edge
+    attribute's one-hot (card+1, NA empty), then K2 into ``total`` parent
+    segments."""
+    m = child[gidx.long()]                                    # (edges, D)
+    if w is not None:
+        m = m * w[:, None]
+    for col, card in zip(cols, cards):
+        hot = _onehot(col, card, m.dtype)
+        n, d = m.shape
+        m = (m[:, :, None] * hot[:, None, :]).reshape(n, d * card)
+    return ops.segsum_rows(sidx, m.contiguous(), total)
+
+
 class DenseExecutor(Executor):
     name = "dense"
 
@@ -615,20 +632,25 @@ class DenseExecutor(Executor):
         # plan i reads the i-th child table and writes the i-th parent one
         gathers = _end_to_end([g for _, g, _, _ in idx],
                               dbs[0].entities[hops[0].child.etype].size)
-        m = child_msg[_host_to(gathers, self.device).long()]  # (edges, D)
-        for k, cv in enumerate(hops[0].edge_attrs):
-            col = _end_to_end([np.asarray(rt.attrs[h.edge_attrs[k].owner[1]])
-                               for h, (rt, _, _, _) in zip(hops, idx)])
-            hot = _onehot(_host_to(col, self.device),
-                          cv.card, self.dtype)            # card+1, NA empty
-            n, d = m.shape
-            m = (m[:, :, None] * hot[:, None, :]).reshape(n, d * cv.card)
+        cols = [_end_to_end([np.asarray(rt.attrs[h.edge_attrs[k].owner[1]])
+                             for h, (rt, _, _, _) in zip(hops, idx)])
+                for k in range(len(hops[0].edge_attrs))]
         scatters = _end_to_end([s for _, _, s, _ in idx], n_parent)
-        out = ops.segsum_rows(_host_to(scatters, self.device),
-                              m.contiguous(),
-                              len(hops) * n_parent).to(self.dtype)
+        out = self._hop_sum(gathers, scatters, cols,
+                            [cv.card for cv in hops[0].edge_attrs],
+                            child_msg, len(hops) * n_parent).to(self.dtype)
         return out, [tuple(vs) + tuple(h.edge_attrs)
                      for vs, h in zip(child_vars, hops)]
+
+    def _hop_sum(self, gathers: np.ndarray, scatters: np.ndarray,
+                 cols: Sequence[np.ndarray], cards: Sequence[int],
+                 child_msg: torch.Tensor, total: int) -> torch.Tensor:
+        """The hop's device step (K2): host edge arrays in, the
+        ``(total, D)`` parent message out."""
+        dev = self.device
+        return gather_hop(child_msg, _host_to(gathers, dev),
+                          _host_to(scatters, dev),
+                          [_host_to(c, dev) for c in cols], cards, total)
 
     def _node_message(self, dbs: Sequence[RelationalDB],
                       nodes: Sequence[NodeSpec],

@@ -5,9 +5,10 @@ from __future__ import annotations
 
 import torch
 
+from .attention import flash_attention_plain
 from .bdeu import _bdeu_rows
 from .mobius import mobius_plain
-from .segsum import segsum_ones_plain, segsum_rows_plain
+from .segsum import segment_hist_plain, segsum_ones_plain, segsum_rows_plain
 
 
 def ones_segment_sum_ref(seg: torch.Tensor, weights: torch.Tensor,
@@ -32,3 +33,12 @@ def bdeu_ref(nijk: torch.Tensor, ess: float, q: int, r: int) -> torch.Tensor:
     """BDeu log marginal likelihood over N_ijk [Q, R] with the Dirichlet
     parameters of a (q, r) family."""
     return _bdeu_rows(nijk[None], ess / q, ess / (q * r))[0]
+
+
+#: Weighted histogram / segment sum: ``out[p, d] = sum_{n: codes[n]=p}
+#: values[n, d]``.
+segment_hist_ref = segment_hist_plain
+
+#: Attention forward of ``q [B, S, H, hd]`` over ``k, v`` (the kernel's
+#: plain version, grouped KV heads included).
+flash_attention_ref = flash_attention_plain

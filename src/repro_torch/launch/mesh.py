@@ -1,0 +1,144 @@
+"""Local rank meshes, and the worker processes that serve a controller.
+
+Defined as functions: importing this module starts no process and touches
+no group.  The JAX package's ``make_production_mesh`` (a 256- or 512-chip
+TPU pod) and its TPU v5e constants have no counterpart here.
+
+A mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh` over the
+default group's ranks, made as a layout only: every collective of the
+port's sharded counting runs on the default group, driven by rank 0
+(:mod:`repro_torch.core.distributed`), so making a mesh issues no collective
+and needs no other rank.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+from typing import List
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..core.device import resolve_device
+from ..core.distributed import serve_ranks, stop_ranks
+
+
+def make_local_mesh(model_axis: int = 1) -> DeviceMesh:
+    """The default group's ranks as a ``(data, model)`` mesh of shape
+    ``(world // model_axis, model_axis)``, rank-major (device type
+    ``"cuda"`` where a card is available: a label, since the mesh holds no
+    group of its own).
+
+    Args:
+        model_axis: ranks along ``model``; must divide the world size.
+
+    Raises:
+        RuntimeError: no default group is initialised.
+        ValueError: ``model_axis`` does not divide the world size.
+
+    Usage::
+
+        mesh = make_local_mesh()            # (world, 1)
+        mesh = make_local_mesh(2)           # (world // 2, 2)
+    """
+    if not dist.is_initialized():
+        raise RuntimeError("initialise the default group first "
+                           "(torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide the "
+                         f"world of {world} ranks")
+    return DeviceMesh("cuda" if torch.cuda.is_available() else "cpu",
+                      torch.arange(world).reshape(world // model_axis,
+                                                  model_axis),
+                      mesh_dim_names=("data", "model"), _init_backend=False)
+
+
+def init_group(rank: int, world: int, init_file: str,
+               backend: str = "gloo", timeout_s: float = 300.0) -> None:
+    """Join the default group of ``world`` ranks that meet at the
+    :class:`~torch.distributed.FileStore` ``init_file`` (no TCP port); a
+    collective that waits longer than ``timeout_s`` raises."""
+    dist.init_process_group(
+        backend, store=dist.FileStore(init_file, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def serve_main(rank: int, world: int, init_file: str, backend: str,
+               device: str, timeout_s: float) -> None:
+    """A worker process's body: join the group, serve rank 0's steps until
+    it stops them, leave the group."""
+    if device == "cpu":
+        torch.set_num_threads(1)
+    init_group(rank, world, init_file, backend, timeout_s)
+    try:
+        serve_ranks(make_local_mesh(), device)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, init_file: str, device, backend: str = "gloo",
+                timeout_s: float = 300.0, target=serve_main
+                ) -> List[multiprocessing.process.BaseProcess]:
+    """Start ranks ``1 .. world-1`` as worker processes (``spawn``, never
+    ``fork`` with CUDA live), each running ``target(rank, world, init_file,
+    backend, device, timeout_s)``; the caller joins the group as rank 0
+    with :func:`init_group`.  Workers counting on the host run with one
+    thread each (``OMP_NUM_THREADS=1``).
+
+    Usage::
+
+        procs = spawn_ranks(4, str(tmp / "group"), "cpu")
+        init_group(0, 4, str(tmp / "group"))
+        ...
+        stop_spawned(procs, "cpu")
+    """
+    device = str(resolve_device(device))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, daemon=True,
+                         args=(r, world, init_file, backend, device,
+                               timeout_s))
+             for r in range(1, world)]
+    prev = os.environ.get("OMP_NUM_THREADS")
+    if device == "cpu":
+        os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if device == "cpu":
+            if prev is None:
+                os.environ.pop("OMP_NUM_THREADS", None)
+            else:
+                os.environ["OMP_NUM_THREADS"] = prev
+    return procs
+
+
+def stop_spawned(procs, device, timeout_s: float = 60.0) -> List[int]:
+    """Stop the workers' loops, wait for them, leave the group (rank 0).
+
+    Returns:
+        The workers' exit codes.
+
+    Raises:
+        RuntimeError: a worker exited with another code than 0 or did not
+            exit within ``timeout_s`` (it is then killed).
+    """
+    try:
+        stop_ranks(device)
+    finally:
+        codes = []
+        for p in procs:
+            p.join(timeout_s)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout_s)
+            codes.append(p.exitcode)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if any(code != 0 for code in codes):
+        raise RuntimeError(f"worker exit codes {codes}")
+    return codes

@@ -132,3 +132,6 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+# archs allowed to run long_500k (sub-quadratic sequence mixing)
+SUBQUADRATIC = ("rwkv6-1.6b", "hymba-1.5b")

@@ -19,10 +19,13 @@ directly; a sharded deployment (:func:`~repro_torch.core.database
 per shard, every shard on the router's one device; a multi-tenant fleet
 (:class:`TenantRegistry`) puts many logical databases behind ONE shared
 executor + byte-budgeted cache store, with per-tenant admission control and
-cross-tenant fused dispatch.  Mesh sharding of one database over many
-devices is not part of the port yet.
+cross-tenant fused dispatch.  Mesh sharding of one database's counting
+over the ranks of a ``torch.distributed`` group is the executor
+``"sparse_sharded"`` (:mod:`repro_torch.core.distributed`); a router built
+with it runs one such executor per shard, all over the one group.
 """
 
+from ..core.executors import plan_stack_key
 from .batching import (TableMerger, execute_bucketed, execute_bucketed_multi,
                        execute_complete_bucketed)
 from .metrics import (BucketMetrics, RouterMetrics, ServiceMetrics,
@@ -39,5 +42,5 @@ __all__ = [
     "ServiceMetrics", "BucketMetrics", "RouterMetrics",
     "merge_stats_dicts", "TableMerger",
     "execute_bucketed", "execute_bucketed_multi",
-    "execute_complete_bucketed",
+    "execute_complete_bucketed", "plan_stack_key",
 ]

@@ -269,13 +269,13 @@ class CountingRouter:
     Args:
         sdb: the partitioned database (see
             :func:`~repro_torch.core.database.shard_database`).
-        executor: backend name (``"dense"`` / ``"sparse"``) — one executor
-            INSTANCE is built per shard, on ``device`` — or a ready
+        executor: backend name (``"dense"`` / ``"sparse"`` /
+            ``"sparse_sharded"``) — one executor INSTANCE is built per
+            shard, on ``device`` (the mesh-sharded ones all over the one
+            default group) — or a ready
             :class:`~repro_torch.core.executors.Executor` instance, which is
             then shared by every shard engine (and whose device the router
-            takes when ``device`` is not given).  ``"sparse_sharded"``
-            (the mesh-sharded executor) raises ``NotImplementedError``: it
-            belongs to mesh sharding, not ported yet (ROADMAP item 12).
+            takes when ``device`` is not given).
         max_batch_size / max_wait_s / max_in_flight / max_pending_bytes:
             per-shard service knobs, passed through to every
             :class:`~repro_torch.serve.service.CountingService`.
@@ -320,10 +320,6 @@ class CountingRouter:
                  tracer: Optional[NullTracer] = None,
                  tenant: str = DEFAULT_TENANT,
                  device=None):
-        if isinstance(executor, str) and executor.lower() == "sparse_sharded":
-            raise NotImplementedError(
-                "the mesh-sharded executor is not ported yet (ROADMAP item "
-                "12); use executor=\"sparse\" or \"dense\"")
         self.device = (executor.device if isinstance(executor, Executor)
                        and device is None else resolve_device(device))
         self.sdb = sdb

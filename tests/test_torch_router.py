@@ -501,8 +501,16 @@ def test_router_needs_a_card_unless_asked_for_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             CountingRouter(sdb, executor="sparse")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CountingRouter(sdb, executor="sparse_sharded", device=CPU)
+    # the mesh-sharded executor: one instance a shard (one rank here)
+    rs = CountingRouter(sdb, executor="sparse_sharded", device=CPU)
+    try:
+        assert {type(e.executor) for e in rs.engines} == \
+            {tc.ShardedSparseExecutor}
+        assert len({id(e.executor) for e in rs.engines}) == len(rs.engines)
+        p = tc.build_lattice(sdb.shards[0].schema, 1)[0]
+        assert_equal(rs.count(p), router(sdb).count(p))
+    finally:
+        rs.shutdown(timeout=60)
     r = router(sdb)
     assert {e.device.type for e in r.engines} == {"cpu"}
 

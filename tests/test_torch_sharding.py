@@ -33,6 +33,12 @@ from tests.test_torch_data import point_to_port, to_port
 
 CPU = "cpu"
 EXECUTORS = sorted(tc.EXECUTORS)
+# the JAX package's "sparse_sharded" stacks plans under vmap over a mesh of
+# every visible device and fails once a test in the process has made more
+# than one (its _reduce_by_code turns a traced code into numpy,
+# src/repro/core/distributed.py:393); the port's sharded executor is held
+# to the JAX single-device one in tests/test_torch_distributed.py
+JAX_EXECUTORS = ("dense", "sparse")
 
 
 def mixed_db(seed: int = 0):
@@ -309,7 +315,7 @@ def test_positive_batch_multi_equals_each_db_alone(ex):
     assert three == one
 
 
-@pytest.mark.parametrize("ex", EXECUTORS)
+@pytest.mark.parametrize("ex", JAX_EXECUTORS)
 def test_positive_batch_multi_equals_jax(ex):
     jdbs = [jax_mixed_db(s) for s in (0, 1)]
     tdbs = [to_port(d) for d in jdbs]
