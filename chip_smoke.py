@@ -314,6 +314,28 @@ Phases (any failure exits non-zero before the last line is printed):
               by rank are the ``mesh`` entries of K1-K4's kernels-line
               rows.
 
+17. train   — the LM's training path.  (a) K6 under autograd
+              (``ops.FlashAttention``) at Qwen2.5-3B's layer-0 shape
+              (``TRAIN_K6_SHAPE``), bf16 and float32: the forward against
+              its plain version, ``dq``, ``dk``, ``dv`` against autograd
+              through the plain version in float32 (``K6_GRAD_TOL``); the
+              forward, the backward and both timed (CUDA events and device
+              time) beside SDPA's forward plus backward and the bound of
+              the backward's work; (b) ``rms_norm``'s hand-written VJP
+              against autograd of the naive expression; (c) the reduced
+              qwen2.5-3b in float32, loss and every gradient on the card
+              against the CPU; (d) Qwen2.5-3B at full size (36 layers,
+              random weights from seed 0) trained ``TRAIN_STEPS`` AdamW
+              steps at batch 4 x 2,048 with ``microbatch=2`` through the
+              launcher (``repro_torch.launch.train``) on
+              ``SyntheticCorpus``: finite losses whose last three average
+              below the first, K6 launched ``2 x 36 x 2`` times a step (the
+              forward and each layer's remat), no plain attention; step
+              seconds, tokens/s and peak memory; the state saved and
+              restored bit for bit; one more step under ``torch.profiler``
+              (device busy share, top kernels, K6's share and the attention
+              backward's).  The ``training`` entry of K6's kernels-line row.
+
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -495,6 +517,25 @@ MESH_TIMEOUT_S = 300.0
 MESH_LAUNCH = dict(max_chain_length=2, max_parents=2)   # launch/discover.py
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-2
 EPS32 = 2.0 ** -24
+# Qwen2.5-3B training (phase 17) at full size, through the launcher: batch
+# 4 x 2,048 in 2 microbatches, ``TRAIN_STEPS`` AdamW steps at a learning
+# rate of 3e-4 (Qwen2.5's scale: the launcher's default 3e-3 is a small
+# model's); K6 under autograd at layer 0's shape (B, S, H, Hkv, hd).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCH = 4, 2048, 2
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_K6_SHAPE = (2, 2048, 16, 2, 128)
+# K6's gradients against autograd through its plain version in float32, as
+# a fraction of each gradient's largest magnitude: 1e-4 for float32
+# inputs; 2^-7 for bf16 (the probabilities that multiply v, and each
+# gradient, are rounded to bf16 once).  rms_norm's VJP against autograd of
+# the naive expression: 1e-5 in float32 (the JAX test's), 2^-7 in bf16.
+K6_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+RMS_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# Card against host on the reduced qwen2.5-3b in float32 (phase 17 (c)):
+# the CPU parity tests' float32 tolerances for the loss and the gradients.
+TRAIN_PARITY_LOSS_RTOL = 1e-5
+TRAIN_PARITY_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def log(msg: str) -> None:
@@ -3680,6 +3721,378 @@ def nemotron_phase(ops, smi: str) -> dict:
     return reading
 
 
+def sdpa_train_call(q, k, v, dout):
+    """SDPA's forward and backward on ``q, k, v`` for the output gradient
+    ``dout``, as a function of no arguments (the library yardstick of K6
+    under autograd; the port never calls it)."""
+    import torch.nn.functional as F
+    kw = dict(is_causal=True, enable_gqa=True)
+    try:
+        F.scaled_dot_product_attention(*(t[:1, :1].transpose(1, 2)
+                                         for t in (q, k, v)), **kw)
+    except TypeError:
+        rep = q.shape[2] // k.shape[2]
+        k, v = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+        kw = dict(is_causal=True)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    dt = dout.transpose(1, 2)
+
+    def call():
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+        return torch.autograd.grad(out, leaves, dt)
+    return call
+
+
+def k6_train_reading(ops, dtype) -> dict:
+    """17 (a): K6 under autograd at ``TRAIN_K6_SHAPE`` in ``dtype``."""
+    from repro_torch.kernels.attention import flash_attention_plain
+    b, s, h, hk, hd = TRAIN_K6_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(
+        dtype) for shape in ((b, s, h, hd), (b, s, hk, hd), (b, s, hk, hd),
+                             (b, s, h, hd)))
+    label = f"B={b} S={s} H={h} Hkv={hk} hd={hd} causal {dtype}"
+    fwd_err = check_k6(ops, q, k, v, f"training shape {label}")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ops.reset_counts()
+    out = ops.flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    counts = (ops.LAUNCHES["flash_attention"],
+              ops.BACKWARD_CALLS["flash_attention"],
+              ops.PLAIN_CALLS["flash_attention"])
+    if counts != (1, 1, 0):
+        fail(f"K6 under autograd: (launches, backwards, plain calls) "
+             f"{counts}, not (1, 1, 0)")
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ref, True), ref,
+                               dout.float())
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != dtype or g.shape != w.shape:
+            fail(f"K6 under autograd: {name} {g.dtype} {tuple(g.shape)}, "
+                 f"expected {dtype} {tuple(w.shape)}")
+        err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
+        errs[name] = err / scale
+        if not err <= K6_GRAD_TOL[dtype] * scale:
+            fail(f"K6 under autograd ({label}): {name} max abs error {err} "
+                 f"> {K6_GRAD_TOL[dtype]} x {scale}")
+    del got, ref, want
+    es, pairs = q.element_size(), b * h * s * (s + 1) / 2
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    fwd_bound, fwd_by = bound_ms(es * (2 * q.numel() + 2 * k.numel()),
+                                 4.0 * hd * pairs, rate)
+    # the backward reads q, k, v and dout and writes dq, dk, dv; it needs
+    # five products per causal pair (the scores again, dp, dv, dq, dk)
+    bwd_bound, bwd_by = bound_ms(es * (3 * q.numel() + 4 * k.numel()),
+                                 10.0 * hd * pairs, rate)
+    both_bound, both_by = bound_ms(es * (4 * q.numel() + 4 * k.numel()),
+                                   14.0 * hd * pairs, rate)
+
+    def fwd():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    def both():
+        return torch.autograd.grad(ops.flash_attention(*leaves), leaves, dout)
+
+    sdpa = sdpa_train_call(q, k, v, dout)
+    forward = timings(fwd, lambda: flash_attention_plain(q, k, v, True),
+                      sdpa_call(q, k, v), plain_reps=3)
+    reading = dict(
+        shape=label, max_abs_err=fwd_err, grad_rel_err=errs,
+        **{f"fwd_{key}": val for key, val in forward.items()},
+        fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+        bwd_ms=cuda_ms(bwd, reps=5), bwd_device_ms=device_ms(bwd, reps=3),
+        fwd_bwd_ms=cuda_ms(both, reps=5),
+        fwd_bwd_device_ms=device_ms(both, reps=3),
+        library_fwd_bwd_ms=cuda_ms(sdpa, reps=5),
+        library_fwd_bwd_device_ms=device_ms(sdpa, reps=5),
+        bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+        fwd_bwd_bound_ms=both_bound, fwd_bwd_bound_by=both_by)
+    log(f"train (a) K6 under autograd [{label}]: forward max_abs_err "
+        f"{fwd_err}; gradients' max abs error / max magnitude {errs} "
+        f"(tolerance {K6_GRAD_TOL[dtype]}); forward {reading['fwd_ms']:.4f} "
+        f"ms (device {reading['fwd_device_ms']}; plain "
+        f"{reading['fwd_plain_ms']:.4f}, device "
+        f"{reading['fwd_plain_device_ms']}; SDPA {reading['fwd_library_ms']:.4f}"
+        f", device {reading['fwd_library_device_ms']}; bound "
+        f"{fwd_bound:.4f} ms, {fwd_by}), backward "
+        f"{reading['bwd_ms']:.4f} ms (device {reading['bwd_device_ms']}, "
+        f"bound {bwd_bound:.4f} ms, {bwd_by}), both "
+        f"{reading['fwd_bwd_ms']:.4f} ms (device "
+        f"{reading['fwd_bwd_device_ms']}); SDPA forward + backward "
+        f"{reading['library_fwd_bwd_ms']:.4f} ms (device "
+        f"{reading['library_fwd_bwd_device_ms']}); bound of both "
+        f"{both_bound:.4f} ms ({both_by})")
+    return reading
+
+
+def rms_norm_reading() -> dict:
+    """17 (b): ``rms_norm``'s VJP against autograd of the naive expression
+    on ``[2, 2048, 2048]`` (Qwen2.5-3B's width), float32 and bf16; the
+    largest error over the largest magnitude of each gradient."""
+    from repro_torch.models.layers import rms_norm
+
+    def naive(x, w, eps=1e-6):
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        return ((x32 * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((2, 2048, 2048), generator=gen, device="cuda") * 3
+    w = torch.randn(2048, generator=gen, device="cuda") * 0.5 + 1.0
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = []
+        for fn in (rms_norm, naive):
+            xs = x.to(dtype).requires_grad_()
+            ws = w.clone().requires_grad_()
+            loss = torch.sin(fn(xs, ws).float()).sum()
+            grads.append(torch.autograd.grad(loss, (xs, ws)))
+        errs = {}
+        for name, g, ref in zip(("dx", "dscale"), *grads):
+            if g.dtype != ref.dtype:
+                fail(f"rms_norm VJP: {name} in {g.dtype}, not {ref.dtype}")
+            err = float((g.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            errs[name] = err / scale
+            if not err <= RMS_GRAD_TOL[dtype] * scale:
+                fail(f"rms_norm VJP ({dtype}): {name} max abs error {err} > "
+                     f"{RMS_GRAD_TOL[dtype]} x {scale}")
+        out[str(dtype).removeprefix("torch.")] = errs
+    log(f"train (b) rms_norm VJP against autograd of the naive expression "
+        f"(x [2, 2048, 2048]): max abs error / max magnitude {out} "
+        f"(tolerance {RMS_GRAD_TOL})")
+    return out
+
+
+def train_parity_reading(ops) -> dict:
+    """17 (c): the reduced qwen2.5-3b in float32 (random weights from seed
+    0 on the host, copied to the card), one batch of 4 x 64: the loss and
+    every gradient on the card against the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models.model import build_model
+    cfg = get_reduced(LM_ARCH).replace(dtype="float32",
+                                       param_dtype="float32")
+    host = build_model(cfg, device="cpu", trainable=True).init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, trainable=True)
+    card.load_state_dict(host.state_dict())
+    batch = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=4)).batch(0)
+    runs = {}
+    for dev, model in (("cpu", host), ("cuda", card)):
+        ops.reset_counts()
+        loss, _ = model.loss({k: torch.from_numpy(a).to(dev)
+                              for k, a in batch.items()})
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        runs[dev] = (float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)},
+                     (ops.LAUNCHES["flash_attention"],
+                      ops.PLAIN_CALLS["flash_attention"]))
+    (loss_h, grads_h, counts_h), (loss_c, grads_c, counts_c) = \
+        runs["cpu"], runs["cuda"]
+    n = 2 * cfg.n_layers
+    if counts_c != (n, 0) or counts_h != (0, n):
+        fail(f"train (c): K6 (launches, plain calls) {counts_c} on the card, "
+             f"{counts_h} on the host; expected ({n}, 0) and (0, {n})")
+    if abs(loss_c - loss_h) > TRAIN_PARITY_LOSS_RTOL * abs(loss_h):
+        fail(f"train (c): loss {loss_c} on the card, {loss_h} on the host")
+    worst = 0.0
+    for name, g in grads_h.items():
+        if not torch.allclose(grads_c[name], g, **TRAIN_PARITY_GRAD_TOL):
+            fail(f"train (c): gradient {name} differs card against host by "
+                 f"{float((grads_c[name] - g).abs().max())}")
+        worst = max(worst, float((grads_c[name] - g).abs().max()))
+    log(f"train (c) reduced {LM_ARCH} float32, card against CPU: loss "
+        f"{loss_c!r} / {loss_h!r}; {len(grads_h)} gradients within "
+        f"{TRAIN_PARITY_GRAD_TOL} (largest abs difference {worst}); K6 "
+        f"launches {counts_c[0]} (forward and remat)")
+    return dict(loss_card=loss_c, loss_host=loss_h, max_abs_diff=worst)
+
+
+def raw_step_reading(prof) -> dict:
+    """A profiled training step from the trace's raw events (turning a
+    step of this size into ``FunctionEvent``s takes about 20 s): device
+    busy seconds (every device event but the annotations), K6's seconds
+    (its kernels are ``flash_*``), the span on the device of the
+    ``flash_attention.backward`` ranges (``None`` where the trace holds no
+    device-side annotation of them) and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    by_name, span, annotated = {}, 0, False
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation():
+            if e.name() == "flash_attention.backward":
+                span += e.duration_ns()
+                annotated = True
+            continue
+        ns, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    if not by_name:
+        fail("train (d): the profiled step's trace holds no device event")
+    busy = sum(ns for ns, _ in by_name.values()) / 1e9
+    k6 = sum(ns for name, (ns, _) in by_name.items() if "flash_" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(busy_s=busy, k6_s=k6 / 1e9,
+                backward_span_s=span / 1e9 if annotated else None,
+                top=[(name, (ns / 1e6, n)) for name, (ns, n) in top])
+
+
+def state_leaves(tree, prefix: str = ""):
+    """``(name, tensor)`` of a train state (nested dicts of tensors)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from state_leaves(tree[key],
+                                    f"{prefix}.{key}" if prefix else key)
+    else:
+        yield prefix, tree
+
+
+def train_phase(ops, smi: str) -> dict:
+    """17. The LM's training path (module docstring); returns the
+    ``training`` entry of K6's kernels-line row."""
+    import gc
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.store import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import train as launcher
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: memory_allocated {torch.cuda.memory_allocated()} B at the "
+        f"start of the phase")
+    k6 = {str(dt).removeprefix("torch."): k6_train_reading(ops, dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    rms = rms_norm_reading()
+    parity = train_parity_reading(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: (a)-(c) {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) Qwen2.5-3B at full size through the launcher
+    cfg = get_config(LM_ARCH)
+    per_step = 2 * cfg.n_layers * TRAIN_MICROBATCH
+    argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatch",
+            str(TRAIN_MICROBATCH), "--lr", str(TRAIN_LR), "--seed", "0",
+            "--log-every", "1"]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    run = launcher.train(launcher.parse_args(argv))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = (ops.LAUNCHES["flash_attention"],
+              ops.BACKWARD_CALLS["flash_attention"],
+              ops.PLAIN_CALLS["flash_attention"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    steady = sorted(run.step_seconds[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in run.state["params"].values())
+    log(f"train (d) {LM_ARCH} at full size ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters, {cfg.param_dtype} weights, "
+        f"{cfg.opt_state_dtype} AdamW moments, remat {cfg.remat}): "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_MICROBATCH} microbatches, {wall:.2f} s in the launcher; "
+        f"losses {losses}; step seconds {run.step_seconds}; median after "
+        f"the first {step_s:.4f} s ({tokens / step_s:.1f} tokens/s); "
+        f"max_memory_allocated {peak} B; K6 (launches, backwards, plain "
+        f"calls) {counts}; on {smi}")
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        fail(f"train (d): losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"train (d): the last three losses average "
+             f"{np.mean(losses[-3:])}, not below the first {losses[0]}")
+    if counts != (TRAIN_STEPS * per_step, TRAIN_STEPS * per_step // 2, 0):
+        fail(f"train (d): K6 (launches, backwards, plain calls) {counts}, "
+             f"not ({TRAIN_STEPS * per_step}, {TRAIN_STEPS * per_step // 2},"
+             f" 0)")
+
+    # the state saved and restored bit for bit
+    tmp = tempfile.mkdtemp(prefix="train_phase_")
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, TRAIN_STEPS, run.state)
+        t_save = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        back = restore_checkpoint(tmp, TRAIN_STEPS, run.state)
+        sync()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_leaves = 0
+    for (name, a), (_, b) in zip(state_leaves(run.state),
+                                 state_leaves(back)):
+        n_leaves += 1
+        if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device \
+                or not torch.equal(a.reshape(-1).view(torch.uint8),
+                                   b.reshape(-1).view(torch.uint8)):
+            fail(f"train (d): restored {name} differs from the saved one")
+    del back
+    log(f"train (d) checkpoint ({time.perf_counter() - t_phase:.1f} s into "
+        f"the phase): {n_leaves} tensors, {size} B saved in "
+        f"{t_save:.2f} s, restored to the card in {t_restore:.2f} s, bit for "
+        f"bit")
+
+    # one more step under the profiler
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    batch = launcher.make_model_batch(cfg, corpus.batch(TRAIN_STEPS),
+                                      torch.device("cuda"))
+    sync()
+    ops.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = run.step_fn(run.state, batch)
+        loss = float(metrics["loss"])
+        sync()
+        wall_p = time.perf_counter() - t0
+    if ops.LAUNCHES["flash_attention"] != per_step or not np.isfinite(loss):
+        fail(f"train (d) profiled step: K6 launches "
+             f"{ops.LAUNCHES['flash_attention']}, loss {loss}")
+    t0 = time.perf_counter()
+    reading = raw_step_reading(prof)
+    log(f"train (d) profile read in {time.perf_counter() - t0:.1f} s")
+    busy, k6_s, bwd_s = (reading[k] for k in ("busy_s", "k6_s",
+                                              "backward_span_s"))
+    shares = dict(busy_s=busy, wall_s=wall_p, busy_share=busy / wall_p,
+                  k6_s=k6_s, k6_share=k6_s / busy, backward_span_s=bwd_s,
+                  backward_share=None if bwd_s is None else bwd_s / busy)
+    log(f"train (d) profiled step ({time.perf_counter() - t_phase:.1f} s "
+        f"into the phase): loss {loss:.4f}; {wall_p:.4f} s wall under the "
+        f"profiler, device busy {busy:.4f} s; K6 {k6_s:.4f} s, the "
+        f"attention backward's ranges span {bwd_s} s of the device's "
+        f"timeline: {shares}")
+    for name, (ms, n) in reading["top"]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    del state, metrics, run, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches_per_step=per_step,
+                backwards_per_step=per_step // 2, bf16=k6["bfloat16"],
+                float32=k6["float32"], rms_norm=rms, card_vs_host=parity,
+                losses=losses, step_s=step_s, tokens_per_s=tokens / step_s,
+                peak_bytes=peak, checkpoint_bytes=size, save_s=t_save,
+                restore_s=t_restore, profiled_step=shares)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -4008,6 +4421,9 @@ def main() -> None:
                 launches=sum(r[key] for r in mesh["launches"]["b2"]),
                 by_step={step: [r[key] for r in by_rank]
                          for step, by_rank in mesh["launches"].items()})
+
+    # -- 17. the LM's training path ----------------------------------------
+    k6_row["training"] = train_phase(ops, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -21,6 +21,12 @@ takes.  The plain
 version below computes the same function in float32 chunks of query rows,
 so a ``[B, H, Sq, Skv]`` score matrix is never held whole;
 :mod:`repro_torch.kernels.ops` routes between it and the kernels.
+
+The backward (:func:`flash_attention_backward`) has no kernel: no Pallas
+kernel of the JAX package has one, and the reference's gradient is XLA's
+autodiff of ``block_attention``'s query blocks, each rematerialised under
+``jax.checkpoint``.  It recomputes the scores one chunk of query rows at a
+time in float32 (the same memory profile) with plain matrix products.
 """
 
 from __future__ import annotations
@@ -78,6 +84,56 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, s0:s0 + c] = (o.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd)
                              .to(q.dtype))
     return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, chunk: int = PLAIN_CHUNK):
+    """Gradients ``(dq, dk, dv)`` of the attention above at ``q, k, v`` for
+    the output gradient ``dout`` (``q``'s shape), each in its input's dtype.
+
+    One chunk of query rows at a time, in float32: the scores and the
+    normalised probabilities ``p`` are recomputed, the probabilities that
+    multiply ``v`` are rounded to ``v``'s dtype as in the forward
+    (``dv = round(p)^T dout``), ``dp = dout v^T``, ``ds = p (dp -
+    rowsum(p dp))``, ``dq = ds k hd^-0.5``, ``dk = ds^T q hd^-0.5``; ``dk``
+    and ``dv`` are summed over each KV head's group of query heads, and
+    accumulate over the chunks in float32.  The ``[B, H, Sq, Skv]`` matrix
+    is never held whole."""
+    b, sq, h, hd = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = hd ** -0.5
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b, hk, skv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]            # [B,Hkv,1,S,hd]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    k_pos = torch.arange(skv, device=q.device)
+
+    def rows(t, s0, c):                                        # [B,Hkv,G,c,hd]
+        return (t[:, s0:s0 + c].float().reshape(b, c, hk, g, hd)
+                .permute(0, 2, 3, 1, 4))
+
+    for s0 in range(0, sq, chunk):
+        c = min(chunk, sq - s0)
+        qc, doc = rows(q, s0, c), rows(dout, s0, c)
+        logits = torch.matmul(qc, kf.transpose(-1, -2)) * scale
+        if causal:
+            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            logits.masked_fill_(q_pos[:, None] < k_pos[None, :], -1e30)
+        p = torch.softmax(logits, dim=-1)                      # [B,Hkv,G,c,S]
+        del logits
+        dv += torch.einsum("bhgcs,bhgcd->bhsd", p.to(v.dtype).float(), doc)
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        del p, dp
+        dq[:, s0:s0 + c] = ((torch.matmul(ds, kf) * scale)
+                            .permute(0, 3, 1, 2, 4).reshape(b, c, h, hd)
+                            .to(q.dtype))
+        dk += torch.einsum("bhgcs,bhgcd->bhsd", ds, qc) * scale
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

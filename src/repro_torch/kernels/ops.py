@@ -7,7 +7,8 @@ contiguity and raises on anything the kernel does not take.
 
 ``LAUNCHES[name]`` counts kernel launches and ``PLAIN_CALLS[name]`` counts
 calls served by the plain version, so a run can show which path it went
-through.  A call with no work (no edges, an empty batch) returns its
+through; ``BACKWARD_CALLS["flash_attention"]`` counts attention backwards
+(plain PyTorch on either device: there is no backward kernel).  A call with no work (no edges, an empty batch) returns its
 (zero) result without either.  The counting service's dispatcher and every
 searcher thread call the wrappers at once, so each count moves under one
 lock (:func:`_bump`).
@@ -25,7 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .attention import flash_attention_cuda, flash_attention_plain
+from .attention import (flash_attention_backward, flash_attention_cuda,
+                        flash_attention_plain)
 from .bdeu import MAX_R, bdeu_cuda, bdeu_plain
 from .mobius import mobius_cuda, mobius_plain
 from .segsum import (REGIMES, card_of, ones_plan, rows_plan,
@@ -40,6 +42,8 @@ PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 ROW_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
 #: Launches of K1 by regime.
 ONES_REGIMES: Dict[str, int] = {regime: 0 for regime in REGIMES}
+#: Attention backwards (:class:`FlashAttention`).
+BACKWARD_CALLS: Dict[str, int] = {"flash_attention": 0}
 
 _COUNT_LOCK = threading.Lock()
 
@@ -57,6 +61,7 @@ def reset_counts() -> None:
         for regime in REGIMES:
             ROW_REGIMES[regime] = 0
             ONES_REGIMES[regime] = 0
+        BACKWARD_CALLS["flash_attention"] = 0
 
 
 def _bump(counts: Dict[str, int], key: str,
@@ -209,12 +214,43 @@ def segment_hist(codes: torch.Tensor, values: torch.Tensor,
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """K6 under autograd: the forward is :func:`_flash_forward` (K6 on the
+    card, its plain version on the host) and saves ``q, k, v``; the
+    backward recomputes the scores chunk by chunk in float32
+    (:func:`.attention.flash_attention_backward`), as the JAX package's
+    gradient rematerialises each query block of ``block_attention``."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        _bump(BACKWARD_CALLS, "flash_attention")
+        # a named range, so that a profile can add up the backward's kernels
+        with torch.profiler.record_function("flash_attention.backward"):
+            grads = flash_attention_backward(q, k, v, dout, ctx.causal)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Attention forward of ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv,
-    hd]`` with ``Hkv | H`` (query head ``h`` reads KV head ``h // (H //
-    Hkv)``) -> ``[B, Sq, H, hd]`` in ``q``'s dtype; see
-    :mod:`.attention`."""
+    """Attention of ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv, hd]``
+    with ``Hkv | H`` (query head ``h`` reads KV head ``h // (H // Hkv)``)
+    -> ``[B, Sq, H, hd]`` in ``q``'s dtype; see :mod:`.attention`.
+    Differentiable (:class:`FlashAttention`)."""
+    return FlashAttention.apply(q, k, v, causal)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """The attention forward: K6 for tensors on the card, its plain version
+    for tensors on the CPU."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: expected q [B, Sq, H, hd] and "
                          f"k, v [B, Skv, Hkv, hd]; got {tuple(q.shape)}, "

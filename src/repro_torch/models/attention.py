@@ -1,11 +1,14 @@
 """GQA attention: projections and partial-softmax decode; the JAX
 package's ``repro.models.attention`` on one device.
 
-* The prefill's attention over a whole sequence is the flash kernel
-  (:func:`repro_torch.kernels.ops.flash_attention`, K6 on the card), in
-  place of the JAX package's ``block_attention``; its plain version,
-  chunked over query rows with GQA by grouping, is
-  :func:`repro_torch.kernels.attention.flash_attention_plain`.
+* The attention over a whole sequence (training's forward and the
+  prefill) is the flash kernel (:func:`repro_torch.kernels.ops
+  .flash_attention`, K6 on the card, differentiable), in place of the JAX
+  package's ``block_attention``; its plain version, chunked over query
+  rows with GQA by grouping, is
+  :func:`repro_torch.kernels.attention.flash_attention_plain`, and its
+  backward recomputes the scores chunk by chunk, as ``block_attention``'s
+  rematerialised query blocks do.
 * Decode computes partial softmax statistics (max, sum-exp, unnormalised
   output) and combines them.  Combining across a sequence-sharded cache
   (``axis_name``) and the sequence-parallel ``sharded_attention`` wait for
@@ -26,19 +29,20 @@ from .layers import apply_rope, dense_init, parameter
 class AttnParams(nn.Module):
     """``wq [D, Hq*hd]``, ``wk``/``wv [D, Hkv*hd]``, ``wo [Hq*hd, D]`` and,
     with ``qkv_bias``, ``bq``/``bk``/``bv`` (uninitialised until
-    :meth:`init_`)."""
+    :meth:`init_`); trainable weights take gradients."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device):
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 trainable: bool = False):
         super().__init__()
         d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         dt = cfg.p_dtype()
-        self.wq = parameter((d, hq * hd), dt, device)
-        self.wk = parameter((d, hk * hd), dt, device)
-        self.wv = parameter((d, hk * hd), dt, device)
-        self.wo = parameter((hq * hd, d), dt, device)
+        self.wq = parameter((d, hq * hd), dt, device, trainable)
+        self.wk = parameter((d, hk * hd), dt, device, trainable)
+        self.wv = parameter((d, hk * hd), dt, device, trainable)
+        self.wo = parameter((hq * hd, d), dt, device, trainable)
         for name, width in (("bq", hq * hd), ("bk", hk * hd),
                             ("bv", hk * hd)):
-            setattr(self, name, parameter((width,), dt, device)
+            setattr(self, name, parameter((width,), dt, device, trainable)
                     if cfg.qkv_bias else None)
 
     @torch.no_grad()

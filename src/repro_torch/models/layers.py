@@ -1,13 +1,13 @@
 """Primitive layers: norms, projections, embeddings, RoPE.
 
-The JAX package's ``repro.models.layers`` for the serving path.  Weights
-keep the JAX layout: a projection is ``[d_in, d_out]`` and is applied as
-``x @ w`` (not ``nn.Linear``'s ``[d_out, d_in]``), so weights carry across
-unchanged.  ``*_init`` functions draw from an explicit ``torch.Generator``
-on the device the weights live on; apply functions are plain functions on
-tensors.  The serving path needs no gradient, so ``rms_norm`` is the
-forward only (its hand-written backward waits for the training slice), and
-M-RoPE and the sinusoidal table wait for the models that use them.
+The JAX package's ``repro.models.layers`` for the serving and training
+paths.  Weights keep the JAX layout: a projection is ``[d_in, d_out]`` and
+is applied as ``x @ w`` (not ``nn.Linear``'s ``[d_out, d_in]``), so
+weights carry across unchanged.  ``*_init`` functions draw from an explicit
+``torch.Generator`` on the device the weights live on; apply functions are
+plain functions on tensors.  ``rms_norm`` has the JAX package's
+hand-written backward (:class:`RmsNorm`).  M-RoPE and the sinusoidal table
+wait for the models that use them.
 """
 
 from __future__ import annotations
@@ -19,10 +19,11 @@ from torch import nn
 
 
 def parameter(shape: Sequence[int], dtype: torch.dtype,
-              device: torch.device) -> nn.Parameter:
-    """An uninitialised weight that takes no gradient (serving only)."""
+              device: torch.device, trainable: bool = False) -> nn.Parameter:
+    """An uninitialised weight; it takes a gradient only if ``trainable``
+    (training), not for serving."""
     return nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -41,12 +42,38 @@ def embed_init(generator: torch.Generator, vocab: int, d_model: int,
     return dense_init(generator, vocab, d_model, dtype, scale=d_model ** -0.5)
 
 
+class RmsNorm(torch.autograd.Function):
+    """RMSNorm with the JAX package's hand-written VJP (``_rms_fwd``,
+    ``_rms_bwd``): the forward saves only ``x`` (its own dtype), ``scale``
+    and ``r = rsqrt(mean(x^2) + eps)`` (float32, one per row), and the
+    backward gives ``dx`` in ``x``'s dtype from one expression and
+    ``dscale`` summed in float32 over every leading axis, in ``scale``'s
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        x32 = x.float()
+        r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, r)
+        return ((x32 * r) * scale.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, scale, r = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        gw = g32 * scale.float()
+        mean_gx = (gw * x32).mean(dim=-1, keepdim=True)
+        dx = (gw * r - x32 * (r * r * r) * mean_gx).to(x.dtype)
+        dscale = (g32 * x32 * r).reshape(-1, x.shape[-1]).sum(dim=0).to(
+            scale.dtype)
+        return dx, dscale, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32, returned in ``x``'s dtype."""
-    x32 = x.float()
-    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
-    return ((x32 * r) * scale.float()).to(x.dtype)
+    """RMSNorm in float32, returned in ``x``'s dtype (:class:`RmsNorm`)."""
+    return RmsNorm.apply(x, scale, eps)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

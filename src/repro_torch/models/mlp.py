@@ -15,16 +15,17 @@ from .layers import dense_init, parameter
 
 class MlpParams(nn.Module):
     """``wi [D, F]``, ``wo [F, D]`` and, for SwiGLU, the gate ``wg [D, F]``
-    (uninitialised until :meth:`init_`)."""
+    (uninitialised until :meth:`init_`); trainable weights take
+    gradients."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 d_ff: Optional[int] = None):
+                 d_ff: Optional[int] = None, trainable: bool = False):
         super().__init__()
         d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.p_dtype()
-        self.wi = parameter((d, f), dt, device)
-        self.wo = parameter((f, d), dt, device)
-        self.wg = parameter((d, f), dt, device) if cfg.mlp == "swiglu" \
-            else None
+        self.wi = parameter((d, f), dt, device, trainable)
+        self.wo = parameter((f, d), dt, device, trainable)
+        self.wg = parameter((d, f), dt, device, trainable) \
+            if cfg.mlp == "swiglu" else None
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "MlpParams":

@@ -1,5 +1,6 @@
-"""The decoder LM for serving: ``forward``, ``prefill`` and ``decode_step``;
-the JAX package's ``repro.models.model.LM`` on one device.
+"""The decoder LM: ``loss`` for training, ``forward``, ``prefill`` and
+``decode_step`` for serving; the JAX package's ``repro.models.model.LM`` on
+one device.
 
     lm = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
     logits = lm.forward({"tokens": tokens})                  # [B, S, V]
@@ -7,12 +8,19 @@ the JAX package's ``repro.models.model.LM`` on one device.
     last, cache = lm.prefill({"tokens": prompts}, cache)     # [B, V]
     logits, cache = lm.decode_step(cache, {"token": tok, "pos": s})
 
+    lm = build_model(cfg, trainable=True).init(generator)
+    total, metrics = lm.loss({"tokens": tokens, "labels": labels})
+
 The module holds its weights (``embed``, ``blocks.{i}.*``, ``final_norm``;
 :func:`repro_torch.models.convert.params_from_jax` maps the JAX package's
-parameters onto them).  Layers run one after another in a Python loop; the
-prefill's attention is the flash kernel, one launch per layer on the card.
-Each entry point runs without autograd.  Training (``loss``) and the
-encoder-decoder wait for later slices (ROADMAP item 14).
+parameters onto them); they take gradients only in a model built
+``trainable``.  Layers run one after another in a Python loop; the
+attention over a sequence is the flash kernel, one launch per layer on the
+card.  ``loss`` runs under autograd, each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` (as the JAX package wraps
+its layer in ``jax.checkpoint``), so the backward runs each layer's
+forward, K6 included, once more.  The serving entry points run without
+autograd.  The encoder-decoder waits for a later slice (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -22,12 +30,16 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..core.device import resolve_device
 from .config import ModelConfig
 from .layers import (embed_init, embed_lookup, parameter, rms_norm,
                      tied_logits)
 from .transformer import (Block, block_apply, block_attend, block_decode,
                           check_supported, init_cache)
+
+AUX_COEF = 0.01
 
 
 def _positions_for(cfg: ModelConfig, batch: Dict[str, Any], seq: int
@@ -47,17 +59,22 @@ class LM(nn.Module):
         device: ``None`` (the CUDA card) or a device; the weights are
             allocated there, uninitialised until :meth:`init` or
             ``load_state_dict``.
+        trainable: the weights take gradients (training); serving's do
+            not.
     """
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = parameter((cfg.vocab, cfg.d_model), cfg.p_dtype(), dev)
-        self.blocks = nn.ModuleList(Block(cfg, dev)
+        self.embed = parameter((cfg.vocab, cfg.d_model), cfg.p_dtype(), dev,
+                               trainable)
+        self.blocks = nn.ModuleList(Block(cfg, dev, trainable)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = parameter((cfg.d_model,), torch.float32, dev)
+        self.final_norm = parameter((cfg.d_model,), torch.float32, dev,
+                                    trainable)
 
     @property
     def device(self) -> torch.device:
@@ -83,17 +100,46 @@ class LM(nn.Module):
         return embed_lookup(self.embed, batch["tokens"]).to(
             self.cfg.act_dtype())
 
+    def _logits(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Logits ``[B, S, V]``; under autograd with ``cfg.remat``, each
+        layer runs under ``checkpoint``, which keeps only its input."""
+        cfg = self.cfg
+        x = self._embed_in(batch)
+        positions = _positions_for(cfg, batch, x.shape[1])
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            if remat:
+                x = checkpoint(block_apply, blk, x, cfg, positions,
+                               use_reentrant=False)
+            else:
+                x = block_apply(blk, x, cfg, positions)
+        x = rms_norm(x, self.final_norm)
+        return tied_logits(self.embed, x, fp32=cfg.logits_fp32)
+
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Logits ``[B, S, V]`` of ``batch["tokens"]`` ``[B, S]`` (the JAX
         package also returns MoE's auxiliary loss)."""
-        cfg = self.cfg
-        x = self._embed_in(batch)
-        positions = _positions_for(cfg, batch, x.shape[1])
-        for blk in self.blocks:
-            x = block_apply(blk, x, cfg, positions)
-        x = rms_norm(x, self.final_norm)
-        return tied_logits(self.embed, x, fp32=cfg.logits_fp32)
+        return self._logits(batch)
+
+    # ---------------------------------------------------------------- loss
+    def loss(self, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(total, {"ce", "aux", "ppl_proxy"})`` for ``batch["tokens"]``
+        and ``batch["labels"]`` ``[B, S]``: the mean negative
+        log-likelihood of the labels under a float32 log-softmax of the
+        logits, plus ``AUX_COEF * aux`` (0: dense blocks make no auxiliary
+        loss); ``ppl_proxy = exp(min(ce, 20))``.  ``total`` carries the
+        graph; the metrics are detached."""
+        logits = self._logits(batch)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -lp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        ce = nll.mean()
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        total = ce + AUX_COEF * aux
+        ce = ce.detach()
+        return total, {"ce": ce, "aux": aux,
+                       "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
     # ------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -151,8 +197,10 @@ class LM(nn.Module):
         return init_cache(self.cfg, batch, seq, self.device)
 
 
-def build_model(cfg: ModelConfig, device=None) -> LM:
+def build_model(cfg: ModelConfig, device=None,
+                trainable: bool = False) -> LM:
     """The model for ``cfg`` on ``device`` (``None``: the CUDA card), with
-    uninitialised weights.  Raises ``NotImplementedError`` for the blocks,
-    RoPE variants and model kinds the port does not build yet."""
-    return LM(cfg, device)
+    uninitialised weights, trainable or not (:class:`LM`).  Raises
+    ``NotImplementedError`` for the blocks, RoPE variants and model kinds
+    the port does not build yet."""
+    return LM(cfg, device, trainable)

@@ -1,14 +1,15 @@
-"""Decoder blocks for the serving path: full-sequence apply (prefill),
-one-token decode against a preallocated KV cache, and the cache itself;
-the JAX package's ``repro.models.transformer`` for ``block == "attn"`` on
-one device.
+"""Decoder blocks: full-sequence apply (training's forward and the
+prefill), one-token decode against a preallocated KV cache, and the cache
+itself; the JAX package's ``repro.models.transformer`` for ``block ==
+"attn"`` on one device.
 
 The full-sequence attention is :func:`repro_torch.kernels.ops
-.flash_attention` (K6 on the card, its plain version on the host).  The
-decode step writes the new token's key and value into the cache in place,
-at ``pos``, instead of returning an updated copy.  MoE, RWKV and Hymba
-blocks, the sequence-sharded decode and the encoder-decoder blocks wait
-for later slices (ROADMAP item 14).
+.flash_attention` (K6 on the card, its plain version on the host), under
+autograd where the weights are trainable.  The decode step writes the new
+token's key and value into the cache in place, at ``pos``, instead of
+returning an updated copy.  MoE, RWKV and Hymba blocks, the
+sequence-sharded decode and the encoder-decoder blocks wait for later
+slices (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -44,15 +45,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """One attention + MLP block: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """One attention + MLP block: ``norm1``, ``attn``, ``norm2``, ``mlp``
+    (trainable weights take gradients)."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device):
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 trainable: bool = False):
         super().__init__()
         check_supported(cfg)
-        self.norm1 = parameter((cfg.d_model,), torch.float32, device)
-        self.norm2 = parameter((cfg.d_model,), torch.float32, device)
-        self.attn = AttnParams(cfg, device)
-        self.mlp = MlpParams(cfg, device)
+        self.norm1 = parameter((cfg.d_model,), torch.float32, device,
+                               trainable)
+        self.norm2 = parameter((cfg.d_model,), torch.float32, device,
+                               trainable)
+        self.attn = AttnParams(cfg, device, trainable)
+        self.mlp = MlpParams(cfg, device, trainable=trainable)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Block":
@@ -84,8 +89,9 @@ def block_attend(p: Block, x: torch.Tensor, cfg: ModelConfig,
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 positions: Optional[torch.Tensor],
                 causal: bool = True) -> torch.Tensor:
-    """Full-sequence block (prefill / forward).  The JAX package also
-    returns an auxiliary loss, which only MoE blocks make."""
+    """Full-sequence block (training's forward and ``LM.forward``).  The
+    JAX package also returns an auxiliary loss, which only MoE blocks
+    make."""
     return block_attend(p, x, cfg, positions, causal)[0]
 
 
