@@ -335,6 +335,42 @@ Phases (any failure exits non-zero before the last line is printed):
               restored bit for bit; one more step under ``torch.profiler``
               (device busy share, top kernels, K6's share and the attention
               backward's).  The ``training`` entry of K6's kernels-line row.
+18. train-mesh — multi-rank training and the sequence-sharded decode
+              (``repro_torch.train.sharding``), ranks spawned on the card
+              sharing it under gloo (every collective through pinned host
+              buffers).  (a) K6 with ``q_offset`` against its plain
+              version on every route (``MESH_K6_ROUTES``: hd 128 wgmma;
+              64, 192, 256 mma.sync; 160 CUDA cores; 1,024 sliced; float32
+              at 160 and 1,024), offsets 0, one query tile and a
+              non-multiple of it, bf16 within ``K6_BF16_TOL`` and float32
+              within ``K6_F32_TOL``; timed at ``MESH_K6_SHAPE`` beside SDPA
+              with an explicit mask and the bound.  Then, once (b)-(d)
+              have run, K6 against its plain version at every shape the
+              ranks of (b)-(d) gave it (each rank records the shapes,
+              dtypes and offsets of its launches; its local heads in (c)
+              and (d), each rank's query rows and real offset on (b)'s
+              sequence route).  (b) Float32 parity: the
+              reduced qwen2.5-3b, 3 AdamW steps over 4 ranks on (2, 2) and
+              2 ranks on (1, 2) against one rank in this process (losses
+              within ``MESH_LOSS_RTOL``, parameters within
+              ``MESH_PARAM_ATOL``), one step of a 3-head variant on (1, 2)
+              (the sequence-parallel route: K6 with ``q_offset`` under
+              autograd), and the (2, 2) state saved and restored on (1, 2)
+              bit for bit.  (c) Qwen2.5-3B at full width and depth over 2
+              ranks on (1, 2) through the launcher: phase 17's batch, 3
+              steps, the first loss within ``MESH_FIRST_LOSS_RTOL`` of
+              phase 17's; step seconds, tokens/s, each rank's peak memory,
+              bytes staged and collective seconds a step, K6 launched 144
+              times a step on each rank (8 local heads); one more step
+              profiled on rank 0.  (d) Qwen2.5-3B prefill and
+              ``MESH_DECODE_NEW`` decode steps with the cache's sequence
+              axis over ``model``: logits against one rank's within
+              ``LM_DECODE_TOL`` of the largest, decode step times; and
+              the reduced qwen2.5-3b in float32 (``MESH_DECODE_F32``)
+              against one rank within ``MESH_DECODE_F32_TOL``, the CPU
+              test's tolerance, which a wrong combine of the ranks'
+              partials exceeds where bf16's does not.  The
+              ``mesh_training`` entry of K6's kernels-line row.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -536,6 +572,43 @@ RMS_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 # the CPU parity tests' float32 tolerances for the loss and the gradients.
 TRAIN_PARITY_LOSS_RTOL = 1e-5
 TRAIN_PARITY_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# Multi-rank training (phase 18), ranks sharing the card under gloo.
+# (a) K6 with a query offset: per route (head dim, dtype) the query-row
+# tile that offsets step over (the Hopper kernel's 128 rows, mma.sync's 64,
+# the CUDA-core kernels' 16), offsets 0, one tile and a non-multiple of
+# it, at Sq = MESH_K6_SQ rows over Skv = offset + Sq keys (the last
+# shard of a sequence) and offset + 2 Sq (an earlier one); and timed at
+# MESH_K6_SHAPE, rank 1's shard of a 2,048-token sequence split over 2
+# (B, Sq, Skv, H, Hkv, hd, q_offset), bf16, causal.
+MESH_K6_ROUTES = ((torch.bfloat16, 128, 128), (torch.bfloat16, 64, 64),
+                  (torch.bfloat16, 192, 64), (torch.bfloat16, 256, 64),
+                  (torch.bfloat16, 160, 16), (torch.bfloat16, 1024, 16),
+                  (torch.float32, 160, 16), (torch.float32, 1024, 16))
+MESH_K6_SQ = 300
+MESH_K6_SHAPE = (2, 1024, 2048, 16, 2, 128, 1024)
+# (b) float32 parity: the reduced qwen2.5-3b, 3 AdamW steps (eps 1e-6, 2
+# microbatches) of 4 x 64 tokens on meshes (1, 2) and (2, 2), one step of
+# a 3-query-head variant on (1, 2) (3 % 2 != 0: the sequence-parallel
+# route, K6 with q_offset under autograd), against one rank in this
+# process; the (2, 2) state saved and restored on (1, 2).
+MESH_PARITY_SEQ, MESH_PARITY_BATCH, MESH_PARITY_SEED = 64, 4, 2
+MESH_PARITY_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3, eps=1e-6)
+MESH_SP_VARIANT = dict(n_heads=3, n_kv_heads=1)
+MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-6, 1e-5
+# (c) Qwen2.5-3B at full width and depth over MESH_TRAIN_RANKS ranks on
+# mesh (1, MESH_TRAIN_RANKS), phase 17's batch and learning rate,
+# MESH_TRAIN_STEPS steps; its first loss within MESH_FIRST_LOSS_RTOL of
+# phase 17's (bf16: the ranks sum partial products in another order).
+MESH_TRAIN_RANKS, MESH_TRAIN_STEPS = 2, 3
+MESH_FIRST_LOSS_RTOL = 2e-2
+# (d) the sequence-sharded decode at full width: MESH_DECODE_BATCH prompts
+# of MESH_DECODE_PROMPT tokens, then MESH_DECODE_NEW decode steps
+# (teacher-forced), the cache's sequence axis over the model axis.
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW = 2, 512, 16
+# and the reduced qwen2.5-3b in float32: (batch, prompt, new tokens), held
+# to one rank at tests/test_torch_train_mesh.py's logits tolerance
+MESH_DECODE_F32 = (2, 64, 16)
+MESH_DECODE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(msg: str) -> None:
@@ -4093,6 +4166,668 @@ def train_phase(ops, smi: str) -> dict:
                 restore_s=t_restore, profiled_step=shares)
 
 
+def k6_offset_pairs(sq: int, skv: int, q_offset: int) -> int:
+    """The (query, key) pairs a causal attention with a query offset
+    keeps: row i keeps keys 0 .. min(Skv - 1, q_offset + i)."""
+    return sum(min(skv, q_offset + i + 1) for i in range(sq))
+
+
+def sdpa_offset_call(q, k, v, q_offset: int):
+    """SDPA with an explicit mask (key j <= q_offset + i) on ``q, k, v``,
+    as a function of no arguments (the yardstick; the port never calls
+    it)."""
+    import torch.nn.functional as F
+    sq, skv = q.shape[1], k.shape[1]
+    mask = (torch.arange(skv, device=q.device)[None, :]
+            <= q_offset + torch.arange(sq, device=q.device)[:, None])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kt, vt = (t.repeat_interleave(q.shape[2] // k.shape[2], dim=1)
+              for t in (kt, vt))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def k6_offset_reading(ops) -> dict:
+    """18 (a): K6 with ``q_offset`` against its plain version on every
+    route (``MESH_K6_ROUTES``), then timed at ``MESH_K6_SHAPE``."""
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    by_route, n = {}, 0
+    ops.reset_counts()
+    for dtype, hd, tile in MESH_K6_ROUTES:
+        route = flash_attention_route(dtype, hd)
+        key = route if dtype == torch.bfloat16 else f"{route} float32"
+        tol = K6_BF16_TOL if dtype == torch.bfloat16 else K6_F32_TOL
+        for off in (0, tile, 3 * tile // 2 + 5):
+            for skv in (off + MESH_K6_SQ, off + 2 * MESH_K6_SQ):
+                q = torch.randn((2, MESH_K6_SQ, 16, hd), generator=gen,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn((2, skv, 2, hd), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                got = ops.flash_attention(q, k, v, True, q_offset=off)
+                want = flash_attention_plain(q, k, v, True, q_offset=off)
+                err = float((got.float() - want.float()).abs().max())
+                n += 1
+                label = (f"Sq={MESH_K6_SQ} Skv={skv} q_offset={off} hd={hd} "
+                         f"{str(dtype)[6:]}")
+                if not torch.allclose(got.float(), want.float(), **tol):
+                    fail(f"K6 with q_offset ({label}, {route}) outside {tol} "
+                         f"of its plain version (max_abs_err {err})")
+                by_route[key] = max(by_route.get(key, 0.0), err)
+                log(f"k6 q_offset {label}: {route}, max_abs_err {err}")
+    sync()
+    if ops.LAUNCHES["flash_attention"] != n or \
+            ops.PLAIN_CALLS["flash_attention"]:
+        fail(f"k6 q_offset: {ops.LAUNCHES['flash_attention']} launches and "
+             f"{ops.PLAIN_CALLS['flash_attention']} plain calls for {n} "
+             f"shapes")
+    b, sq, skv, h, hk, hd, off = MESH_K6_SHAPE
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, skv, hk, hd), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    got = ops.flash_attention(q, k, v, True, q_offset=off)
+    err = float((got.float() - flash_attention_plain(
+        q, k, v, True, q_offset=off).float()).abs().max())
+    flops = 4.0 * b * h * hd * k6_offset_pairs(sq, skv, off)
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    reading = dict(
+        shape=(f"B={b} Sq={sq} Skv={skv} H={h} Hkv={hk} hd={hd} "
+               f"q_offset={off} causal bf16"),
+        max_abs_err=err, max_abs_err_by_route=by_route, shapes=n,
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.flash_attention(q, k, v, True, q_offset=off),
+                  lambda: flash_attention_plain(q, k, v, True,
+                                                q_offset=off),
+                  sdpa_offset_call(q, k, v, off), plain_reps=3))
+    log(f"K6 q_offset: {n} shapes within tolerance, largest max_abs_err by "
+        f"route {by_route}; at {reading['shape']}: {reading['ms']:.4f} ms / "
+        f"device {reading['device_ms']} ms; SDPA (explicit mask) "
+        f"{reading['library_ms']:.4f} / {reading['library_device_ms']} ms; "
+        f"plain {reading['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+        f"max_abs_err {err}")
+    return reading
+
+
+def k6_record_launches(ops) -> set:
+    """Record the signature ``(q shape, k shape, dtype, causal, q_offset)``
+    of every K6 launch in this process from here on (a rank of phase 18);
+    returns the set it fills.  The launch counts are untouched."""
+    seen = set()
+    launch = ops.flash_attention_cuda
+
+    def recorded(q, k, v, causal, q_offset=0):
+        seen.add((tuple(q.shape), tuple(k.shape), str(q.dtype)[6:],
+                  bool(causal), int(q_offset)))
+        return launch(q, k, v, causal, q_offset)
+    ops.flash_attention_cuda = recorded
+    return seen
+
+
+def k6_path_reading(ops, signatures) -> dict:
+    """18 (a), second part: K6 against its plain version at each signature
+    the ranks of (b)-(d) launched it with (:func:`k6_record_launches`), on
+    random inputs; bf16 within ``K6_BF16_TOL``, float32 within
+    ``K6_F32_TOL``."""
+    from repro_torch.kernels.attention import flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    errs = {}
+    for qs, ks, dt, causal, off in sorted(signatures):
+        dtype = getattr(torch, dt)
+        tol = K6_BF16_TOL if dtype == torch.bfloat16 else K6_F32_TOL
+        q = torch.randn(qs, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(ks, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        got = ops.flash_attention(q, k, v, causal, q_offset=off)
+        want = flash_attention_plain(q, k, v, causal, q_offset=off)
+        err = float((got.float() - want.float()).abs().max())
+        label = (f"q {qs} k {ks} {dt} causal={causal} q_offset={off}")
+        if not torch.allclose(got.float(), want.float(), **tol):
+            fail(f"K6 at a shape of the main path ({label}) outside {tol} of "
+                 f"its plain version (max_abs_err {err})")
+        errs[label] = err
+        log(f"k6 at a main-path shape, {label}: max_abs_err {err}")
+    if not errs:
+        fail("k6: the ranks of phase 18 recorded no launch")
+    return errs
+
+
+def mesh_parity_config(variant: dict, microbatch: int):
+    from repro_torch.configs import get_reduced
+    return get_reduced(LM_ARCH).replace(dtype="float32",
+                                        param_dtype="float32",
+                                        microbatch=microbatch, **variant)
+
+
+def mesh_parity_run(mesh, variant: dict, steps: int, microbatch: int,
+                    device: str = "cuda"):
+    """18 (b): ``steps`` AdamW steps of the reduced float32 model from
+    generator seed 0 on ``device`` (over ``mesh``, or one rank); the
+    losses, the whole parameters on the host and the train state."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train.sharding import shard_batch, unshard
+    cfg = mesh_parity_config(variant, microbatch)
+    model = build_model(cfg, device, trainable=True)
+    opt = adamw.make_optimizer(adamw.OptConfig(**MESH_PARITY_OPT))
+    state = tstep.init_train_state(model, opt, torch.Generator(
+        device=device).manual_seed(0), mesh)
+    fn = tstep.make_train_step(model, opt)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=MESH_PARITY_SEQ,
+        global_batch=MESH_PARITY_BATCH, seed=MESH_PARITY_SEED))
+    losses = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in corpus.batch(i).items()}
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        state, metrics = fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    params = {n: (p.detach() if mesh is None else
+                  unshard(p.detach(), p.spec, mesh)).cpu()
+              for n, p in state["params"].items()}
+    return losses, params, state
+
+
+def mesh_rank_parity(rank, world, work, mesh, opts) -> dict:
+    """18 (b) on a rank: the 3 steps (saved from (2, 2); the 4-rank
+    checkpoint restored on (1, 2)), and the sequence-parallel variant."""
+    import os
+    from repro_torch.checkpoint.store import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention_route
+    from repro_torch.train.sharding import unshard
+    from repro_torch.train.step import state_specs
+    out = {}
+    device = opts["device"]
+    losses, params, state = mesh_parity_run(mesh, {}, 3, 2, device)
+    out["losses"], out["params"] = losses, params
+    specs = state_specs(state, state["params"])
+    ckpt = os.path.join(work, "ckpt4")
+    if world == 4:
+        save_checkpoint(ckpt, 3, state, mesh=mesh, specs=specs)
+    else:
+        back = restore_checkpoint(ckpt, 3, state, device, mesh, specs)
+        from repro_torch.checkpoint.store import _paths
+        out["restored"] = {path: unshard(leaf, specs.get(path), mesh).cpu()
+                           for path, leaf in _paths(back)}
+        tp = mesh.shape["model"]
+        route = attention_route(MESH_SP_VARIANT["n_heads"], MESH_PARITY_SEQ,
+                                tp)
+        ops.reset_counts()
+        sp_losses, sp_params, _ = mesh_parity_run(mesh, MESH_SP_VARIANT, 1,
+                                                  1, device)
+        out["sp"] = dict(route=route, losses=sp_losses, params=sp_params,
+                         launches=ops.LAUNCHES["flash_attention"],
+                         plain=ops.PLAIN_CALLS["flash_attention"])
+    del state
+    return out
+
+
+def mesh_train_argv(world: int) -> list:
+    """18 (c)'s launcher command line: phase 17's run over ``world``
+    ranks."""
+    return ["--arch", LM_ARCH, "--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatch",
+            str(TRAIN_MICROBATCH), "--lr", str(TRAIN_LR), "--seed", "0",
+            "--log-every", "1", "--model-axis", str(world)]
+
+
+def mesh_rank_train(rank, world, work, mesh, opts) -> dict:
+    """18 (c) on a rank: Qwen2.5-3B at full size through the launcher."""
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.parallel import collectives
+    argv = opts["train_argv"]
+    gc.collect()
+    on_card = opts["device"] == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    collectives.reset_staged()
+    sync_on(opts["device"])
+    t0 = time.perf_counter()
+    run = launcher.train(launcher.parse_args(argv))
+    sync_on(opts["device"])
+    wall = time.perf_counter() - t0
+    out = dict(losses=run.losses, step_seconds=run.step_seconds, wall_s=wall,
+               peak_bytes=torch.cuda.max_memory_allocated() if on_card
+               else None,
+               staged=dict(collectives.STAGED),
+               k6=(ops.LAUNCHES["flash_attention"],
+                   ops.BACKWARD_CALLS["flash_attention"],
+                   ops.PLAIN_CALLS["flash_attention"]),
+               local_params=sum(p.numel() for p in
+                                run.state["params"].values()))
+    if on_card:
+        out["profiled"] = mesh_profiled_step(rank, run, argv)
+    del run
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_profiled_step(rank: int, run, argv) -> dict:
+    """One more step of (c)'s run, under ``torch.profiler`` on rank 0
+    (device busy seconds, K6's, the top kernels) and with every rank's
+    collective seconds counted."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import train as launcher
+    from repro_torch.parallel import collectives
+    args = launcher.parse_args(argv)
+    cfg = get_config(args.arch).replace(microbatch=args.microbatch)
+    batch = launcher.make_model_batch(cfg, SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed)).batch(args.steps), torch.device("cuda"))
+    collectives.reset_staged()
+    sync()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if rank == 0 else None
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    _, metrics = run.step_fn(run.state, batch)
+    loss = float(metrics["loss"])
+    sync()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    out = dict(wall_s=wall, loss=loss, staged=dict(collectives.STAGED))
+    if prof is not None:
+        reading = raw_step_reading(prof)
+        out.update(busy_s=reading["busy_s"], k6_s=reading["k6_s"],
+                   top=reading["top"][:8])
+    return out
+
+
+def sync_on(device: str) -> None:
+    if device == "cuda":
+        sync()
+
+
+def mesh_decode_run(mesh, opts) -> dict:
+    """18 (d): Qwen2.5-3B at full size (generator seed 0) on the card:
+    the prefill's last logits and each teacher-forced decode step's, on
+    the host, and each decode step's seconds; over ``mesh`` the cache's
+    sequence axis is split over ``model``.  ``opts["full"]`` false: the
+    reduced config; ``opts["float32"]``: weights and activations in
+    float32."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train import step as tstep
+    from repro_torch.train.sharding import param_shardings, shard_batch
+    device = opts["device"]
+    b, p, new = opts["decode"]
+    cfg = (get_config if opts["full"] else get_reduced)(LM_ARCH)
+    if opts.get("float32"):
+        cfg = cfg.replace(dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device).init(
+        torch.Generator(device=device).manual_seed(0))
+    if mesh is not None:
+        model.shard_(mesh, param_shardings(dict(model.named_parameters()),
+                                           mesh))
+    toks = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab, (b, p + new), dtype=np.int64)).to(device)
+    if mesh is not None:
+        toks = shard_batch({"tokens": toks}, mesh)["tokens"]
+    cache = model.init_cache(b, p + new)
+    ops.reset_counts()
+    sync_on(device)
+    t0 = time.perf_counter()
+    last, cache = tstep.make_prefill_step(model)({"tokens": toks[:, :p]},
+                                                 cache)
+    sync_on(device)
+    prefill_s = time.perf_counter() - t0
+    launches = (ops.LAUNCHES["flash_attention"]
+                + ops.PLAIN_CALLS["flash_attention"])
+    step = tstep.make_decode_step(model, mesh)
+    logits, seconds = [last.float().cpu()], []
+    for pos in range(p, p + new):
+        t0 = time.perf_counter()
+        out, cache = step(cache, {"token": toks[:, pos:pos + 1],
+                                  "pos": pos})
+        sync_on(device)
+        seconds.append(time.perf_counter() - t0)
+        logits.append(out.float().cpu())
+    out = dict(logits=torch.stack(logits, 1), prefill_s=prefill_s,
+               step_seconds=seconds, k6_prefill=launches,
+               plain_prefill=ops.PLAIN_CALLS["flash_attention"],
+               cache_shape=tuple(cache["k"].shape))
+    del model, cache
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_decode_f32_opts(opts: dict) -> dict:
+    """(d)'s float32 run: the reduced config at ``MESH_DECODE_F32``."""
+    return dict(opts, full=False, float32=True, decode=MESH_DECODE_F32)
+
+
+def mesh_rank_decode(rank, world, work, mesh, opts) -> dict:
+    out = mesh_decode_run(mesh, opts)
+    out["float32"] = mesh_decode_run(mesh, mesh_decode_f32_opts(opts))
+    return out
+
+
+MESH_RANK_STEPS = {"parity": mesh_rank_parity, "train": mesh_rank_train,
+                   "decode": mesh_rank_decode}
+
+
+def mesh_train_rank(rank: int, world: int, work: str, steps,
+                    opts: dict) -> None:
+    """A rank of phase 18 (spawned on the card): join the gloo group at
+    ``work``'s ``FileStore``, make the mesh ``(world // 2, 2)``, run
+    ``steps`` (names in ``MESH_RANK_STEPS``) with ``opts`` (``device``;
+    ``full``: the full-size config; ``train_argv``, ``decode``) and write
+    its results (rank 0's with its tensors) to ``work``; a failure writes
+    its traceback."""
+    import os
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from repro_torch.kernels import build
+        from repro_torch.launch.mesh import init_group, make_train_mesh
+        from repro_torch.kernels import ops
+        seen = set()
+        if opts["device"] == "cuda":
+            build.load()
+            torch.cuda.set_device(0)
+            seen = k6_record_launches(ops)
+        else:
+            torch.set_num_threads(1)
+        init_group(rank, world, os.path.join(work, f"group{world}"), "gloo",
+                   MESH_TIMEOUT_S)
+        try:
+            mesh = make_train_mesh(2, opts["device"])
+            out = {}
+            for name in steps:
+                out[name] = MESH_RANK_STEPS[name](rank, world, work, mesh,
+                                                  opts)
+        finally:
+            dist.destroy_process_group()
+        if rank:                       # the tensors are every rank's alike
+            out = {k: {f: v[f] for f in ("peak_bytes", "staged", "k6",
+                                         "losses", "step_seconds",
+                                         "profiled") if f in v}
+                   for k, v in out.items()}
+        out["k6_shapes"] = sorted(seen)
+        with open(os.path.join(work, f"rank{world}_{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(work, f"error{world}_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_mesh_ranks(world: int, work: str, steps, opts: dict) -> list:
+    """Spawn ``world`` ranks of :func:`mesh_train_rank` on the card, wait
+    for them, and return each rank's results; any failure fails the run."""
+    import multiprocessing
+    import os
+    import pickle
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_train_rank,
+                         args=(r, world, work, tuple(steps), opts))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + 3 * MESH_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = [Path(work) / f"error{world}_{r}.txt" for r in range(world)]
+    msgs = [e.read_text() for e in errors if e.exists()]
+    if msgs or any(p.exitcode != 0 for p in procs):
+        fail(f"mesh train: {world} ranks exited {[p.exitcode for p in procs]}"
+             f"\n" + "\n".join(msgs)[-6000:])
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{world}_{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def same_params(label: str, got: dict, want: dict, atol: float) -> float:
+    """The largest difference between two dicts of whole parameters; fail
+    above ``atol``."""
+    if set(got) != set(want):
+        fail(f"{label}: parameter names differ")
+    worst = max(float((got[n].float() - want[n].float()).abs().max())
+                for n in want)
+    if worst > atol:
+        fail(f"{label}: parameters differ by {worst} > {atol}")
+    return worst
+
+
+def mesh_train_phase(ops, smi: str, first_loss_17: float,
+                     opts: dict = None) -> dict:
+    """18. Multi-rank training and the sequence-sharded decode (module
+    docstring); returns the ``mesh_training`` entry of K6's kernels-line
+    row.  ``opts`` (the ranks' options, :func:`mesh_train_rank`) defaults
+    to the card at full size; a rehearsal on the host passes its own and
+    skips (a)."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.store import _paths, restore_checkpoint
+    t_phase = time.perf_counter()
+    opts = opts or dict(device="cuda", full=True,
+                        train_argv=mesh_train_argv(MESH_TRAIN_RANKS),
+                        decode=(MESH_DECODE_BATCH, MESH_DECODE_PROMPT,
+                                MESH_DECODE_NEW))
+    device = opts["device"]
+    gc.collect()
+    k6 = None
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        k6 = k6_offset_reading(ops)
+    log(f"mesh train (a): {time.perf_counter() - t_phase:.1f} s")
+
+    work = tempfile.mkdtemp(prefix="mesh_train_")
+    try:
+        # (b) float32 parity: one rank here, then 4 ranks on (2, 2) (which
+        # save their state), then 2 ranks on (1, 2)
+        one_losses, one_params, _ = mesh_parity_run(None, {}, 3, 2, device)
+        sp_losses, sp_params, _ = mesh_parity_run(None, MESH_SP_VARIANT, 1, 1,
+                                                  device)
+        # (d)'s single-rank decode, before the ranks take the card
+        one_decode = mesh_decode_run(None, opts)
+        one_decode_f32 = mesh_decode_run(None, mesh_decode_f32_opts(opts))
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        four = run_mesh_ranks(4, work, ("parity",), opts)
+        wall4 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = run_mesh_ranks(MESH_TRAIN_RANKS, work,
+                             ("parity", "train", "decode"), opts)
+        wall2 = time.perf_counter() - t0
+        back = restore_checkpoint(Path(work) / "ckpt4", 3, {
+            "params": one_params, "opt": {
+                "m": one_params, "v": one_params,
+                "step": torch.zeros((), dtype=torch.int32)}}, "cpu")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if device == "cuda":                  # (a) at the main path's shapes
+        k6["main_path_shapes"] = k6_path_reading(ops, set().union(
+            *(map(tuple, r["k6_shapes"]) for r in four + two)))
+    parity = {}
+    for label, res in (("(1, 2)", two[0]["parity"]),
+                       ("(2, 2)", four[0]["parity"])):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                        one_losses))
+        if rel > MESH_LOSS_RTOL:
+            fail(f"mesh train (b) {label}: losses {res['losses']} against one "
+                 f"rank's {one_losses} (relative {rel})")
+        worst = same_params(f"mesh train (b) {label}", res["params"],
+                            one_params, MESH_PARAM_ATOL)
+        parity[label] = dict(losses=res["losses"], loss_rel=rel,
+                             param_max_diff=worst)
+        log(f"mesh train (b) {label} float32, 3 steps: losses {res['losses']} "
+            f"(one rank {one_losses}; largest relative difference {rel:.3e}); "
+            f"parameters within {worst:.3e} of one rank's")
+    sp = two[0]["parity"]["sp"]
+    rel = abs(sp["losses"][0] - sp_losses[0]) / abs(sp_losses[0])
+    worst = same_params("mesh train (b) sequence-parallel", sp["params"],
+                        sp_params, MESH_PARAM_ATOL)
+    ran = (sp["launches"] > 0 and not sp["plain"] if device == "cuda"
+           else sp["plain"] > 0)          # the plain version on the host
+    if sp["route"] != "sequence" or rel > MESH_LOSS_RTOL or not ran:
+        fail(f"mesh train (b) sequence-parallel: {sp['route']} route, loss "
+             f"{sp['losses']} against {sp_losses}, K6 launches "
+             f"{sp['launches']}, plain calls {sp['plain']}")
+    parity["sequence-parallel"] = dict(loss_rel=rel, param_max_diff=worst,
+                                       k6_launches=sp["launches"])
+    log(f"mesh train (b) {MESH_SP_VARIANT} on (1, 2), the sequence route: "
+        f"loss {sp['losses'][0]} (one rank {sp_losses[0]}), parameters "
+        f"within {worst:.3e}; K6 with q_offset launched {sp['launches']} "
+        f"times on rank 0")
+    restored = two[0]["parity"]["restored"]
+    n_bits = 0
+    for path, leaf in _paths(back):
+        if not torch.equal(restored[path].reshape(-1).view(torch.uint8),
+                           leaf.reshape(-1).view(torch.uint8)):
+            fail(f"mesh train (b): {path} restored on (1, 2) differs from "
+                 f"the (2, 2) checkpoint")
+        n_bits += 1
+    for name, p in four[0]["parity"]["params"].items():
+        if not torch.equal(p, back["params"][name]):
+            fail(f"mesh train (b): the (2, 2) checkpoint's {name} is not "
+                 f"what the 4 ranks trained")
+    log(f"mesh train (b): the (2, 2) checkpoint ({n_bits} tensors) restored "
+        f"on (1, 2) bit for bit; 4 ranks {wall4:.1f} s, 2 ranks (b)-(d) "
+        f"{wall2:.1f} s")
+
+    # (c) Qwen2.5-3B at full size over the ranks
+    train = [r["train"] for r in two]
+    losses = train[0]["losses"]
+    n_layers = 36 if opts["full"] else 2
+    per_step = 2 * n_layers * TRAIN_MICROBATCH
+    want_k6 = (MESH_TRAIN_STEPS * per_step, MESH_TRAIN_STEPS * per_step // 2,
+               0)
+    if device != "cuda":                   # the plain version on the host
+        want_k6 = (0, want_k6[1], want_k6[0])
+    for r, t in enumerate(train):
+        if tuple(t["k6"]) != want_k6 or t["losses"] != losses:
+            fail(f"mesh train (c) rank {r}: K6 (launches, backwards, plain) "
+                 f"{t['k6']}, not {want_k6}, or losses {t['losses']} unlike "
+                 f"rank 0's {losses}")
+    if not all(np.isfinite(losses)) or abs(losses[0] - first_loss_17) > \
+            MESH_FIRST_LOSS_RTOL * abs(first_loss_17):
+        fail(f"mesh train (c): losses {losses}; the first not within "
+             f"{MESH_FIRST_LOSS_RTOL} of phase 17's {first_loss_17}")
+    steady = sorted(train[0]["step_seconds"][1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    staged = [t["staged"] for t in train]
+    peaks = [t["peak_bytes"] for t in train]
+    log(f"mesh train (c) {LM_ARCH} at full size over {MESH_TRAIN_RANKS} ranks "
+        f"(mesh (1, {MESH_TRAIN_RANKS}), gloo, sharing the card): "
+        f"{MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICROBATCH} microbatches; losses {losses} (phase 17's first "
+        f"{first_loss_17}: {abs(losses[0] - first_loss_17):.5f} apart); step "
+        f"seconds {train[0]['step_seconds']}, median after the first "
+        f"{step_s:.4f} s ({tokens / step_s:.1f} tokens/s); peak memory by "
+        f"rank {peaks} B (sum {sum(p or 0 for p in peaks)}); gloo staging by rank "
+        f"{staged} ({staged[0]['to_host'] / MESH_TRAIN_STEPS:.0f} B to the "
+        f"host a step on rank 0); K6 (launches, backwards, plain) a rank "
+        f"{want_k6}; local parameters {train[0]['local_params']}; on {smi}")
+    prof = [t.get("profiled") for t in train]
+    if prof[0] is not None:
+        p0 = prof[0]
+        log(f"mesh train (c) one more step, profiled on rank 0: {p0['wall_s']:.4f} "
+            f"s wall (loss {p0['loss']:.4f}); rank 0's device busy "
+            f"{p0['busy_s']:.4f} s, K6 {p0['k6_s']:.4f} s; host seconds in "
+            f"collectives (staging included) by rank "
+            f"{[p['staged']['seconds'] for p in prof]} over "
+            f"{[p['staged']['calls'] for p in prof]} calls; in (c)'s "
+            f"{MESH_TRAIN_STEPS} steps {[t['staged']['seconds'] for t in train]}"
+            f" s")
+        for name, (ms, n) in p0["top"]:
+            log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+
+    # (d) the sequence-sharded decode against one rank's
+    dec = two[0]["decode"]
+    got, want = dec["logits"], one_decode["logits"]
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not torch.isfinite(got).all() or diff > LM_DECODE_TOL * scale:
+        fail(f"mesh train (d): logits differ from one rank's by {diff} > "
+             f"{LM_DECODE_TOL} x {scale}")
+    if dec["k6_prefill"] != n_layers or (device == "cuda"
+                                         and dec["plain_prefill"]):
+        fail(f"mesh train (d): K6 ran {dec['k6_prefill']} times in the "
+             f"prefill ({dec['plain_prefill']} plain), not {n_layers}")
+    f32, one_f32 = dec["float32"], one_decode_f32
+    diff32 = float((f32["logits"] - one_f32["logits"]).abs().max())
+    if not torch.allclose(f32["logits"], one_f32["logits"],
+                          **MESH_DECODE_F32_TOL):
+        fail(f"mesh train (d) float32: logits differ from one rank's by "
+             f"{diff32}, outside {MESH_DECODE_F32_TOL}")
+    n_reduced = mesh_parity_config({}, 1).n_layers
+    if f32["k6_prefill"] != n_reduced or (device == "cuda"
+                                          and f32["plain_prefill"]):
+        fail(f"mesh train (d) float32: K6 ran {f32['k6_prefill']} times in "
+             f"the prefill ({f32['plain_prefill']} plain), not {n_reduced}")
+    log(f"mesh train (d) float32, reduced {LM_ARCH} ({MESH_DECODE_F32[0]} x "
+        f"{MESH_DECODE_F32[1]} prompt, {MESH_DECODE_F32[2]} steps, cache "
+        f"{f32['cache_shape']} a rank): logits within {diff32:.3e} of one "
+        f"rank's (tolerance {MESH_DECODE_F32_TOL})")
+    d_steps = sorted(dec["step_seconds"])
+    one_steps = sorted(one_decode["step_seconds"])
+    log(f"mesh train (d) sequence-sharded decode ({MESH_DECODE_BATCH} x "
+        f"{MESH_DECODE_PROMPT} prompt, {MESH_DECODE_NEW} steps, cache "
+        f"{dec['cache_shape']} a rank): logits within {diff:.5f} of one "
+        f"rank's (max |logit| {scale:.4f}, {diff / scale:.5f}, tolerance "
+        f"{LM_DECODE_TOL}); argmax agreement {agree:.3f}; prefill "
+        f"{dec['prefill_s']:.3f} s (one rank {one_decode['prefill_s']:.3f}); "
+        f"decode step median {d_steps[len(d_steps) // 2] * 1e3:.2f} ms (one "
+        f"rank {one_steps[len(one_steps) // 2] * 1e3:.2f} ms); on {smi}")
+    log(f"mesh train phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        q_offset=k6, parity=parity,
+        train=dict(ranks=MESH_TRAIN_RANKS, losses=losses, step_s=step_s,
+                   tokens_per_s=tokens / step_s,
+                   step_seconds=train[0]["step_seconds"], peak_bytes=peaks,
+                   staged_bytes_per_step=[
+                       (st["to_host"] + st["to_card"]) / MESH_TRAIN_STEPS
+                       for st in staged],
+                   collectives_per_step=[st["calls"] / MESH_TRAIN_STEPS
+                                         for st in staged],
+                   collective_s_per_step=[st["seconds"] / MESH_TRAIN_STEPS
+                                          for st in staged],
+                   profiled_step={k: v for k, v in (prof[0] or {}).items()
+                                  if k != "top"},
+                   launches_per_rank_step=per_step),
+        decode=dict(max_abs_diff=diff, max_abs_logit=scale,
+                    float32_max_abs_diff=diff32,
+                    argmax_agreement=agree, step_s=d_steps[len(d_steps) // 2],
+                    one_rank_step_s=one_steps[len(one_steps) // 2],
+                    prefill_s=dec["prefill_s"],
+                    one_rank_prefill_s=one_decode["prefill_s"]))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -4424,6 +5159,12 @@ def main() -> None:
 
     # -- 17. the LM's training path ----------------------------------------
     k6_row["training"] = train_phase(ops, smi)
+
+    # -- 18. multi-rank training and the sequence-sharded decode -----------
+    k6_row["mesh_training"] = mesh_train_phase(
+        ops, smi, k6_row["training"]["losses"][0])
+    by_route = k6_row["mesh_training"]["q_offset"]["max_abs_err_by_route"]
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"], *by_route.values())
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -17,6 +17,13 @@ port's own copy of ``repro.checkpoint.store``.
   saving or restoring holds two leaves in host memory, not the state.
 
 Either package restores the other's checkpoints of the same structure.
+
+Over a training mesh (``mesh`` and ``specs``, ``{path: spec}`` as
+:func:`repro_torch.train.step.state_specs` gives them) the format stays
+the JAX package's, global arrays in ``host0.npz``: saving gathers one
+leaf at a time over the mesh (every rank calls it) and rank 0 writes it;
+restoring reads each global leaf and cuts this rank's shard, on any mesh,
+also one other than the mesh that saved it (an elastic reshard).
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import local_shape, shard, unshard
 
 
 def _is_namedtuple(t: Any) -> bool:
@@ -142,21 +151,46 @@ def _read_member(path: Path, info: zipfile.ZipInfo) -> np.ndarray:
     return arr
 
 
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` has come here (a sum over each axis's
+    group in turn)."""
+    token = torch.zeros((), device=mesh.device)
+    for axis in mesh.axis_names:
+        if mesh.shape[axis] > 1:
+            all_reduce(token, mesh.group(axis))
+
+
 def save_checkpoint(ckpt_dir: str | Path, step: int, tree,
-                    keep_last: int = 3, host_id: int = 0) -> Path:
+                    keep_last: int = 3, host_id: int = 0, mesh=None,
+                    specs: Optional[Dict[str, Any]] = None) -> Path:
     """Write ``tree`` as checkpoint ``step`` under ``ckpt_dir``; returns its
-    directory."""
+    directory.  Over ``mesh`` the leaves are shards laid out by ``specs``
+    (path -> spec; a missing path is replicated): every rank calls this,
+    each leaf is gathered whole and rank 0 writes it; the call returns on
+    every rank once the checkpoint is committed."""
     ckpt_dir = Path(ckpt_dir)
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
     final = ckpt_dir / f"step_{step:08d}"
+    paths = _paths(tree)
+    host = lambda kv: _to_numpy(kv[1])                      # noqa: E731
+    if mesh is not None:
+        def whole(kv):
+            key, leaf = kv
+            if not torch.is_tensor(leaf):
+                return leaf
+            return unshard(leaf, (specs or {}).get(key), mesh)
+        if mesh.rank != 0:
+            for kv in paths:                   # rank 0's gathers, in order
+                whole(kv)
+            _barrier(mesh)
+            return final
+        host = lambda kv: _to_numpy(whole(kv))              # noqa: E731
     tmp.mkdir(parents=True, exist_ok=True)
 
     manifest = {"step": step, "time": time.time(), "arrays": {}}
-    paths = _paths(tree)
     with zipfile.ZipFile(tmp / f"host{host_id}.npz", "w",
                          zipfile.ZIP_STORED, allowZip64=True) as zf:
-        for (key, _), (arr, dtype) in zip(paths, _prefetched(
-                lambda kv: _to_numpy(kv[1]), paths)):
+        for (key, _), (arr, dtype) in zip(paths, _prefetched(host, paths)):
             blob = key.replace("/", "_")
             manifest["arrays"][key] = {"shape": list(arr.shape),
                                        "dtype": dtype, "blob": blob,
@@ -175,6 +209,8 @@ def save_checkpoint(ckpt_dir: str | Path, step: int, tree,
                    if not p.name.endswith(".tmp"))
     for s in steps[:-keep_last]:
         shutil.rmtree(ckpt_dir / f"step_{s:08d}", ignore_errors=True)
+    if mesh is not None:
+        _barrier(mesh)
     return final
 
 
@@ -194,23 +230,30 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str | Path, step: int, like,
-                       device=None):
+                       device=None, mesh=None,
+                       specs: Optional[Dict[str, Any]] = None):
     """Checkpoint ``step`` in the structure of ``like`` (whose leaves may be
     tensors, arrays or anything else: only the structure is read), as new
     tensors on ``device`` (``None``: the CUDA card), each of the stored
-    dtype and shape.  Raises ``KeyError`` for a leaf the checkpoint lacks
-    and ``ValueError`` where a stored shape differs from ``like``'s."""
+    dtype and shape.  Over ``mesh`` each leaf is this rank's shard of the
+    stored array as ``specs`` lays it out (``like``'s leaves are shards
+    too).  Raises ``KeyError`` for a leaf the checkpoint lacks and
+    ``ValueError`` where a stored shape differs from ``like``'s."""
     dev = resolve_device(device)
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     paths = _paths(like)
+    specs = specs or {}
     infos = []
     for key, like_leaf in paths:
         info = manifest["arrays"].get(key)
         if info is None:
             raise KeyError(f"checkpoint missing {key}")
-        want = tuple(getattr(like_leaf, "shape", info["shape"]))
-        if tuple(info["shape"]) != want:
+        stored = tuple(info["shape"])
+        if mesh is not None:
+            stored = local_shape(stored, specs.get(key), mesh)
+        want = tuple(getattr(like_leaf, "shape", stored))
+        if stored != want:
             raise ValueError(f"{key}: stored {tuple(info['shape'])}, like "
                              f"{want}")
         infos.append(info)
@@ -228,5 +271,7 @@ def restore_checkpoint(ckpt_dir: str | Path, step: int, like,
         t = torch.from_numpy(arr.view(np.int16) if info.get("bf16") else arr)
         if info.get("bf16"):
             t = t.view(torch.bfloat16)
+        if mesh is not None:
+            t = shard(t, specs.get(key), mesh).contiguous()
         leaves[key] = t.to(dev)
     return _rebuild(like, leaves)

@@ -76,6 +76,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops
 from ..obs.profile import annotate
+from ..parallel.collectives import buffer, stage_device, staged
 from .contract import CostStats
 from .ct import CtTable
 from .database import RelationalDB
@@ -221,32 +222,6 @@ _STEPS = {_ONES: _step_ones, _ROWS: _step_rows, _KR: _step_kr,
 # the protocol: rank 0 drives, every other rank serves
 # ---------------------------------------------------------------------------
 
-def _stage_device(device: torch.device) -> torch.device:
-    """Where a rank's collectives read and write: its card under NCCL, the
-    host under any other backend (gloo takes no CUDA tensor for
-    ``scatter`` or ``reduce``)."""
-    return device if dist.get_backend() == "nccl" else torch.device("cpu")
-
-
-def _staged(t: torch.Tensor, stage: torch.device) -> torch.Tensor:
-    """``t`` contiguous on ``stage``: a pinned host copy of a card tensor."""
-    if t.device == stage:
-        return t.contiguous()
-    out = torch.empty(tuple(t.shape), dtype=t.dtype, device=stage,
-                      pin_memory=stage.type == "cpu" and t.is_cuda)
-    out.copy_(t)
-    return out
-
-
-def _buffer(shape, dtype, stage: torch.device,
-            device: torch.device) -> torch.Tensor:
-    """A receive buffer on ``stage`` (pinned when the rank counts on a
-    card and stages on the host)."""
-    return torch.empty(shape, dtype=dtype, device=stage,
-                       pin_memory=stage.type == "cpu"
-                       and device.type == "cuda")
-
-
 def _header(op: int, params: Sequence[int],
             inputs: Sequence[torch.Tensor]) -> List[int]:
     h = [op, len(params), *map(int, params), len(inputs)]
@@ -292,20 +267,20 @@ def _run(op: int, params: Sequence[int],
     if dist.get_rank() != 0:
         raise RuntimeError("sharded steps are driven from rank 0; the other "
                            "ranks serve them (serve_ranks)")
-    stage = _stage_device(device)
+    stage = stage_device(device)
     i0 = next(i for i, x in enumerate(per_rank) if x is not None)
     first = per_rank[i0]
     copies: Dict[int, torch.Tensor] = {}    # one staged copy a tensor: the
     for x in per_rank:                       # ranks of a column block share
         for t in x or ():
             if id(t) not in copies:
-                copies[id(t)] = _staged(t, stage)
+                copies[id(t)] = staged(t, stage)
     zeros = [torch.zeros_like(copies[id(t)]) for t in first]
-    staged = [[copies[id(t)] for t in x] if x is not None else zeros
-              for x in per_rank]
+    ins = [[copies[id(t)] for t in x] if x is not None else zeros
+           for x in per_rank]
     header = torch.tensor(_header(op, params, first), dtype=torch.int64,
                           device=stage)
-    n_in = sum(t.numel() * t.element_size() for x in staged for t in x)
+    n_in = sum(t.numel() * t.element_size() for x in ins for t in x)
     with _GROUP_LOCK:
         if not dist.is_initialized():      # destroyed while this one waited
             raise RuntimeError("a failed sharded step destroyed the group")
@@ -313,10 +288,10 @@ def _run(op: int, params: Sequence[int],
             dist.broadcast(header, 0)
             mine = []
             for i, t in enumerate(first):
-                buf = _buffer(tuple(t.shape), t.dtype, stage, device)
-                dist.scatter(buf, [x[i] for x in staged], src=0)
+                buf = buffer(tuple(t.shape), t.dtype, stage, device)
+                dist.scatter(buf, [x[i] for x in ins], src=0)
                 mine.append(buf.to(device))
-            out = _staged(_STEPS[op](params, mine, device), stage)
+            out = staged(_STEPS[op](params, mine, device), stage)
             dist.reduce(out, 0)
         except BaseException:
             dist.destroy_process_group()
@@ -353,7 +328,7 @@ def serve_ranks(mesh=None, device=None) -> int:
     if mesh is not None and mesh.mesh.numel() != _world():
         raise ValueError(f"a mesh of {mesh.mesh.numel()} ranks over a group "
                          f"of {_world()}")
-    stage = _stage_device(device)
+    stage = stage_device(device)
     served = 0
     while True:
         header = torch.empty(_HEADER, dtype=torch.int64, device=stage)
@@ -363,10 +338,10 @@ def serve_ranks(mesh=None, device=None) -> int:
             return served
         xs = []
         for dtype, shape in specs:
-            buf = _buffer(shape, dtype, stage, device)
+            buf = buffer(shape, dtype, stage, device)
             dist.scatter(buf, None, src=0)
             xs.append(buf.to(device))
-        out = _staged(_STEPS[op](params, xs, device), stage)
+        out = staged(_STEPS[op](params, xs, device), stage)
         dist.reduce(out, 0)
         served += 1
 
@@ -377,7 +352,7 @@ def stop_ranks(device=None) -> None:
     if _world() == 1:
         return
     header = torch.tensor(_header(_STOP, (), ()), dtype=torch.int64,
-                          device=_stage_device(resolve_device(device)))
+                          device=stage_device(resolve_device(device)))
     with _GROUP_LOCK:
         dist.broadcast(header, 0)
 

@@ -5,7 +5,10 @@
 ``q`` is ``[B, Sq, H, hd]`` and ``k``/``v`` are ``[B, Skv, Hkv, hd]`` with
 ``Hkv`` dividing ``H``: query head ``h`` reads KV head ``h // (H // Hkv)``,
 the grouping of the model's chunked attention.  With ``causal`` the mask
-keeps key ``j <= i``, both counted from 0; masked logits are ``-1e30``.
+keeps key ``j <= i``, both counted from 0; with ``q_offset`` query row
+``i`` stands at position ``q_offset + i`` and keeps key ``j <= q_offset +
+i`` (a shard of the sequence-parallel route: ``block_attention``'s
+``q_offset``).  Masked logits are ``-1e30``.
 The softmax runs in float32, the probabilities are rounded to ``v``'s
 dtype before the product with ``v`` (float32 accumulation), the output is
 divided by ``max(l, 1e-30)`` and has ``q``'s dtype.  There are no padded
@@ -58,8 +61,8 @@ def head_slices(hd: int):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                          causal: bool = True, chunk: int = PLAIN_CHUNK,
+                          q_offset: int = 0) -> torch.Tensor:
     b, sq, h, hd = q.shape
     skv, hk = k.shape[1], k.shape[2]
     g = h // hk
@@ -75,7 +78,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               .permute(0, 2, 3, 1, 4))                        # [B,Hkv,G,c,hd]
         logits = torch.matmul(qc, kt) * hd ** -0.5            # [B,Hkv,G,c,S]
         if causal:
-            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            q_pos = torch.arange(q_offset + s0, q_offset + s0 + c,
+                                 device=q.device)
             logits.masked_fill_(q_pos[:, None] < k_pos[None, :], -1e30)
         m = logits.amax(dim=-1, keepdim=True)
         p = torch.exp(logits - m)
@@ -88,7 +92,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, dout: torch.Tensor,
-                             causal: bool = True, chunk: int = PLAIN_CHUNK):
+                             causal: bool = True, chunk: int = PLAIN_CHUNK,
+                             q_offset: int = 0):
     """Gradients ``(dq, dk, dv)`` of the attention above at ``q, k, v`` for
     the output gradient ``dout`` (``q``'s shape), each in its input's dtype.
 
@@ -120,7 +125,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         qc, doc = rows(q, s0, c), rows(dout, s0, c)
         logits = torch.matmul(qc, kf.transpose(-1, -2)) * scale
         if causal:
-            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            q_pos = torch.arange(q_offset + s0, q_offset + s0 + c,
+                                 device=q.device)
             logits.masked_fill_(q_pos[:, None] < k_pos[None, :], -1e30)
         p = torch.softmax(logits, dim=-1)                      # [B,Hkv,G,c,S]
         del logits
@@ -137,13 +143,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool) -> torch.Tensor:
+                         causal: bool, q_offset: int = 0) -> torch.Tensor:
     b, sq, h, hd = q.shape
     skv, hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     rc = build.load().flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        h, hk, hd, int(causal), _DTYPE_CODES[q.dtype], hd ** -0.5,
+        h, hk, hd, int(causal), int(q_offset), _DTYPE_CODES[q.dtype],
+        hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed (cudaError {rc})")

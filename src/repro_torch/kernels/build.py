@@ -42,7 +42,8 @@ _SIGNATURES = {
                    _P],
     "bdeu_check_division": [_P, _P],
     "flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+                        ctypes.c_int, _I64, ctypes.c_int, ctypes.c_float,
+                        _P],
     "flash_attention_route": [_I64, ctypes.c_int],
 }
 

@@ -6,7 +6,9 @@
 //                  * v[b,j,hk,:]
 // with hk = h / (H / Hkv) (grouped-query attention: the KV heads are read
 // as they are, never repeated), the causal mask keeping key j <= query i
-// (both counted from 0), masked logits -1e30, float32 accumulation, the
+// (both counted from 0; with a query offset, query row i stands at
+// position q_off + i and keeps key j <= q_off + i, as a shard of the
+// sequence-parallel route does), masked logits -1e30, float32 accumulation, the
 // probabilities rounded to v's type before the P.V product, and the output
 // divided by max(l, 1e-30).  Keys at or past Skv never count, causal or
 // not (the TPU kernel zeroes its padded keys when causal is false and so
@@ -69,7 +71,8 @@
 //    unsliced kernel).  One CTA per (query block, output slice), head,
 //    batch; the scores are recomputed once per output slice.  Simple and
 //    right, not fast.
-// Every route skips key tiles wholly above the diagonal when causal.
+// Every route skips key tiles wholly above the diagonal when causal (the
+// diagonal moved right by q_off).
 //
 // The kernels allocate nothing and launch on the caller's stream; the entry
 // point returns cudaGetLastError() after its launch.  The tensor-map
@@ -164,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int64_t sq,
                      int64_t skv, int64_t n_heads, int64_t n_kv_heads,
-                     int causal, float scale) {
+                     int causal, int64_t q_off, float scale) {
   constexpr int BK = mma_bk<HD>();
   constexpr int LD = HD + 8;
   constexpr int KSTEPS = HD / 16;      // depth steps of S = Q K^T
@@ -212,9 +215,11 @@ __global__ void __launch_bounds__(kThreads)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   float m_row[2] = {kNegInf, kNegInf};   // running max, base-2 units
   float l_row[2] = {0.f, 0.f};           // this thread's share of l
-  const int64_t row0 = q0 + warp * 16 + g;   // and row0 + 8
-  const int64_t kv_end =
-      causal ? (skv < q0 + kMmaBQ ? skv : q0 + kMmaBQ) : skv;
+  // the position (row counted from q_off) of this thread's first row, and
+  // + 8; keys below q_end can count
+  const int64_t row0 = q_off + q0 + warp * 16 + g;
+  const int64_t q_end = q_off + q0 + kMmaBQ;
+  const int64_t kv_end = causal ? (skv < q_end ? skv : q_end) : skv;
 
   const __nv_bfloat16* kg = k + (b * skv * n_kv_heads + hk) * HD;
   const __nv_bfloat16* vg = v + (b * skv * n_kv_heads + hk) * HD;
@@ -310,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int64_t row = row0 + 8 * i;
+    const int64_t row = row0 - q_off + 8 * i;
     if (row >= sq) continue;
     __nv_bfloat16* o = out + ((b * sq + row) * n_heads + h) * HD + 2 * t;
 #pragma unroll
@@ -553,7 +558,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ out, int sq, int skv,
                        int n_heads, int n_kv_heads, int n_hb, int causal,
-                       float scale) {
+                       int q_off, float scale) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1 KB: tiles start on 1 KB boundaries
   const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -570,7 +575,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int q0 = (n_qblocks - 1 - (int)(blockIdx.x / (unsigned)n_hb)) * kBQ;
   const int h = hb % n_heads, b = hb / n_heads;
   const int hk = h / (n_heads / n_kv_heads);
-  const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
+  const int kv_end = causal ? min(skv, q_off + q0 + kBQ) : skv;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -614,8 +619,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const int cw = (threadIdx.x >> 7) - 1;
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int t4 = lane & 3;
-    const int row_lo = q0 + cw * 64 + warp * 16 + (lane >> 2);  // and + 8
-    const int row_min = q0 + cw * 64;              // this warpgroup's first
+    // positions (rows counted from q_off) of this thread's first row (and
+    // + 8) and of this warpgroup's first row
+    const int row_lo = q_off + q0 + cw * 64 + warp * 16 + (lane >> 2);
+    const int row_min = q_off + q0 + cw * 64;
     const float scale2 = scale * kLog2e;           // softmax in base 2
     // this warpgroup's 64 rows of Q in both boxes
     const uint32_t qa = q_smem + cw * 64 * (kBoxCols * 2);
@@ -719,7 +726,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = row_lo + 8 * i;
+      const int row = row_lo - q_off + 8 * i;
       if (row >= sq) continue;
       __nv_bfloat16* dst =
           out + (((int64_t)b * sq + row) * n_heads + h) * kHD + 2 * t4;
@@ -767,7 +774,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       int64_t sq, int64_t skv, int64_t n_heads,
-                      int64_t n_kv_heads, int hd, int causal, float scale) {
+                      int64_t n_kv_heads, int hd, int causal,
+                      int64_t q_off, float scale) {
   constexpr int RPW = kSimtBQ / (kThreads / 32);   // rows per warp
   constexpr int CPL = CB / 32;                     // columns per lane
   extern __shared__ float simt_smem[];
@@ -797,8 +805,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
   }
-  const int64_t kv_end =
-      causal ? (skv < q0 + kSimtBQ ? skv : q0 + kSimtBQ) : skv;
+  const int64_t q_end = q_off + q0 + kSimtBQ;
+  const int64_t kv_end = causal ? (skv < q_end ? skv : q_end) : skv;
   for (int64_t k0 = 0; k0 < kv_end; k0 += kSimtBK) {
     __syncthreads();
     for (int i = threadIdx.x; i < kSimtBK * hd; i += kThreads) {
@@ -821,7 +829,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < hd; ++d)
         s = fmaf(qs[r * hd + d], ks[lane * ldk + d], s);
       s *= scale;
-      if (key >= skv || (causal && key > q0 + r)) s = kNegInf;
+      if (key >= skv || (causal && key > q_off + q0 + r)) s = kNegInf;
       float mx = s;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -884,7 +892,7 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, T* __restrict__ out,
                         int64_t sq, int64_t skv, int64_t n_heads,
                         int64_t n_kv_heads, int hd, int sw, int n_slices,
-                        int causal, float scale) {
+                        int causal, int64_t q_off, float scale) {
   constexpr int RPW = kSimtBQ / (kThreads / 32);   // rows per warp
   constexpr int CPL = kMaxSimtHD / 32;             // columns per lane
   extern __shared__ float simt_smem[];
@@ -909,8 +917,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
   }
-  const int64_t kv_end =
-      causal ? (skv < q0 + kSimtBQ ? skv : q0 + kSimtBQ) : skv;
+  const int64_t q_end = q_off + q0 + kSimtBQ;
+  const int64_t kv_end = causal ? (skv < q_end ? skv : q_end) : skv;
   for (int64_t k0 = 0; k0 < kv_end; k0 += kSimtBK) {
     float s[RPW];
 #pragma unroll
@@ -952,7 +960,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < RPW; ++i) {
       const int r = warp * RPW + i;
       float si = s[i] * scale;
-      if (key >= skv || (causal && key > q0 + r)) si = kNegInf;
+      if (key >= skv || (causal && key > q_off + q0 + r)) si = kNegInf;
       float mx = si;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -1000,7 +1008,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-               int64_t n_kv_heads, int causal, float scale,
+               int64_t n_kv_heads, int causal, int64_t q_off, float scale,
                cudaStream_t stream) {
   constexpr int kBytes = mma_smem_bytes<HD>();
   static const cudaError_t allowed = cudaFuncSetAttribute(
@@ -1012,15 +1020,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   flash_mma_kernel<HD><<<grid, kThreads, kBytes, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, sq, skv, n_heads,
-      n_kv_heads, causal, scale);
+      n_kv_heads, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int CB>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
                 int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-                int64_t n_kv_heads, int hd, int causal, float scale,
-                cudaStream_t stream) {
+                int64_t n_kv_heads, int hd, int causal, int64_t q_off,
+                float scale, cudaStream_t stream) {
   static const cudaError_t allowed = cudaFuncSetAttribute(
       flash_simt_kernel<T, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       simt_smem_bytes(CB));
@@ -1029,7 +1037,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
                   (unsigned)n_heads, (unsigned)batch);
   flash_simt_kernel<T, CB><<<grid, kThreads, simt_smem_bytes(hd), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, skv, n_heads,
-      n_kv_heads, hd, causal, scale);
+      n_kv_heads, hd, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1037,23 +1045,24 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int launch_simt_any(const void* q, const void* k, const void* v, void* out,
                     int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-                    int64_t n_kv_heads, int hd, int causal, float scale,
-                    cudaStream_t stream) {
+                    int64_t n_kv_heads, int hd, int causal, int64_t q_off,
+                    float scale, cudaStream_t stream) {
   if (hd <= 128)
     return launch_simt<T, 128>(q, k, v, out, batch, sq, skv, n_heads,
-                               n_kv_heads, hd, causal, scale, stream);
+                               n_kv_heads, hd, causal, q_off, scale, stream);
   if (hd <= 256)
     return launch_simt<T, 256>(q, k, v, out, batch, sq, skv, n_heads,
-                               n_kv_heads, hd, causal, scale, stream);
+                               n_kv_heads, hd, causal, q_off, scale, stream);
   return launch_simt<T, kMaxSimtHD>(q, k, v, out, batch, sq, skv, n_heads,
-                                    n_kv_heads, hd, causal, scale, stream);
+                                    n_kv_heads, hd, causal, q_off, scale,
+                                    stream);
 }
 
 template <typename T>
 int launch_sliced(const void* q, const void* k, const void* v, void* out,
                   int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-                  int64_t n_kv_heads, int hd, int causal, float scale,
-                  cudaStream_t stream) {
+                  int64_t n_kv_heads, int hd, int causal, int64_t q_off,
+                  float scale, cudaStream_t stream) {
   constexpr int kBytes = simt_smem_bytes(kMaxSimtHD);
   static const cudaError_t allowed = cudaFuncSetAttribute(
       flash_sliced_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1066,7 +1075,7 @@ int launch_sliced(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)blocks, (unsigned)n_heads, (unsigned)batch);
   flash_sliced_kernel<T><<<grid, kThreads, kBytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, skv, n_heads,
-      n_kv_heads, hd, sw, n_slices, causal, scale);
+      n_kv_heads, hd, sw, n_slices, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1114,11 +1123,12 @@ bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
 
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int64_t batch, int64_t sq, int64_t skv, int64_t n_heads,
-                 int64_t n_kv_heads, int causal, float scale,
+                 int64_t n_kv_heads, int causal, int64_t q_off, float scale,
                  cudaStream_t stream) {
   const int64_t n_hb = n_heads * batch;
   const int64_t blocks = (sq + kBQ - 1) / kBQ * n_hb;
-  if (sq > INT32_MAX || skv > INT32_MAX || blocks > INT32_MAX)
+  if (sq > INT32_MAX || skv > INT32_MAX || blocks > INT32_MAX ||
+      q_off > INT32_MAX - sq - kBQ)
     return (int)cudaErrorInvalidValue;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -1133,7 +1143,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (allowed != cudaSuccess) return (int)allowed;
   flash_wgmma_kernel<<<(unsigned)blocks, kWsThreads, kSmemBytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, (int)sq, (int)skv, (int)n_heads,
-      (int)n_kv_heads, (int)n_hb, causal, scale);
+      (int)n_kv_heads, (int)n_hb, causal, (int)q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1154,33 +1164,37 @@ extern "C" int flash_attention_route(int64_t hd, int dtype) {
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, hd]; k, v [B, Skv, Hkv,
 // hd]; out [B, Sq, H, hd]; all contiguous, Hkv | H, 1 <= hd <= INT32_MAX,
-// Sq and Skv >= 1; bf16 pointers 16-byte aligned.
+// Sq and Skv >= 1; bf16 pointers 16-byte aligned.  q_off >= 0: the
+// position of query row 0 under the causal mask (0: the rows start at the
+// keys' start).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t batch, int64_t sq,
                                int64_t skv, int64_t n_heads,
                                int64_t n_kv_heads, int64_t hd, int causal,
-                               int dtype, float scale, void* stream) {
+                               int64_t q_off, int dtype, float scale,
+                               void* stream) {
   const int route = flash_attention_route(hd, dtype);
   if (route < 0 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 || sq < 1 ||
-      skv < 1)
+      skv < 1 || q_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (route == 2)
     return launch_wgmma(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
-                        causal, scale, st);
+                        causal, q_off, scale, st);
   if (route == 3)
     return dtype == 1
                ? launch_sliced<__nv_bfloat16>(q, k, v, out, batch, sq, skv,
                                               n_heads, n_kv_heads, (int)hd,
-                                              causal, scale, st)
+                                              causal, q_off, scale, st)
                : launch_sliced<float>(q, k, v, out, batch, sq, skv, n_heads,
-                                      n_kv_heads, (int)hd, causal, scale, st);
+                                      n_kv_heads, (int)hd, causal, q_off,
+                                      scale, st);
   if (route == 1) {
     switch (hd) {
 #define MMA_CASE(D)                                                        \
   case D:                                                                  \
     return launch_mma<D>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads, \
-                         causal, scale, st);
+                         causal, q_off, scale, st);
       MMA_CASE(16)
       MMA_CASE(32)
       MMA_CASE(64)
@@ -1194,7 +1208,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return launch_simt_any<__nv_bfloat16>(q, k, v, out, batch, sq, skv,
                                           n_heads, n_kv_heads, (int)hd,
-                                          causal, scale, st);
+                                          causal, q_off, scale, st);
   return launch_simt_any<float>(q, k, v, out, batch, sq, skv, n_heads,
-                                n_kv_heads, (int)hd, causal, scale, st);
+                                n_kv_heads, (int)hd, causal, q_off, scale,
+                                st);
 }

@@ -223,10 +223,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool) -> torch.Tensor:
-        ctx.causal = causal
+                causal: bool, q_offset: int = 0) -> torch.Tensor:
+        ctx.causal, ctx.q_offset = causal, q_offset
         ctx.save_for_backward(q, k, v)
-        return _flash_forward(q, k, v, causal)
+        return _flash_forward(q, k, v, causal, q_offset)
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
@@ -234,21 +234,23 @@ class FlashAttention(torch.autograd.Function):
         _bump(BACKWARD_CALLS, "flash_attention")
         # a named range, so that a profile can add up the backward's kernels
         with torch.profiler.record_function("flash_attention.backward"):
-            grads = flash_attention_backward(q, k, v, dout, ctx.causal)
-        return (*grads, None)
+            grads = flash_attention_backward(q, k, v, dout, ctx.causal,
+                                             q_offset=ctx.q_offset)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Attention of ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv, hd]``
     with ``Hkv | H`` (query head ``h`` reads KV head ``h // (H // Hkv)``)
-    -> ``[B, Sq, H, hd]`` in ``q``'s dtype; see :mod:`.attention`.
+    -> ``[B, Sq, H, hd]`` in ``q``'s dtype; see :mod:`.attention`.  With
+    ``causal``, query row ``i`` keeps key ``j <= q_offset + i``.
     Differentiable (:class:`FlashAttention`)."""
-    return FlashAttention.apply(q, k, v, causal)
+    return FlashAttention.apply(q, k, v, causal, int(q_offset))
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool) -> torch.Tensor:
+                   causal: bool, q_offset: int = 0) -> torch.Tensor:
     """The attention forward: K6 for tensors on the card, its plain version
     for tensors on the CPU."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -260,8 +262,10 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or h % k.shape[2] != 0:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (batch and hd equal, Hkv | H)")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if not _on_card("flash_attention", q, k, v):
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, q_offset=q_offset)
     for t in (q, k, v):
         if t.dtype != q.dtype or t.dtype not in (torch.float32,
                                                  torch.bfloat16):
@@ -274,6 +278,6 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: batch or heads exceed the grid")
     if q.numel() == 0 or k.shape[1] == 0:
         return torch.zeros_like(q)
-    out = flash_attention_cuda(q, k, v, causal)
+    out = flash_attention_cuda(q, k, v, causal, q_offset)
     _bump(LAUNCHES, "flash_attention")
     return out

@@ -4,11 +4,17 @@ Defined as functions: importing this module starts no process and touches
 no group.  The JAX package's ``make_production_mesh`` (a 256- or 512-chip
 TPU pod) and its TPU v5e constants have no counterpart here.
 
-A mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh` over the
-default group's ranks, made as a layout only: every collective of the
-port's sharded counting runs on the default group, driven by rank 0
-(:mod:`repro_torch.core.distributed`), so making a mesh issues no collective
-and needs no other rank.
+Two kinds of mesh:
+
+* :func:`make_local_mesh`, for sharded counting: a
+  :class:`~torch.distributed.device_mesh.DeviceMesh` over the default
+  group's ranks, made as a layout only.  Every collective of the port's
+  sharded counting runs on the default group, driven by rank 0
+  (:mod:`repro_torch.core.distributed`), so making it issues no collective
+  and needs no other rank.
+* :func:`make_train_mesh`, for training: every rank runs the same step on
+  its own shards (SPMD), so each axis needs a process group of its own, and
+  every rank of the default group must call it.
 """
 
 from __future__ import annotations
@@ -18,12 +24,14 @@ import multiprocessing
 import os
 from typing import List
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..core.device import resolve_device
 from ..core.distributed import serve_ranks, stop_ranks
+from ..parallel.mesh import Mesh
 
 
 def make_local_mesh(model_axis: int = 1) -> DeviceMesh:
@@ -55,6 +63,44 @@ def make_local_mesh(model_axis: int = 1) -> DeviceMesh:
                       torch.arange(world).reshape(world // model_axis,
                                                   model_axis),
                       mesh_dim_names=("data", "model"), _init_backend=False)
+
+
+def make_train_mesh(model_axis: int = 1, device=None) -> Mesh:
+    """The default group's ranks as a ``(data, model)`` training mesh of
+    shape ``(world // model_axis, model_axis)``, rank-major as
+    :func:`make_local_mesh`, with a new process group (the default
+    group's backend) for each data column and each model row.  A
+    collective: every rank of the default group calls it, in the same
+    order; no collective of training runs on the default group itself.
+
+    Args:
+        model_axis: ranks along ``model``; must divide the world size.
+        device: where this rank's shards live (``None``: the CUDA card).
+
+    Raises:
+        RuntimeError: no default group is initialised.
+        ValueError: ``model_axis`` does not divide the world size.
+    """
+    if not dist.is_initialized():
+        raise RuntimeError("initialise the default group first "
+                           "(torch.distributed.init_process_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide the "
+                         f"world of {world} ranks")
+    n_data = world // model_axis
+    layout = np.arange(world).reshape(n_data, model_axis)
+    groups = {}
+    for d in range(n_data):                       # every rank makes every
+        g = dist.new_group(layout[d].tolist())    # group, in one order
+        if d == rank // model_axis:
+            groups["model"] = g
+    for m in range(model_axis):
+        g = dist.new_group(layout[:, m].tolist())
+        if m == rank % model_axis:
+            groups["data"] = g
+    return Mesh({"data": n_data, "model": model_axis}, rank, groups,
+                resolve_device(device))
 
 
 def init_group(rank: int, world: int, init_file: str,

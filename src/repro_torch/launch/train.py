@@ -1,5 +1,4 @@
-"""End-to-end training launcher on one device; the JAX package's
-``repro.launch.train``.
+"""End-to-end training launcher; the JAX package's ``repro.launch.train``.
 
 Runs any ``--arch`` the port builds (full or reduced config) with the
 training path: microbatch accumulation, AdamW/Adafactor,
@@ -11,19 +10,30 @@ deterministic data pipeline.  It runs on the CUDA card unless
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt --resume \\
         --device cpu
 
-Training over the ranks of a ``torch.distributed`` group (``--model-axis``
-above 1; the reference's ``train/sharding.py``) is not ported yet
-(ROADMAP item 14).
+Over the ranks of a ``torch.distributed`` group it trains SPMD on a
+``(data, model)`` mesh of ``(world // --model-axis, --model-axis)``
+(``train/sharding.py``): under ``torch.distributed.run`` (world and rank
+from the environment; the group it starts is gloo's, which ranks sharing
+one card need) or in ranks that joined a group already
+(``launch.mesh.init_group``).  Each data rank reads its part of the
+global batch, only rank 0 prints, and the checkpoint holds the global
+arrays (rank 0 writes them)::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.train --reduced \\
+        --model-axis 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Callable, Dict, List, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.store import (latest_step, restore_checkpoint,
                                 save_checkpoint)
@@ -35,14 +45,17 @@ from ..models.model import build_model
 from ..models.transformer import check_supported
 from ..optim.adamw import OptConfig, make_optimizer
 from ..optim.compress import make_compressor
-from ..train.step import init_train_state, make_train_step
+from ..train.sharding import batch_shardings, param_shardings
+from ..train.step import init_train_state, make_train_step, state_specs
+from .mesh import make_local_mesh, make_train_mesh
 
 __all__ = ["ARCHS", "get_config", "get_reduced", "latest_step",
            "restore_checkpoint", "save_checkpoint", "DataConfig",
            "Prefetcher", "SyntheticCorpus", "ShapeConfig", "build_model",
            "OptConfig", "make_optimizer", "make_compressor",
-           "init_train_state", "make_train_step", "parse_args", "train",
-           "run", "make_model_batch", "TrainRun"]
+           "make_local_mesh", "make_train_mesh", "batch_shardings",
+           "param_shardings", "init_train_state", "make_train_step",
+           "parse_args", "train", "run", "make_model_batch", "TrainRun"]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -68,6 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the host")
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
+                    help="weights and activations (default: the config's)")
+    ap.add_argument("--adam-eps", type=float, default=OptConfig.eps)
     return ap.parse_args(argv)
 
 
@@ -81,37 +97,70 @@ class TrainRun(NamedTuple):
     step_fn: Callable
 
 
+def _rank_device(device):
+    """This rank's device: ``--device``, or the card of its local rank."""
+    if device is None and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        return torch.device("cuda", local % torch.cuda.device_count())
+    return resolve_device(device)
+
+
 def train(args: argparse.Namespace) -> TrainRun:
-    """The training run :func:`run` makes, from parsed arguments."""
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            "--model-axis above 1: training over a torch.distributed group "
-            "(the reference's train/sharding.py) is not ported yet (ROADMAP "
-            "item 14)")
+    """The training run :func:`run` makes, from parsed arguments.  On the
+    ranks of a group (one already joined, or started here from
+    ``torch.distributed.run``'s environment) every rank calls it and
+    returns its own shards of the state."""
+    started = False
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        dist.init_process_group("gloo")
+        started = True
+    try:
+        return _train(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace) -> TrainRun:
+    multi = dist.is_initialized()
+    if args.model_axis > 1 and not multi:
+        raise ValueError(
+            f"--model-axis {args.model_axis} needs a group of ranks: run "
+            f"under torch.distributed.run, or join one first "
+            f"(launch.mesh.init_group)")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(microbatch=args.microbatch)
-    device = resolve_device(args.device)
+    if args.dtype is not None:
+        cfg = cfg.replace(dtype=args.dtype, param_dtype=args.dtype)
+    device = _rank_device(args.device)
+    mesh = make_train_mesh(args.model_axis, device) if multi else None
+    lead = mesh is None or mesh.rank == 0
     model = build_model(cfg, device, trainable=True)
     opt = make_optimizer(OptConfig(
-        lr=args.lr, total_steps=args.steps,
+        lr=args.lr, total_steps=args.steps, eps=args.adam_eps,
         warmup_steps=min(20, args.steps // 5),
         state_dtype=cfg.opt_state_dtype, kind=args.optimizer))
     compress = make_compressor() if args.compress else None
     shape = ShapeConfig("train", args.seq, args.batch, "train")
-    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                        global_batch=args.batch,
-                                        seed=args.seed))
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed, hosts=n_data,
+        host_id=0 if mesh is None else mesh.coords["data"]))
 
     state = init_train_state(model, opt, torch.Generator(
-        device=device).manual_seed(args.seed))
+        device=device).manual_seed(args.seed), mesh)
+    specs = None if mesh is None else state_specs(state, state["params"])
     start_step = 0
     if args.ckpt_dir and args.resume:
         ls = latest_step(args.ckpt_dir)
         if ls is not None:
             _load_into(state, restore_checkpoint(args.ckpt_dir, ls, state,
-                                                 device))
+                                                 device, mesh, specs))
             start_step = ls
-            print(f"resumed from step {ls}")
+            if lead:
+                print(f"resumed from step {ls}")
 
     step_fn = make_train_step(model, opt, compress=compress)
     pf = Prefetcher(corpus, start_step=start_step)
@@ -130,17 +179,19 @@ def train(args: argparse.Namespace) -> TrainRun:
             loss = float(metrics["loss"])
             seconds.append(time.perf_counter() - t1)
             losses.append(loss)
-            if i % args.log_every == 0 or i == args.steps - 1:
+            if lead and (i % args.log_every == 0 or i == args.steps - 1):
                 print(f"step {i:5d}  loss {loss:8.4f}  "
                       f"lr {float(metrics['lr']):.2e}  {time.time() - t0:6.1f}s"
                       f"  ({shape.tokens / seconds[-1]:.0f} tok/s)",
                       flush=True)
             if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
-                save_checkpoint(args.ckpt_dir, i + 1, state)
+                save_checkpoint(args.ckpt_dir, i + 1, state, mesh=mesh,
+                                specs=specs)
     finally:
         pf.close()
     if args.ckpt_dir:
-        save_checkpoint(args.ckpt_dir, args.steps, state)
+        save_checkpoint(args.ckpt_dir, args.steps, state, mesh=mesh,
+                        specs=specs)
     return TrainRun(losses, seconds, state, step_fn)
 
 
@@ -165,9 +216,9 @@ def _load_into(state: Any, restored: Any) -> None:
 
 def make_model_batch(cfg: ModelConfig, host_batch: Dict[str, np.ndarray],
                      device: torch.device) -> Dict[str, torch.Tensor]:
-    """The pipeline's numpy batch as tensors on ``device``.  Stub
-    frontends (embedding inputs, the encoder-decoder) are not ported
-    (ROADMAP item 14)."""
+    """The pipeline's numpy batch (this rank's part over a mesh) as tensors
+    on ``device``.  Stub frontends (embedding inputs, the
+    encoder-decoder) are not ported (ROADMAP item 14)."""
     check_supported(cfg)
     return {k: torch.from_numpy(host_batch[k]).to(device)
             for k in ("tokens", "labels")}

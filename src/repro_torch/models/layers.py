@@ -6,8 +6,11 @@ is applied as ``x @ w`` (not ``nn.Linear``'s ``[d_out, d_in]``), so
 weights carry across unchanged.  ``*_init`` functions draw from an explicit
 ``torch.Generator`` on the device the weights live on; apply functions are
 plain functions on tensors.  ``rms_norm`` has the JAX package's
-hand-written backward (:class:`RmsNorm`).  M-RoPE and the sinusoidal table
-wait for the models that use them.
+hand-written backward (:class:`RmsNorm`).  Over a training mesh a
+parameter holds its shard (``spec_of``): :func:`weight` gathers it over
+the FSDP axes before use, and the embedding and the tied head are
+vocab-parallel over ``model``.  M-RoPE and the sinusoidal table wait for
+the models that use them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from ..parallel.collectives import copy_to, gather, reduce
+from ..parallel.mesh import spec_of
 
 
 def parameter(shape: Sequence[int], dtype: torch.dtype,
@@ -76,15 +82,53 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return RmsNorm.apply(x, scale, eps)
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+# ------------------------------------------------- sharded weights ------
+
+def is_tp(p: torch.Tensor) -> bool:
+    """The parameter is split over ``model`` (tensor-parallel)."""
+    return any(axes == "model" for axes in spec_of(p) or ())
+
+
+def weight(p: torch.Tensor, mesh=None,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A parameter as a product uses it: its shard gathered over the FSDP
+    axes on every dim they split (the backward reduce-scatters the
+    gradient back to the shard), in ``dtype``.  Its ``model`` split stays:
+    the product is tensor-parallel."""
+    if mesh is not None:
+        for dim, axes in enumerate(spec_of(p) or ()):
+            if axes is None or axes == "model":
+                continue
+            for axis in reversed((axes,) if isinstance(axes, str) else axes):
+                p = gather(p, dim, mesh.group(axis), "sum")
+    return p if dtype is None else p.to(dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """``table[ids]``.  Over a mesh whose ``model`` axis splits the vocab,
+    each rank looks up the ids in its vocab range (zeros for the others)
+    and the ranks' rows are summed over ``model``."""
+    w = weight(table, mesh)
+    if mesh is None or not is_tp(table):
+        return w[ids]
+    v_local = w.shape[0]
+    local = ids.long() - mesh.coords["model"] * v_local
+    ok = (local >= 0) & (local < v_local)
+    rows = w[local.clamp(0, v_local - 1)] * ok[..., None].to(w.dtype)
+    return reduce(rows, mesh.group("model"))
 
 
 def tied_logits(table: torch.Tensor, x: torch.Tensor,
-                fp32: bool = True) -> torch.Tensor:
+                fp32: bool = True, mesh=None) -> torch.Tensor:
     """Output head tied to the embedding ``[V, D]``; in float32 (a float32
-    copy of the table) when ``fp32``."""
-    w = table.float() if fp32 else table
+    copy of the table) when ``fp32``.  Over a mesh whose ``model`` axis
+    splits the vocab, this rank's logits ``[..., V / tp]`` (vocab-parallel:
+    the backward sums ``x``'s gradient over ``model``)."""
+    w = weight(table, mesh)
+    w = w.float() if fp32 else w
+    if mesh is not None and is_tp(table):
+        x = copy_to(x, mesh.group("model"))
     return x.to(w.dtype) @ w.T
 
 

@@ -1,5 +1,6 @@
 """Feed-forward variants: SwiGLU (llama-family), squared-ReLU (nemotron,
-rwkv channel-mix), GELU (whisper); the JAX package's ``repro.models.mlp``."""
+rwkv channel-mix), GELU (whisper); the JAX package's ``repro.models.mlp``,
+tensor-parallel over a training mesh's ``model`` axis."""
 
 from __future__ import annotations
 
@@ -9,8 +10,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to, reduce
 from .config import ModelConfig
-from .layers import dense_init, parameter
+from .layers import dense_init, is_tp, parameter, weight
 
 
 class MlpParams(nn.Module):
@@ -43,10 +45,18 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig,
     return MlpParams(cfg, generator.device, d_ff).init_(generator)
 
 
-def mlp_apply(p: MlpParams, x: torch.Tensor, kind: str) -> torch.Tensor:
-    h = x @ p.wi.to(x.dtype)
+def mlp_apply(p: MlpParams, x: torch.Tensor, kind: str,
+              mesh=None) -> torch.Tensor:
+    """The feed-forward of ``x [..., D]``.  Over a mesh whose ``model``
+    axis splits ``d_ff``, column-parallel ``wi``/``wg`` and row-parallel
+    ``wo`` (the partial products summed over ``model``); the weights are
+    gathered over the FSDP axes."""
+    tp = is_tp(p.wi) and mesh is not None and mesh.shape["model"] > 1
+    grp = mesh.group("model") if tp else None
+    xin = copy_to(x, grp) if tp else x
+    h = xin @ weight(p.wi, mesh, x.dtype)
     if kind == "swiglu":
-        g = x @ p.wg.to(x.dtype)
+        g = xin @ weight(p.wg, mesh, x.dtype)
         h = F.silu(g.float()).to(x.dtype) * h
     elif kind == "sq_relu":
         h = torch.square(F.relu(h.float())).to(x.dtype)
@@ -54,4 +64,5 @@ def mlp_apply(p: MlpParams, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(kind)
-    return h @ p.wo.to(x.dtype)
+    y = h @ weight(p.wo, mesh, x.dtype)
+    return reduce(y, grp) if tp else y

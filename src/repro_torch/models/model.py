@@ -20,7 +20,16 @@ card.  ``loss`` runs under autograd, each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (as the JAX package wraps
 its layer in ``jax.checkpoint``), so the backward runs each layer's
 forward, K6 included, once more.  The serving entry points run without
-autograd.  The encoder-decoder waits for a later slice (ROADMAP item 14).
+autograd.
+
+:meth:`LM.shard_` cuts the weights to this rank's shards of a training
+mesh (``train/sharding.py``'s specs), after which every entry point runs
+SPMD over the mesh: each takes this rank's part of the batch
+(``batch_spec``) and the cache's block (``cache_spec``); the embedding
+and the tied head are vocab-parallel, so ``loss`` is a vocab-parallel
+float32 log-softmax, the mean over the global batch.  ``forward``,
+``prefill`` and ``decode_step`` return whole-vocab logits.  The
+encoder-decoder waits for a later slice (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -33,8 +42,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..parallel.collectives import all_gather, all_reduce, reduce
+from ..parallel.mesh import mesh_axes, shard
 from .config import ModelConfig
-from .layers import (embed_init, embed_lookup, parameter, rms_norm,
+from .layers import (embed_init, embed_lookup, is_tp, parameter, rms_norm,
                      tied_logits)
 from .transformer import (Block, block_apply, block_attend, block_decode,
                           check_supported, init_cache)
@@ -75,6 +86,24 @@ class LM(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.final_norm = parameter((cfg.d_model,), torch.float32, dev,
                                     trainable)
+        self.mesh = None
+
+    @torch.no_grad()
+    def shard_(self, mesh, specs: Dict[str, Any]) -> "LM":
+        """Keep only this rank's shard of every weight on ``mesh`` (a
+        :class:`repro_torch.parallel.mesh.Mesh` with groups), as ``specs``
+        (``{name: spec}``, ``train.sharding.param_shardings``) lays it
+        out; each parameter carries its ``spec``, its ``mesh`` and its
+        ``global_shape``.  From here on the entry points run over the
+        mesh."""
+        if self.mesh is not None:
+            raise ValueError("the model is already sharded")
+        for name, p in self.named_parameters():
+            p.global_shape = tuple(p.shape)
+            p.data = shard(p.data, specs[name], mesh).clone()
+            p.spec, p.mesh = specs[name], mesh
+        self.mesh = mesh
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -97,32 +126,63 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- forward
     def _embed_in(self, batch: Dict[str, Any]) -> torch.Tensor:
-        return embed_lookup(self.embed, batch["tokens"]).to(
+        return embed_lookup(self.embed, batch["tokens"], self.mesh).to(
             self.cfg.act_dtype())
 
     def _logits(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Logits ``[B, S, V]``; under autograd with ``cfg.remat``, each
-        layer runs under ``checkpoint``, which keeps only its input."""
+        """Logits ``[B, S, V]`` (over a vocab-parallel mesh, this rank's
+        ``V / tp``); under autograd with ``cfg.remat``, each layer runs
+        under ``checkpoint``, which keeps only its input."""
         cfg = self.cfg
         x = self._embed_in(batch)
         positions = _positions_for(cfg, batch, x.shape[1])
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
-                x = checkpoint(block_apply, blk, x, cfg, positions,
-                               use_reentrant=False)
+                x = checkpoint(block_apply, blk, x, cfg, positions, True,
+                               self.mesh, use_reentrant=False)
             else:
-                x = block_apply(blk, x, cfg, positions)
+                x = block_apply(blk, x, cfg, positions, True, self.mesh)
         x = rms_norm(x, self.final_norm)
-        return tied_logits(self.embed, x, fp32=cfg.logits_fp32)
+        return tied_logits(self.embed, x, fp32=cfg.logits_fp32,
+                           mesh=self.mesh)
+
+    def _vocab_parallel(self) -> bool:
+        return self.mesh is not None and is_tp(self.embed)
+
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        if not self._vocab_parallel():
+            return logits
+        return all_gather(logits, logits.dim() - 1, self.mesh.group("model"))
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Logits ``[B, S, V]`` of ``batch["tokens"]`` ``[B, S]`` (the JAX
         package also returns MoE's auxiliary loss)."""
-        return self._logits(batch)
+        return self._whole_vocab(self._logits(batch))
 
     # ---------------------------------------------------------------- loss
+    def _nll(self, logits: torch.Tensor, labels: torch.Tensor
+             ) -> torch.Tensor:
+        """The negative log-likelihood of each label under a float32
+        log-softmax; vocab-parallel over a mesh (the max, the sum of
+        exponentials and the label's logit combined over ``model``)."""
+        lf = logits.float()
+        if not self._vocab_parallel():
+            lp = torch.log_softmax(lf, dim=-1)
+            return -lp.gather(-1, labels.long()[..., None])[..., 0]
+        grp = self.mesh.group("model")
+        v_local = lf.shape[-1]
+        top = all_reduce(lf.detach().amax(dim=-1, keepdim=True), grp, "max")
+        z = lf - top
+        sum_exp = reduce(torch.exp(z).sum(dim=-1), grp)
+        local = labels.long() - self.mesh.coords["model"] * v_local
+        ok = (local >= 0) & (local < v_local)
+        picked = z.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+        picked = reduce(torch.where(ok, picked, torch.zeros_like(picked)),
+                        grp)
+        return torch.log(sum_exp) - picked
+
     def loss(self, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``(total, {"ce", "aux", "ppl_proxy"})`` for ``batch["tokens"]``
@@ -130,11 +190,16 @@ class LM(nn.Module):
         log-likelihood of the labels under a float32 log-softmax of the
         logits, plus ``AUX_COEF * aux`` (0: dense blocks make no auxiliary
         loss); ``ppl_proxy = exp(min(ce, 20))``.  ``total`` carries the
-        graph; the metrics are detached."""
-        logits = self._logits(batch)
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -lp.gather(-1, batch["labels"].long()[..., None])[..., 0]
-        ce = nll.mean()
+        graph; the metrics are detached.  Over a mesh the mean is over the
+        global batch (every data rank's part), equal on every rank."""
+        nll = self._nll(self._logits(batch), batch["labels"])
+        if self.mesh is None:
+            ce = nll.mean()
+        else:
+            fsdp, _ = mesh_axes(self.mesh)
+            ce = nll.sum() / (nll.numel() * self.mesh.axis_size(fsdp))
+            for axis in fsdp:
+                ce = reduce(ce, self.mesh.group(axis))
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         total = ce + AUX_COEF * aux
         ce = ce.detach()
@@ -151,37 +216,54 @@ class LM(nn.Module):
         The prompt's keys and values go into ``cache`` (from
         :meth:`init_cache`, at least as long as the prompt) in place, at
         positions ``0 .. S-1``; without one, a cache of exactly the
-        prompt's length ``[L, B, S, Hkv, hd]`` is returned."""
-        cfg = self.cfg
+        prompt's length ``[L, B, S, Hkv, hd]`` is returned.  Over a mesh
+        ``cache`` is this rank's block (``cache_spec``: its slice of the
+        positions), and each rank writes the positions it holds."""
+        cfg, mesh = self.cfg, self.mesh
         x = self._embed_in(batch)
         b, s, _ = x.shape
+        tp = 1 if mesh is None else mesh.shape["model"]
         if cache is None:
-            shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd)
+            if s % tp:
+                raise ValueError(f"a prompt of {s} does not split over "
+                                 f"{tp} ranks; pass a cache")
+            shape = (cfg.n_layers, b, s // tp, cfg.n_kv_heads, cfg.hd)
             cache = {name: torch.empty(shape, dtype=x.dtype, device=x.device)
                      for name in ("k", "v")}
-        elif cache["k"].shape[1] != b or cache["k"].shape[2] < s:
+        elif cache["k"].shape[1] != b or cache["k"].shape[2] * tp < s:
             raise ValueError(f"cache {tuple(cache['k'].shape)} does not hold "
                              f"{b} prompts of {s} tokens")
+        s_local = cache["k"].shape[2]
+        off = 0 if mesh is None else mesh.coords["model"] * s_local
+        n = max(0, min(s - off, s_local))
         positions = _positions_for(cfg, batch, s)
         for i, blk in enumerate(self.blocks):
-            x, k, v = block_attend(blk, x, cfg, positions, causal=True)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            x, k, v = block_attend(blk, x, cfg, positions, True, mesh)
+            for name, t in (("k", k), ("v", v)):
+                if t.shape[2] != cfg.n_kv_heads:       # this rank's heads
+                    t = all_gather(t, 2, mesh.group("model"))
+                cache[name][i, :, :n] = t[:, off:off + n]
         x = rms_norm(x[:, -1:], self.final_norm)
-        logits = tied_logits(self.embed, x, fp32=cfg.logits_fp32)
-        return logits[:, 0], cache
+        logits = tied_logits(self.embed, x, fp32=cfg.logits_fp32, mesh=mesh)
+        return self._whole_vocab(logits)[:, 0], cache
 
     # ---------------------------------------------------------- decode step
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor],
-                    batch: Dict[str, Any]
+                    batch: Dict[str, Any], seq_axis: Optional[str] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token for the whole batch.  batch: {"token": [B, 1], "pos":
         the position being written (an int)}.  Returns (logits [B, V],
-        cache), the cache updated in place."""
-        cfg = self.cfg
+        cache), the cache updated in place.  Over a mesh the cache's
+        sequence axis is split over ``seq_axis`` (``"model"``: the
+        ``cache_spec`` layout)."""
+        cfg, mesh = self.cfg, self.mesh
+        if mesh is not None and seq_axis != "model":
+            raise ValueError("over a mesh the decode cache is split along "
+                             "its sequence axis over 'model' (cache_spec): "
+                             "pass seq_axis='model'")
         pos = int(batch["pos"])
-        x1 = embed_lookup(self.embed, batch["token"][:, 0]).to(
+        x1 = embed_lookup(self.embed, batch["token"][:, 0], mesh).to(
             cfg.act_dtype())
         positions = None
         if cfg.rope == "rope":
@@ -189,12 +271,16 @@ class LM(nn.Module):
                                    device=x1.device)
         for i, blk in enumerate(self.blocks):
             layer = {"k": cache["k"][i], "v": cache["v"][i]}
-            x1, _ = block_decode(blk, x1, layer, cfg, pos, positions)
+            x1, _ = block_decode(blk, x1, layer, cfg, pos, positions, mesh,
+                                 seq_axis)
         x1 = rms_norm(x1, self.final_norm)
-        return tied_logits(self.embed, x1, fp32=cfg.logits_fp32), cache
+        logits = tied_logits(self.embed, x1, fp32=cfg.logits_fp32, mesh=mesh)
+        return self._whole_vocab(logits), cache
 
     def init_cache(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
-        return init_cache(self.cfg, batch, seq, self.device)
+        """A zeroed cache for ``batch`` prompts of up to ``seq`` tokens
+        (over a mesh, the global sizes; this rank's block returned)."""
+        return init_cache(self.cfg, batch, seq, self.device, self.mesh)
 
 
 def build_model(cfg: ModelConfig, device=None,

@@ -1,15 +1,19 @@
 """Decoder blocks: full-sequence apply (training's forward and the
 prefill), one-token decode against a preallocated KV cache, and the cache
 itself; the JAX package's ``repro.models.transformer`` for ``block ==
-"attn"`` on one device.
+"attn"``.
 
 The full-sequence attention is :func:`repro_torch.kernels.ops
 .flash_attention` (K6 on the card, its plain version on the host), under
 autograd where the weights are trainable.  The decode step writes the new
 token's key and value into the cache in place, at ``pos``, instead of
-returning an updated copy.  MoE, RWKV and Hymba blocks, the
-sequence-sharded decode and the encoder-decoder blocks wait for later
-slices (ROADMAP item 14).
+returning an updated copy.  Over a training mesh (``mesh``) the block is
+tensor-parallel over ``model`` and FSDP over ``data``
+(:mod:`.attention`, :mod:`.mlp`), and the decode cache's sequence axis is
+split over ``seq_axis``: each rank attends over its slice of the cache,
+the new key is written on the rank that owns ``pos``, and the partials
+are combined over that axis (flash-decoding).  MoE, RWKV and Hymba blocks
+and the encoder-decoder blocks wait for later slices (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -19,12 +23,14 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels import ops
-from .attention import (AttnParams, combine_partials, decode_partial,
-                        qkv_project)
+from .attention import (AttnParams, attend, combine_partials,
+                        decode_partial, out_project, qkv_project,
+                        whole_heads)
 from .config import ModelConfig
 from .layers import parameter, rms_norm
 from .mlp import MlpParams, mlp_apply
+from ..parallel.mesh import local_shape, mesh_axes
+from .pspec import current_mesh
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -73,69 +79,98 @@ def block_init(generator: torch.Generator, cfg: ModelConfig) -> Block:
 
 
 def block_attend(p: Block, x: torch.Tensor, cfg: ModelConfig,
-                 positions: Optional[torch.Tensor], causal: bool = True
+                 positions: Optional[torch.Tensor], causal: bool = True,
+                 mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence block; returns ``(x, k, v)`` with the block's keys and
-    values ``[B, S, Hkv, hd]`` for the prefill's cache."""
+    values ``[B, S, Hkv, hd]`` for the prefill's cache (over a mesh, this
+    rank's KV heads where the heads route splits them)."""
     n1 = rms_norm(x, p.norm1)
-    q, k, v = qkv_project(p.attn, n1, cfg, positions)
-    ao = ops.flash_attention(q, k, v, causal=causal)
-    b, s, hq, hd = ao.shape
-    x = x + ao.reshape(b, s, hq * hd) @ p.attn.wo.to(x.dtype)
+    q, k, v = qkv_project(p.attn, n1, cfg, positions, mesh)
+    ao = attend(q, k, v, cfg.n_heads, cfg.n_kv_heads, causal, mesh,
+                cfg.attn_chunk)
+    b, s = ao.shape[:2]
+    x = x + out_project(p.attn.wo, ao.reshape(b, s, -1), mesh)
     n2 = rms_norm(x, p.norm2)
-    return x + mlp_apply(p.mlp, n2, cfg.mlp), k, v
+    return x + mlp_apply(p.mlp, n2, cfg.mlp, mesh), k, v
 
 
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 positions: Optional[torch.Tensor],
-                causal: bool = True) -> torch.Tensor:
+                causal: bool = True, mesh=None) -> torch.Tensor:
     """Full-sequence block (training's forward and ``LM.forward``).  The
     JAX package also returns an auxiliary loss, which only MoE blocks
     make."""
-    return block_attend(p, x, cfg, positions, causal)[0]
+    return block_attend(p, x, cfg, positions, causal, mesh)[0]
 
 
 # ------------------------------------------------------- decode attention ---
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, new_k: torch.Tensor,
-                     new_v: torch.Tensor, pos: int
+                     new_v: torch.Tensor, pos: int,
+                     dp_axes: Optional[tuple] = None,
+                     seq_axis: Optional[str] = None, mesh=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against the KV cache.
 
     q [B,Hq,hd]; cache_k/v [B,S,Hkv,hd]; new_k/v [B,Hkv,hd]; ``pos`` the
     position written.  The new key and value are written into the cache in
-    place; returns ``(out [B,Hq,hd], cache_k, cache_v)``."""
+    place; returns ``(out [B,Hq,hd], cache_k, cache_v)``.  With
+    ``seq_axis`` the cache is this rank's slice of the sequence, split
+    over that axis of ``mesh`` (or the ambient mesh), and the softmax is
+    combined over it.  ``dp_axes`` is the JAX signature's: the batch is
+    already this rank's part."""
     b, s = cache_k.shape[:2]
-    if not 0 <= pos < s:
-        raise ValueError(f"decode position {pos} outside the cache's {s}")
-    cache_k[:, pos] = new_k
-    cache_v[:, pos] = new_v
-    valid = (torch.arange(s, device=q.device) <= pos)[None].expand(b, s)
+    off, total = 0, s
+    if seq_axis is not None:
+        mesh = mesh if mesh is not None else current_mesh()
+        off = mesh.coords[seq_axis] * s
+        total = s * mesh.shape[seq_axis]
+    if not 0 <= pos < total:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{total}")
+    if off <= pos < off + s:
+        cache_k[:, pos - off] = new_k
+        cache_v[:, pos - off] = new_v
+    valid = (off + torch.arange(s, device=q.device) <= pos)[None].expand(b,
+                                                                           s)
     part = decode_partial(q, cache_k, cache_v, valid)
-    return combine_partials(part).to(q.dtype), cache_k, cache_v
+    o = combine_partials(part, seq_axis, mesh)
+    return o.to(q.dtype), cache_k, cache_v
 
 
 def block_decode(p: Block, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cfg: ModelConfig, pos: int,
-                 positions: Optional[torch.Tensor]
+                 positions: Optional[torch.Tensor], mesh=None,
+                 seq_axis: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token block step.  x1 [B, D]; ``cache`` holds this layer's
-    ``k``/``v`` [B, S, Hkv, hd], updated in place.  Returns (x1, cache)."""
+    ``k``/``v`` [B, S, Hkv, hd] (over a mesh, this rank's slice of S
+    along ``seq_axis``), updated in place.  Returns (x1, cache)."""
     n1 = rms_norm(x1, p.norm1)
-    q, k, v = qkv_project(p.attn, n1[:, None], cfg, positions)
-    o, _, _ = decode_attention(q[:, 0], cache["k"], cache["v"], k[:, 0],
-                               v[:, 0], pos)
-    x1 = x1 + o.reshape(x1.shape[0], -1) @ p.attn.wo.to(x1.dtype)
+    q, k, v = qkv_project(p.attn, n1[:, None], cfg, positions, mesh)
+    q, k, v = (whole_heads(t[:, 0], n, mesh) for t, n in (
+        (q, cfg.n_heads), (k, cfg.n_kv_heads), (v, cfg.n_kv_heads)))
+    o, _, _ = decode_attention(q, cache["k"], cache["v"], k, v, pos,
+                               seq_axis=seq_axis, mesh=mesh)
+    x1 = x1 + out_project(p.attn.wo, o.reshape(x1.shape[0], -1), mesh)
     n2 = rms_norm(x1, p.norm2)
-    return x1 + mlp_apply(p.mlp, n2[:, None], cfg.mlp)[:, 0], cache
+    return (x1 + mlp_apply(p.mlp, n2[:, None], cfg.mlp, mesh)[:, 0],
+            cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
-               device: torch.device) -> Dict[str, torch.Tensor]:
+               device: torch.device, mesh=None) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache, stacked over layers: ``k``/``v``
-    [L, B, S, Hkv, hd] in the activation dtype."""
+    [L, B, S, Hkv, hd] in the activation dtype; over a mesh, this rank's
+    block of it as ``cache_spec`` lays it out (S split over ``model``, B
+    over the FSDP axes where they divide it)."""
     check_supported(cfg)
     shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
+    if mesh is not None:            # train.sharding.cache_spec's layout
+        fsdp, tp = mesh_axes(mesh)
+        b_ax = fsdp if batch % mesh.axis_size(fsdp) == 0 else None
+        shape = local_shape(shape, (None, b_ax, tp, None, None), mesh)
     return {name: torch.zeros(shape, dtype=cfg.act_dtype(), device=device)
             for name in ("k", "v")}

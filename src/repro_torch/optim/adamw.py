@@ -14,15 +14,25 @@ Adafactor factors the second moment of every leaf of two or more
 dimensions over its last two axes, as in the JAX package; the port holds
 each layer's weights apart, where the JAX LM stacks them ``[L, ...]``, so
 on an LM the two factor a layer's vectors (norms, biases) differently.
+
+Over a training mesh (each parameter of a sharded model carries its
+``spec`` and its ``mesh``, ``LM.shard_``) every rank updates its shards: the
+global norm counts each element once (a replicated parameter on one rank
+of each axis it is replicated along), and Adafactor's row and column
+means, their mean and the update's RMS are taken over the whole tensor,
+so clipping and updates equal one rank's.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import param_layout, spec_axes
 
 Tensors = Mapping[str, torch.Tensor]
 
@@ -64,10 +74,32 @@ def _decay_mask(name: str) -> bool:
                                        "u_bonus"))
 
 
-def global_norm(tree: Tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` of every tensor, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+def _sum_over(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axes``, one spec entry (a name, a
+    tuple of names or ``None``)."""
+    for axis in spec_axes((axes,)):
+        if mesh.shape[axis] > 1:
+            x = all_reduce(x, mesh.group(axis))
+    return x
+
+
+def global_norm(tree: Tensors, mesh=None,
+                specs: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` of every tensor, in float32.  Over
+    ``mesh`` the tensors are shards laid out by ``specs``: each element
+    counts once over the whole mesh."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree.values()))
+    total = None
+    for name, x in tree.items():
+        split = set(spec_axes(specs.get(name)))
+        keep = all(mesh.coords[a] == 0 for a in mesh.axis_names
+                   if a not in split)
+        sq = torch.sum(torch.square(x.float()))
+        sq = sq if keep else torch.zeros_like(sq)
+        total = sq if total is None else total + sq
+    return torch.sqrt(_sum_over(total, mesh.axis_names, mesh))
 
 
 class AdamW:
@@ -95,7 +127,8 @@ class AdamW:
         cfg = self.cfg
         step = state["step"] + 1
         lr = schedule(cfg, step)
-        gnorm = global_norm(grads)
+        mesh, specs = param_layout(params)
+        gnorm = global_norm(grads, mesh, specs)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         b1, b2 = cfg.betas
@@ -142,16 +175,29 @@ class Adafactor:
         step = state["step"] + 1
         lr = schedule(cfg, step)
         d = 1.0 - 0.8 ** step.float()            # beta2 ramp
+        mesh, specs = param_layout(params)
+
+        def mean(x, dim, keepdim=False, spec=None):
+            """``x.mean(dim)`` over the whole tensor's extent of ``dim``."""
+            if mesh is None or spec is None or spec[dim] is None:
+                return x.mean(dim=dim, keepdim=keepdim)
+            n = x.shape[dim] * mesh.axis_size(spec[dim])
+            return _sum_over(x.sum(dim=dim, keepdim=keepdim), spec[dim],
+                             mesh) / n
+
         for name, p in params.items():
             f = state["f"][name]
+            spec = specs[name]
             g32 = grads[name].float()
             sq = g32 * g32 + 1e-30
             if p.dim() >= 2:
-                r = d * f["r"] + (1 - d) * sq.mean(dim=-1)
-                c = d * f["c"] + (1 - d) * sq.mean(dim=-2)
+                r = d * f["r"] + (1 - d) * mean(sq, -1, spec=spec)
+                c = d * f["c"] + (1 - d) * mean(sq, -2, spec=spec)
+                r_mean = mean(r, -1, keepdim=True,
+                              spec=None if spec is None else spec[:-1])
                 denom = torch.sqrt(r[..., None] * c[..., None, :]
-                                   / torch.clamp(r.mean(-1, keepdim=True)
-                                                 [..., None], min=1e-30))
+                                   / torch.clamp(r_mean[..., None],
+                                                 min=1e-30))
                 f["r"].copy_(r)
                 f["c"].copy_(c)
             else:
@@ -160,7 +206,14 @@ class Adafactor:
                 f["v"].copy_(v)
             upd32 = g32 / torch.clamp(denom, min=1e-30)
             # relative update clipping
-            rms = torch.sqrt(torch.mean(upd32 * upd32) + 1e-30)
+            sq_upd = upd32 * upd32
+            if mesh is None or spec is None:
+                ms = torch.mean(sq_upd)
+            else:
+                axes = spec_axes(spec)
+                ms = _sum_over(sq_upd.sum(), axes, mesh) / (
+                    sq_upd.numel() * mesh.axis_size(axes))
+            rms = torch.sqrt(ms + 1e-30)
             upd32 = upd32 / torch.clamp(rms, min=1.0)
             p.copy_(p.float() - lr * upd32)
         state["step"] = step

@@ -1,0 +1,127 @@
+"""The JAX package's sharded paths on four fake CPU devices, for
+``tests/test_torch_train_mesh.py``: run as a script (XLA's device count is
+set before jax starts), it reads the cases from an ``.npz`` and writes the
+JAX results to another.
+
+    python tests/jax_mesh_reference.py cases.npz out.npz
+
+Every mesh is built with ``AxisType.Auto`` axes, as
+``tests/test_perf_features.py`` builds its mesh: under the ``Explicit``
+axes ``jax.make_mesh`` gives by default, the package's
+``with_sharding_constraint`` calls act as assertions and its launcher's
+multi-device path stops (``src/repro/models/pspec.py:33``).  The package
+itself is not edited.
+
+* ``train/<name>``: the losses of ``make_train_step`` under ``jax.jit``,
+  the parameters placed by ``param_shardings`` and each batch by
+  ``batch_shardings`` (the reduced qwen2.5-3b in float32, or a variant).
+* ``attn/<name>``: ``sharded_attention`` on the case's q, k, v.
+* ``decode/<name>``: the logits of ``make_decode_step(model, mesh)`` at
+  every position of the case's tokens, the cache placed by
+  ``cache_shardings`` (its sequence axis over ``model``).
+"""
+
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs  # noqa: E402
+from repro.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
+from repro.models.attention import sharded_attention  # noqa: E402
+from repro.models.model import build_model  # noqa: E402
+from repro.optim import adamw  # noqa: E402
+from repro.train import step as jstep  # noqa: E402
+from repro.train.sharding import (batch_shardings, cache_shardings,  # noqa
+                                  param_shardings)
+
+ARCH = "qwen2.5-3b"
+
+
+def make_mesh(shape):
+    n = int(np.prod(shape))
+    return jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2,
+                         devices=jax.devices()[:n])
+
+
+def config(kw):
+    return configs.get_reduced(ARCH).replace(dtype="float32",
+                                             param_dtype="float32", **kw)
+
+
+def train(mesh_shape, cfg_kw, opt_kw, batches):
+    cfg = config(cfg_kw)
+    model = build_model(cfg)
+    opt = adamw.make_optimizer(adamw.OptConfig(**opt_kw))
+    mesh = make_mesh(mesh_shape)
+    with jax.sharding.set_mesh(mesh):
+        params = model.init(jax.random.PRNGKey(0))
+        params = jax.device_put(params, param_shardings(params, mesh))
+        state = {"params": params, "opt": opt.init(params)}
+        fn = jax.jit(jstep.make_train_step(model, opt))
+        losses = []
+        for b in batches:
+            b = {k: jnp.asarray(v) for k, v in b.items()}
+            b = jax.device_put(b, batch_shardings(b, mesh))
+            state, metrics = fn(state, b)
+            losses.append(float(metrics["loss"]))
+    return np.asarray(losses, np.float64)
+
+
+def attention(mesh_shape, q, k, v, causal, chunk):
+    mesh = make_mesh(mesh_shape)
+    with jax.sharding.set_mesh(mesh):
+        out = jax.jit(lambda q, k, v: sharded_attention(
+            q, k, v, causal=causal, chunk=chunk))(q, k, v)
+    return np.asarray(out)
+
+
+def decode(mesh_shape, cfg_kw, tokens, max_len):
+    cfg = config(cfg_kw)
+    model = build_model(cfg)
+    mesh = make_mesh(mesh_shape)
+    b = tokens.shape[0]
+    out = []
+    with jax.sharding.set_mesh(mesh):
+        params = model.init(jax.random.PRNGKey(0))
+        params = jax.device_put(params, param_shardings(params, mesh))
+        cache = model.init_cache(b, max_len)
+        cache = jax.device_put(cache, cache_shardings(cache, mesh))
+        step = jax.jit(jstep.make_decode_step(model, mesh=mesh))
+        for pos in range(tokens.shape[1]):
+            logits, cache = step(params, cache, {
+                "token": jnp.asarray(tokens[:, pos:pos + 1]),
+                "pos": jnp.int32(pos)})
+            out.append(np.asarray(logits))
+    return np.stack(out, axis=1)
+
+
+def main(cases_path, out_path):
+    cases = np.load(cases_path, allow_pickle=True)
+    spec = cases["spec"].item()
+    out = {}
+    for name, c in spec["train"].items():
+        batches = [SyntheticCorpus(DataConfig(
+            vocab=config(c["cfg"]).vocab, seq_len=c["seq"],
+            global_batch=c["batch"], seed=c["seed"])).batch(i)
+            for i in range(c["steps"])]
+        out[f"train/{name}"] = train(c["mesh"], c["cfg"], c["opt"], batches)
+    for name, c in spec["attn"].items():
+        out[f"attn/{name}"] = attention(
+            c["mesh"], *(cases[f"attn/{name}/{t}"] for t in "qkv"),
+            c["causal"], c["chunk"])
+    for name, c in spec["decode"].items():
+        out[f"decode/{name}"] = decode(c["mesh"], c["cfg"],
+                                       cases[f"decode/{name}/tokens"],
+                                       c["max_len"])
+    np.savez(out_path, **out)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.attention import (SLICE_HD, flash_attention_plain,
                                           head_slices)
 from repro_torch.models import attention as tattn
+from repro_torch.train.sharding import Mesh
 
 
 def _normal(seed, *shapes):
@@ -234,7 +235,13 @@ def test_decode_partial_and_combine_match_jax():
     np.testing.assert_allclose(
         tattn.combine_partials(got).numpy(),
         np.asarray(jattn.combine_partials(want, None)), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    # over a mesh axis: one shard (a group of one) is the total; more
+    # shards run in tests/test_torch_train_mesh.py's decode
+    one = Mesh({"data": 1, "model": 1}, groups={"data": None, "model": None})
+    np.testing.assert_allclose(
+        tattn.combine_partials(got, "model", one).numpy(),
+        np.asarray(jattn.combine_partials(want, None)), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="no mesh"):
         tattn.combine_partials(got, "model")
 
 

@@ -17,7 +17,8 @@ from repro_torch.kernels import ref as port_ref
 
 PACKAGES = ("core", "serve", "models", "discover", "obs", "configs",
             "kernels.ref", "launch.mesh", "optim.adamw", "optim.compress",
-            "train.step", "checkpoint.store", "data.pipeline", "launch.train")
+            "train.step", "train.sharding", "models.pspec",
+            "checkpoint.store", "data.pipeline", "launch.train")
 
 _PACKS = ("the JAX package's padded input packs have no counterpart: the "
           "port lays a group's edge lists end to end (ROADMAP A)")
@@ -25,8 +26,6 @@ _WHISPER = "queued with Whisper's encoder-decoder (ROADMAP item 14)"
 _DRYRUN = "queued with the dry run's shape cells (launch/dryrun.py, ROADMAP " \
     "item 14)"
 _TPU = "describes a TPU pod (v5e), which the port does not run on"
-_SHARDING = "train/sharding.py's GSPMD specs: training over a " \
-    "torch.distributed group is queued (ROADMAP item 14)"
 NO_COUNTERPART = {
     "core": {"plan_input_arrays": _PACKS},
     "serve": {"plan_input_arrays": _PACKS},
@@ -34,11 +33,6 @@ NO_COUNTERPART = {
     "configs": {"all_cells": _DRYRUN, "shape_cells": _DRYRUN},
     "launch.mesh": {"make_production_mesh": _TPU, "PEAK_FLOPS_BF16": _TPU,
                     "HBM_BW": _TPU, "ICI_BW": _TPU},
-    "train.step": {"constrain_like_params": _SHARDING,
-                   "mesh_axes": _SHARDING, "spec_for_param": _SHARDING},
-    "launch.train": {"make_local_mesh": _SHARDING,
-                     "batch_shardings": _SHARDING,
-                     "param_shardings": _SHARDING},
 }
 
 

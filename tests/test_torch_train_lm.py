@@ -290,7 +290,8 @@ def test_serve_steps_are_the_models():
     batch = _torch_batch(_batch())
     assert float(tstep.make_loss_step(lm)(batch).detach()) == float(
         lm.loss(batch)[0].detach())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    # a mesh the model's weights are not sharded over (LM.shard_)
+    with pytest.raises(ValueError, match="shard the model"):
         tstep.make_decode_step(lm, mesh=object())
 
 
@@ -420,7 +421,9 @@ def test_launcher_run_returns_the_losses_and_refuses_what_is_not_ported():
     losses = launcher.run(_argv("", 2, "--optimizer", "adafactor",
                                 "--compress"))
     assert len(losses) == 2 and all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    # a model axis needs ranks to split over (tests/test_torch_train_mesh.py
+    # runs it on 2 and 4)
+    with pytest.raises(ValueError, match="group of ranks"):
         launcher.run(_argv("", 1, "--model-axis", "2"))
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         launcher.run(["--arch", "whisper-base", "--reduced", "--device",

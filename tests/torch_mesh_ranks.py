@@ -1,0 +1,255 @@
+"""The ranks of ``tests/test_torch_train_mesh.py``: gloo processes on the
+CPU that join a group at a ``FileStore``, build the training meshes and
+run every multi-rank case of the test module SPMD, float32.  Rank 0
+pickles the results (whole tensors, gathered over the mesh) for the
+test process, which holds them to the single-rank port and to the JAX
+package.
+
+The cases are plain data (``CASES``), so the test process reads the same
+shapes, weights and batches.  The weights are the JAX package's
+``LM.init`` (``params_from_jax``), which the test process writes to
+``params_<name>.npz`` before the ranks start.
+"""
+
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.checkpoint import store
+from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+from repro_torch.launch import train as launcher
+from repro_torch.launch.mesh import init_group, make_train_mesh
+from repro_torch.models.attention import sharded_attention
+from repro_torch.models.model import build_model
+from repro_torch.models.pspec import constrain, use_mesh
+from repro_torch.optim import adamw
+from repro_torch.optim.compress import make_compressor
+from repro_torch.parallel.collectives import all_gather
+from repro_torch.train import step as tstep
+from repro_torch.train.sharding import (param_shardings, shard, shard_batch,
+                                        unshard)
+
+ARCH = "qwen2.5-3b"
+TIMEOUT_S = 120.0
+ADAMW = dict(lr=1e-3, warmup_steps=1, total_steps=3, eps=1e-6)
+ADAFACTOR = dict(lr=1e-3, warmup_steps=1, total_steps=3, kind="adafactor")
+# config variants by name: the reduced qwen2.5-3b (4 query heads over 2 KV
+# heads, hd 16), and 6 query heads, which no model axis above 3 divides
+VARIANTS = {"qwen": {}, "h6": {"n_heads": 6}}
+# name -> (model axis, variant, optimizer, steps, microbatch, compress);
+# the batches are SyntheticCorpus(seq 16, global batch 4, seed 2)
+TRAIN = {
+    2: {"adamw_12": (2, "qwen", ADAMW, 3, 2, False),
+        "adafactor_12": (2, "qwen", ADAFACTOR, 1, 1, False)},
+    4: {"adamw_22": (2, "qwen", ADAMW, 3, 2, False),
+        "adafactor_22": (2, "qwen", ADAFACTOR, 1, 1, False),
+        "adamw_14": (4, "qwen", ADAMW, 1, 1, False),
+        "h6_14": (4, "h6", ADAMW, 1, 1, False)},
+}
+# int8 compression of the shards of given gradients and error feedback
+# (whole tensors drawn from the name's seed): name -> model axis
+COMPRESS = {2: {"compress_12": 2}, 4: {"compress_22": 2}}
+# name -> (model axis, q heads, kv heads, causal); [2, 8, H, 16] inputs
+ATTN = {
+    2: {"sequence_12": (2, 3, 1, True), "heads_12": (2, 4, 1, True)},
+    4: {"sequence_14": (4, 6, 2, True), "heads_14": (4, 8, 2, True),
+        "sequence_14_full": (4, 6, 2, False), "heads_22": (2, 4, 2, True)},
+}
+# name -> (model axis, prompt length); tokens [2, 12], a cache of 16
+DECODE = {2: {"decode_12": (2, 8)},
+          4: {"decode_22": (2, 8), "decode_14": (4, 8)}}
+DECODE_TOKENS, DECODE_MAX = (2, 12), 16
+# the launcher: 3 AdamW steps of 4 x 16 in 2 microbatches, float32
+LAUNCH_ARGV = ["--arch", ARCH, "--reduced", "--steps", "3", "--batch", "4",
+               "--seq", "16", "--microbatch", "2", "--lr", "1e-3",
+               "--dtype", "float32", "--adam-eps", "1e-6", "--device",
+               "cpu", "--log-every", "1"]
+BATCH, SEQ, SEED = 4, 16, 2
+
+
+def config(variant, microbatch=1):
+    return configs.get_reduced(ARCH).replace(
+        dtype="float32", param_dtype="float32", microbatch=microbatch,
+        **VARIANTS[variant])
+
+
+def batches(cfg, steps):
+    return [SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                       global_batch=BATCH, seed=SEED)
+                            ).batch(i) for i in range(steps)]
+
+
+def attn_inputs(name, hq, hk):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v, w = (rng.standard_normal(s).astype(np.float32) for s in (
+        (2, 8, hq, 16), (2, 8, hk, 16), (2, 8, hk, 16), (2, 8, hq, 16)))
+    return q, k, v, w
+
+
+def decode_tokens(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return rng.integers(0, 384, DECODE_TOKENS).astype(np.int32)
+
+
+def load_weights(model, workdir, variant, mesh=None):
+    """The JAX weights the test process wrote, into ``model`` (whole, or
+    this rank's shards)."""
+    with np.load(os.path.join(workdir, f"params_{variant}.npz")) as z:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                t = torch.from_numpy(z[name])
+                p.copy_(t if mesh is None else shard(t, p.spec, mesh))
+
+
+def train_state(cfg, opt_kw, workdir, variant, mesh=None):
+    model = build_model(cfg, "cpu", trainable=True)
+    opt = adamw.make_optimizer(adamw.OptConfig(**opt_kw))
+    state = tstep.init_train_state(model, opt,
+                                   torch.Generator().manual_seed(0), mesh)
+    load_weights(model, workdir, variant, mesh)
+    return model, opt, state
+
+
+def run_train(mesh, name, spec, workdir):
+    tp, variant, opt_kw, steps, micro, compress = spec
+    cfg = config(variant, micro)
+    model, opt, state = train_state(cfg, opt_kw, workdir, variant, mesh)
+    fn = tstep.make_train_step(model, opt, make_compressor()
+                               if compress else None)
+    losses = []
+    for b in batches(cfg, steps):
+        b = shard_batch({k: torch.from_numpy(v) for k, v in b.items()}, mesh)
+        state, metrics = fn(state, b)
+        losses.append(float(metrics["loss"]))
+    params = {n: unshard(p.detach(), p.spec, mesh).numpy()
+              for n, p in state["params"].items()}
+    return dict(losses=losses, params=params,
+                grad_norm=float(metrics.get("grad_norm", float("nan")))), \
+        (model, state)
+
+
+def compress_inputs(name, shapes):
+    """Whole gradients and error-feedback buffers for ``shapes``."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return ({n: rng.standard_normal(s).astype(np.float32)
+             for n, s in shapes.items()},
+            {n: (1e-3 * rng.standard_normal(s)).astype(np.float32)
+             for n, s in shapes.items()})
+
+
+def run_compress(mesh, name):
+    model = build_model(config("qwen"), "cpu", trainable=True)
+    model.init(torch.Generator().manual_seed(0))
+    model.shard_(mesh, param_shardings(dict(model.named_parameters()), mesh))
+    params = dict(model.named_parameters())
+    grads, ef = compress_inputs(name, {n: p.global_shape
+                                       for n, p in params.items()})
+    cut = lambda tree: {n: shard(torch.from_numpy(a), params[n].spec, mesh)
+                        for n, a in tree.items()}              # noqa: E731
+    new_g, state = make_compressor()(cut(grads), {"ef": cut(ef)}, params)
+    whole = lambda tree: {n: unshard(t, params[n].spec, mesh).numpy()
+                          for n, t in tree.items()}             # noqa: E731
+    return dict(grads=whole(new_g), ef=whole(state["ef"]))
+
+
+def run_attention(mesh, name, spec):
+    _, hq, hk, causal = spec
+    q, k, v, w = (torch.from_numpy(a) for a in attn_inputs(name, hq, hk))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    with use_mesh(mesh):
+        parts = [constrain(t, "B", None, None, None) for t in leaves]
+        out = sharded_attention(*parts, causal=causal, chunk=4)
+        loss = (out * constrain(w, "B", None, None, None)).sum()
+        grads = torch.autograd.grad(loss, leaves)
+    # the gradients are whole already: each constrain's backward gathers
+    return dict(out=all_gather(out.detach(), 0, mesh.group("data")).numpy(),
+                grads=[g.numpy() for g in grads])
+
+
+def run_decode(mesh, name, spec, workdir):
+    _, prompt = spec
+    cfg = config("qwen")
+    model = build_model(cfg, "cpu")
+    model.init(torch.Generator().manual_seed(0))
+    model.shard_(mesh, param_shardings(dict(model.named_parameters()), mesh))
+    load_weights(model, workdir, "qwen", mesh)
+    toks = shard_batch({"tokens": torch.from_numpy(decode_tokens(name))},
+                       mesh)["tokens"]
+    cache = model.init_cache(DECODE_TOKENS[0], DECODE_MAX)
+    last, cache = tstep.make_prefill_step(model)({"tokens": toks[:, :prompt]},
+                                                 cache)
+    step = tstep.make_decode_step(model, mesh)
+    logits = [last]
+    for pos in range(prompt, toks.shape[1]):
+        out, cache = step(cache, {"token": toks[:, pos:pos + 1], "pos": pos})
+        logits.append(out)
+    return dict(logits=all_gather(torch.stack(logits, 1), 0,
+                                  mesh.group("data")).numpy())
+
+
+def run_world(rank, world, workdir):
+    meshes = {2: make_train_mesh(2, "cpu")}
+    if world == 4:
+        meshes[4] = make_train_mesh(4, "cpu")
+    out = {}
+    for name, spec in TRAIN[world].items():
+        res, kept = run_train(meshes[spec[0]], name, spec, workdir)
+        out[name] = res
+        if world == 4 and name == "adamw_22":
+            model, state = kept
+            store.save_checkpoint(os.path.join(workdir, "ckpt"), 3, state,
+                                  mesh=meshes[2],
+                                  specs=tstep.state_specs(state,
+                                                          state["params"]))
+            if rank == 0:
+                open(os.path.join(workdir, "ckpt_done"), "w").close()
+    for name, tp in COMPRESS[world].items():
+        out[name] = run_compress(meshes[tp], name)
+    for name, spec in ATTN[world].items():
+        out[name] = run_attention(meshes[spec[0]], name, spec)
+    for name, spec in DECODE[world].items():
+        out[name] = run_decode(meshes[spec[0]], name, spec, workdir)
+    out["launch"] = launcher.train(launcher.parse_args(
+        LAUNCH_ARGV + ["--model-axis", "2"])).losses
+    if world == 2:                    # the 4-rank checkpoint, on 2 ranks
+        flag = os.path.join(workdir, "ckpt_done")
+        deadline = time.time() + TIMEOUT_S
+        while not os.path.exists(flag):
+            if time.time() > deadline:
+                raise TimeoutError("the 4-rank checkpoint never came")
+            time.sleep(0.1)
+        _, _, like = train_state(config("qwen", 2), ADAMW, workdir, "qwen",
+                                 meshes[2])
+        specs = tstep.state_specs(like, like["params"])
+        back = store.restore_checkpoint(os.path.join(workdir, "ckpt"), 3,
+                                        like, "cpu", meshes[2], specs)
+        out["restored"] = {path: unshard(leaf, specs.get(path),
+                                         meshes[2]).numpy()
+                           for path, leaf in store._paths(back)}
+    return out
+
+
+def main(rank, world, workdir):
+    """A rank's body: join the group, run the world's cases, leave."""
+    torch.set_num_threads(1)
+    try:
+        init_group(rank, world, os.path.join(workdir, f"store{world}"),
+                   timeout_s=TIMEOUT_S)
+        try:
+            out = run_world(rank, world, workdir)
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            with open(os.path.join(workdir, f"out{world}.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(workdir, f"error{world}_{rank}.txt"),
+                  "w") as f:
+            f.write(traceback.format_exc())
+        raise
