@@ -371,6 +371,45 @@ Phases (any failure exits non-zero before the last line is printed):
               test's tolerance, which a wrong combine of the ranks'
               partials exceeds where bf16's does not.  The
               ``mesh_training`` entry of K6's kernels-line row.
+19. moe      — mixture-of-experts (``repro_torch.models.moe``,
+              ``train.monitor``).  (a) Qwen3-30B-A3B served whole (48
+              layers, d_model 2,048, 32/4 heads, 128 experts top-8, bf16,
+              random weights from generator seed 0; no depth cut):
+              prefill of ``MOE_BATCH`` x ``MOE_PROMPT`` tokens, then
+              ``MOE_NEW`` greedy decode steps into a 4,128 cache; the
+              weights' bytes, peak memory, prefill tokens/s and decode ms
+              a step beside the bound of streaming every expert's weights
+              once (the capacity buffer at S = 1 holds a slot for each of
+              the 128 experts); four decode steps and the prefill once
+              more under ``torch.profiler``; K6 launched 48 times a
+              prefill, no plain attention; K6 against its plain version
+              on layer 0's q, k, v (``K6_BF16_TOL``), timed beside SDPA
+              and its bound.  (e) The routing monitor on (a)'s model and
+              prompts: ``routing_trace`` of the 16,384 tokens, equal at
+              layers ``MOE_MONITOR_LAYERS`` to the routing ``moe_apply``
+              used in a prefill of them; ``routing_ct`` of each on the
+              card (K1, K2 and K3 launched, no plain version), its
+              complete table equal bit for bit to a direct count.  (b)
+              The reduced qwen3-moe and arctic (a dense MLP beside the
+              experts) in float32, card against CPU: loss, aux, every
+              gradient (phase 17 (c)'s tolerances), each layer's routing
+              equal; prefill and 16 decode steps against ``forward`` at
+              lossless capacity (``MOE_CONSISTENCY_TOL``).  (c) Training
+              at full width, the depth cut to ``MOE_TRAIN_LAYERS``
+              (registered as ``MOE_TRAIN_ARCH``) through the launcher:
+              phase 17's batch,
+              ``MOE_TRAIN_STEPS`` steps, finite losses whose last three
+              average below the first, K6 16 launches and 8 backwards a
+              step; one more step profiled, with its aux.  (d) (c)'s
+              model over 2 ranks sharing the card (mesh (1, 2), 64
+              experts a rank, the ``ep`` body), ``MOE_MESH_STEPS`` steps:
+              the first loss within ``MOE_MESH_FIRST_RTOL`` of (c)'s,
+              collectives, bytes staged and peak memory by rank; and the
+              reduced qwen3-moe in float32, 3 steps, against one rank.
+              K6 against its plain version at every signature that
+              (a)-(d) launched it with, here and on the ranks.  The
+              ``moe`` entry of K6's kernels-line row; K1-K3's rows gain
+              ``moe_monitor``.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -609,6 +648,35 @@ MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW = 2, 512, 16
 # to one rank at tests/test_torch_train_mesh.py's logits tolerance
 MESH_DECODE_F32 = (2, 64, 16)
 MESH_DECODE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+# Qwen3-30B-A3B (phase 19), served whole: 48 layers, d_model 2,048, 32/4
+# heads, 128 experts top-8 (d_ff 768 each), bf16, random weights from
+# generator seed 0 (30.5 B parameters, 61 GB); phase 8's main run
+# (MOE_BATCH prompts of MOE_PROMPT tokens, MOE_NEW greedy decode steps).
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 4096, 32
+# (b) the reduced MoE configs in float32, card against CPU (phase 17 (c)'s
+# tolerances); the consistency of prefill and decode with forward at
+# lossless capacity (capacity factor = the expert count), the CPU test's
+# float32 tolerance.
+MOE_PARITY_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b")
+MOE_CONSISTENCY_TOL = dict(rtol=1e-4, atol=1e-4)
+# (c) training at full width, the 48 layers cut to MOE_TRAIN_LAYERS so that
+# one card holds the weights, AdamW's float32 moments, the float32
+# gradient accumulator and the activations: phase 17's batch (4 x 2,048 in
+# 2 microbatches) and learning rate, MOE_TRAIN_STEPS steps.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 6
+MOE_TRAIN_ARCH = f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l"   # the launcher's --arch
+# (d) (c)'s model over 2 ranks sharing the card (mesh (1, 2): 64 experts a
+# rank), MOE_MESH_STEPS steps, the first loss within MOE_MESH_FIRST_RTOL of
+# (c)'s (bf16: the ranks sum the experts' partial outputs in another
+# order, and the ep body routes from bf16-rounded router weights); and the
+# reduced qwen3-moe in float32 against one rank (MESH_LOSS_RTOL,
+# MESH_PARAM_ATOL).
+MOE_MESH_STEPS = 2
+MOE_MESH_FIRST_RTOL = 1e-3
+# (e) the routing monitor on (a)'s model and prompts: these layers' complete
+# ct-tables over (Routed?, bucket, group) counted on the card.
+MOE_MONITOR_LAYERS = (0, 47)
 
 
 def log(msg: str) -> None:
@@ -4266,10 +4334,11 @@ def k6_record_launches(ops) -> set:
 
 
 def k6_path_reading(ops, signatures) -> dict:
-    """18 (a), second part: K6 against its plain version at each signature
-    the ranks of (b)-(d) launched it with (:func:`k6_record_launches`), on
-    random inputs; bf16 within ``K6_BF16_TOL``, float32 within
-    ``K6_F32_TOL``."""
+    """18 (a), second part, and 19's check: K6 against its plain version
+    at each signature a main path launched it with (recorded by
+    :func:`k6_record_launches` in phase 18's ranks, and in phase 19 and
+    its ranks), on random inputs; bf16 within ``K6_BF16_TOL``, float32
+    within ``K6_F32_TOL``."""
     from repro_torch.kernels.attention import flash_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(181)
     errs = {}
@@ -4289,28 +4358,29 @@ def k6_path_reading(ops, signatures) -> dict:
         errs[label] = err
         log(f"k6 at a main-path shape, {label}: max_abs_err {err}")
     if not errs:
-        fail("k6: the ranks of phase 18 recorded no launch")
+        fail("k6: no launch of a main path was recorded")
     return errs
 
 
-def mesh_parity_config(variant: dict, microbatch: int):
+def mesh_parity_config(variant: dict, microbatch: int, arch: str = LM_ARCH):
     from repro_torch.configs import get_reduced
-    return get_reduced(LM_ARCH).replace(dtype="float32",
+    return get_reduced(arch).replace(dtype="float32",
                                         param_dtype="float32",
                                         microbatch=microbatch, **variant)
 
 
 def mesh_parity_run(mesh, variant: dict, steps: int, microbatch: int,
-                    device: str = "cuda"):
-    """18 (b): ``steps`` AdamW steps of the reduced float32 model from
-    generator seed 0 on ``device`` (over ``mesh``, or one rank); the
-    losses, the whole parameters on the host and the train state."""
+                    device: str = "cuda", arch: str = LM_ARCH):
+    """18 (b): ``steps`` AdamW steps of the reduced float32 model of
+    ``arch`` from generator seed 0 on ``device`` (over ``mesh``, or one
+    rank); the losses, the whole parameters on the host and the train
+    state."""
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
     from repro_torch.train.sharding import shard_batch, unshard
-    cfg = mesh_parity_config(variant, microbatch)
+    cfg = mesh_parity_config(variant, microbatch, arch)
     model = build_model(cfg, device, trainable=True)
     opt = adamw.make_optimizer(adamw.OptConfig(**MESH_PARITY_OPT))
     state = tstep.init_train_state(model, opt, torch.Generator(
@@ -4828,6 +4898,543 @@ def mesh_train_phase(ops, smi: str, first_loss_17: float,
                     one_rank_prefill_s=one_decode["prefill_s"]))
 
 
+# ---------------------------------------------------------------- phase 19 --
+
+def moe_direct_count(eidx: np.ndarray, buckets: np.ndarray, n_experts: int,
+                     tab) -> np.ndarray:
+    """19 (e): the complete table over (Routed?, bucket, group) of one
+    layer's routing counted directly on the host (positives by bincount;
+    negatives = tokens in the bucket x experts in the group - positives),
+    laid out on ``tab``'s axes."""
+    tok_b = buckets.reshape(-1).astype(np.int64)
+    exp_g = (np.arange(n_experts) * 4) // n_experts
+    pairs = np.unique(np.repeat(np.arange(tok_b.size), eidx.shape[-1])
+                      * n_experts + eidx.reshape(-1))
+    cell = exp_g[pairs % n_experts] * 4 + tok_b[pairs // n_experts]
+    pos = np.bincount(cell, minlength=16).reshape(4, 4).astype(np.float64)
+    total = np.outer(np.bincount(exp_g, minlength=4),
+                     np.bincount(tok_b, minlength=4))
+    full = np.stack([total - pos, pos], axis=-1)     # [group, bucket, R]
+    order = [{"group": 0, "bucket": 1, "Routed?": 2}[str(v).split("(")[0]]
+             for v in tab.vars]
+    return full.transpose(order).astype(np.float32)
+
+
+def moe_serving_reading(ops, smi: str) -> dict:
+    """19 (a) and (e): Qwen3-30B-A3B served whole, and the routing monitor
+    on it (module docstring)."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.train.monitor import (routing_ct, routing_db,
+                                           routing_trace)
+
+    cfg = get_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for n, p in model.named_parameters()
+                       if ".moe.w" in n)
+    log(f"moe (a): {MOE_ARCH} at full size ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}): {n_params} parameters, {w_bytes} B of "
+        f"weights ({expert_bytes} B of them experts'), initialised in "
+        f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated()} B; on {smi}")
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), dtype=np.int64)).cuda()
+    cache = model.init_cache(MOE_BATCH, MOE_PROMPT + MOE_NEW)
+    # a short prefill first warms cuBLAS and the allocator
+    model.prefill({"tokens": prompts[:, :256]}, cache)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    k6_launches = ops.LAUNCHES["flash_attention"]
+    k6_plain = ops.PLAIN_CALLS["flash_attention"]
+    tok = logits.argmax(dim=-1)[:, None]
+    out, steps = [tok], []
+    t0 = time.perf_counter()
+    for i in range(MOE_NEW):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"token": tok,
+                                                  "pos": MOE_PROMPT + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        out.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t1)
+    t_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, dim=1)
+    bound_decode = 1e3 * expert_bytes / HBM_BYTES_PER_S
+    median = sorted(steps)[len(steps) // 2]
+    log(f"moe (a) main run: prefill {MOE_BATCH} x {MOE_PROMPT} tokens in "
+        f"{t_prefill:.4f} s ({MOE_BATCH * MOE_PROMPT / t_prefill:.1f} tok/s); "
+        f"{MOE_NEW} decode steps x {MOE_BATCH} requests in {t_decode:.4f} s "
+        f"({1e3 * t_decode / MOE_NEW:.3f} ms/step; first "
+        f"{1e3 * steps[0]:.3f}, median {1e3 * median:.3f} ms; the experts' "
+        f"weights streamed once a step bound it at {bound_decode:.3f} ms); "
+        f"max_memory_allocated {peak} B; K6 launches {k6_launches} (plain "
+        f"{k6_plain}); first tokens {gen[0, :8].tolist()}; on {smi}")
+    if k6_launches != cfg.n_layers or k6_plain:
+        fail(f"moe (a): the prefill launched K6 {k6_launches} times "
+             f"({k6_plain} plain), not {cfg.n_layers}")
+    if not torch.isfinite(logits).all() or logits.shape != (MOE_BATCH,
+                                                            cfg.vocab):
+        fail(f"moe (a): bad decode logits {tuple(logits.shape)}")
+    if gen.shape != (MOE_BATCH, MOE_NEW + 1) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail("moe (a): generated tokens out of range")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(MOE_NEW - 4, MOE_NEW):
+            model.decode_step(cache, {"token": tok, "pos": MOE_PROMPT + i})
+        sync()
+        wall = time.perf_counter() - t0
+    log_profile("moe (a) decode profile (4 steps)", prof, wall)
+    del prof
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": prompts}, cache)
+        sync()
+    log_profile("moe (a) prefill profile", prof, time.perf_counter() - t0)
+    del prof, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the routing monitor: each layer's routing on the prompts, and
+    # what moe_apply used in a prefill of them
+    t_e = time.perf_counter()
+    index = {id(blk.moe): i for i, blk in enumerate(model.blocks)}
+    used = {}
+    route_apply = transformer.moe_route_apply
+
+    def spied(p, x, cfg_, mesh=None):
+        res = route_apply(p, x, cfg_, mesh)
+        if index[id(p)] in MOE_MONITOR_LAYERS:
+            used[index[id(p)]] = res[2].to(torch.int32).cpu()
+        return res
+    transformer.moe_route_apply = spied
+    try:
+        model.prefill({"tokens": prompts})
+    finally:
+        transformer.moe_route_apply = route_apply
+    sync()
+    t0 = time.perf_counter()
+    trace = routing_trace(model, {"tokens": prompts})
+    sync()
+    t_trace = time.perf_counter() - t0
+    buckets = (prompts % 4).to(torch.int32)
+    monitor = {}
+    for layer in MOE_MONITOR_LAYERS:
+        eidx = trace[layer].cpu()
+        if not torch.equal(eidx, used[layer]):
+            fail(f"moe (e): layer {layer}'s trace differs from the routing "
+                 f"moe_apply used in the prefill at "
+                 f"{int((eidx != used[layer]).sum())} assignments")
+        db = routing_db(eidx, buckets, cfg.n_experts)
+        ops.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        tab, stats = routing_ct(db)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: ops.LAUNCHES[k] for k in ("segsum_ones",
+                                                  "segsum_rows", "mobius")}
+        if any(v <= 0 for v in launches.values()) or any(
+                ops.PLAIN_CALLS[k] for k in ops.KERNELS):
+            fail(f"moe (e) layer {layer}: K1-K3 launches {launches}, plain "
+                 f"calls {ops.PLAIN_CALLS}")
+        got = tab.counts.cpu().numpy()
+        want = moe_direct_count(eidx.numpy(), buckets.cpu().numpy(),
+                                cfg.n_experts, tab)
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            fail(f"moe (e) layer {layer}: the complete table differs from "
+                 f"the direct count by {np.abs(got - want).max()}")
+        monitor[layer] = dict(edges=db.relations["Routed"].num_edges,
+                              stats=stats, wall_s=wall, launches=launches)
+        log(f"moe (e) layer {layer}: {db.relations['Routed'].num_edges} "
+            f"Routed edges of {MOE_BATCH * MOE_PROMPT} tokens; complete "
+            f"table {[str(v) for v in tab.vars]} {tuple(tab.counts.shape)} "
+            f"equal to the direct count bit for bit; routed "
+            f"{stats['routed_pairs']:.0f} of {stats['pairs_total']:.0f} "
+            f"pairs; HYBRID on the card {1e3 * wall:.2f} ms, launches "
+            f"{launches}; the trace equals the routing moe_apply used; on "
+            f"{smi}")
+    log(f"moe (e): routing_trace of {MOE_BATCH} x {MOE_PROMPT} over "
+        f"{cfg.n_layers} layers {t_trace:.3f} s, {tuple(trace.shape)}; "
+        f"phase part {time.perf_counter() - t_e:.1f} s; on {smi}")
+    del trace, used
+
+    # K6 against its plain version at layer 0's shape, timed beside SDPA
+    q, k, v = layer0_qkv(model, prompts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = check_k6(ops, q, k, v, f"{MOE_ARCH} layer 0")
+    b, s, h, hd = q.shape
+    route = flash_attention_route(q.dtype, hd)
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    k6 = dict(shape=f"B={b} S={s} H={h} Hkv={k.shape[2]} hd={hd} causal "
+                    f"bf16 ({MOE_ARCH} layer 0)",
+              route=route, launches=k6_launches, max_abs_err=err,
+              bound_ms=b_ms, bound_by=b_by,
+              ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+              device_ms=device_ms(lambda: ops.flash_attention(
+                  q, k, v, causal=True), reps=5),
+              plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, True),
+                               reps=3),
+              library_ms=cuda_ms(sdpa_call(q, k, v)),
+              library_device_ms=device_ms(sdpa_call(q, k, v), reps=5))
+    log(f"moe (a) K6 on layer 0 [{k6['shape']}]: {route}, max_abs_err "
+        f"{err} (tolerance {K6_BF16_TOL}); device {k6['device_ms']} ms "
+        f"(events {k6['ms']:.4f}), plain {k6['plain_ms']:.4f} ms, SDPA "
+        f"device {k6['library_device_ms']} ms (events "
+        f"{k6['library_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}); K6 share of "
+        f"the prefill {k6_launches} x {k6['ms']:.4f} ms = "
+        f"{100 * k6_launches * k6['ms'] / 1e3 / t_prefill:.2f} %; on {smi}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    serving = dict(params=n_params, weight_bytes=w_bytes,
+                   expert_bytes=expert_bytes, peak_bytes=peak,
+                   prefill_s=t_prefill,
+                   prefill_tokens_per_s=MOE_BATCH * MOE_PROMPT / t_prefill,
+                   decode_ms_per_step=1e3 * t_decode / MOE_NEW,
+                   decode_median_ms=1e3 * median,
+                   decode_bound_ms=bound_decode)
+    return dict(k6=k6, serving=serving, monitor=monitor)
+
+
+def moe_parity_reading(ops) -> dict:
+    """19 (b): the reduced MoE configs in float32 (random weights from seed
+    0 on the host, copied to the card): loss, aux and every gradient, and
+    each layer's routing, card against CPU; on the card, prefill and
+    decode against forward at lossless capacity."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models.model import build_model
+    from repro_torch.train.monitor import routing_trace
+    out = {}
+    for arch in MOE_PARITY_ARCHS:
+        cfg = get_reduced(arch).replace(dtype="float32",
+                                        param_dtype="float32")
+        host = build_model(cfg, device="cpu", trainable=True).init(
+            torch.Generator().manual_seed(0))
+        card = build_model(cfg, trainable=True)
+        card.load_state_dict(host.state_dict())
+        batch = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                           global_batch=4)).batch(0)
+        runs = {}
+        for dev, model in (("cpu", host), ("cuda", card)):
+            b = {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+            ops.reset_counts()
+            loss, metrics = model.loss(b)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            eidx = routing_trace(model, {"tokens": b["tokens"]}).cpu()
+            runs[dev] = (float(loss.detach()), float(metrics["aux"]),
+                         {n: g.cpu() for n, g in zip(names, grads)}, eidx,
+                         ops.LAUNCHES["flash_attention"])
+        (loss_h, aux_h, grads_h, e_h, _), (loss_c, aux_c, grads_c, e_c,
+                                           k6_c) = runs["cpu"], runs["cuda"]
+        if k6_c <= 0:
+            fail(f"moe (b) {arch}: K6 was not launched on the card")
+        if abs(loss_c - loss_h) > TRAIN_PARITY_LOSS_RTOL * abs(loss_h) or \
+                abs(aux_c - aux_h) > TRAIN_PARITY_LOSS_RTOL * abs(aux_h):
+            fail(f"moe (b) {arch}: loss {loss_c} / aux {aux_c} on the card, "
+                 f"{loss_h} / {aux_h} on the host")
+        if not torch.equal(e_c, e_h):
+            fail(f"moe (b) {arch}: the routing differs card against host at "
+                 f"{int((e_c != e_h).sum())} assignments")
+        worst = 0.0
+        for name, g in grads_h.items():
+            if not torch.allclose(grads_c[name], g, **TRAIN_PARITY_GRAD_TOL):
+                fail(f"moe (b) {arch}: gradient {name} differs card against "
+                     f"host by {float((grads_c[name] - g).abs().max())}")
+            worst = max(worst, float((grads_c[name] - g).abs().max()))
+        # prefill and decode against forward at lossless capacity
+        card.cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+        toks = torch.from_numpy(batch["tokens"][:2, :24]).cuda()
+        with torch.no_grad():
+            full = card.forward({"tokens": toks})
+            cache = card.init_cache(2, 24)
+            last, cache = card.prefill({"tokens": toks[:, :8]}, cache)
+            steps = [last]
+            for pos in range(8, 24):
+                logits, cache = card.decode_step(cache, {
+                    "token": toks[:, pos:pos + 1], "pos": pos})
+                steps.append(logits)
+        stepwise = torch.stack(steps, 1)
+        diff = float((stepwise - full[:, 7:]).abs().max())
+        if not torch.allclose(stepwise, full[:, 7:], **MOE_CONSISTENCY_TOL):
+            fail(f"moe (b) {arch}: prefill/decode differ from forward by "
+                 f"{diff} at lossless capacity")
+        log(f"moe (b) reduced {arch} float32, card against CPU: loss "
+            f"{loss_c!r} / {loss_h!r}, aux {aux_c!r} / {aux_h!r}; "
+            f"{len(grads_h)} gradients within {TRAIN_PARITY_GRAD_TOL} "
+            f"(largest abs difference {worst}); routing {tuple(e_c.shape)} "
+            f"equal; prefill + 16 decode steps within {diff:.3e} of forward "
+            f"at lossless capacity")
+        out[arch] = dict(loss_card=loss_c, loss_host=loss_h, aux_card=aux_c,
+                         aux_host=aux_h, grad_max_abs_diff=worst,
+                         consistency_max_abs_diff=diff)
+    return out
+
+
+def moe_train_arch() -> str:
+    """Register (c)'s config, Qwen3-30B-A3B cut to ``MOE_TRAIN_LAYERS``
+    layers at full width, under ``MOE_TRAIN_ARCH`` (in this process) and
+    return that name, the launcher's ``--arch``."""
+    from repro_torch.configs import get_config, register_config
+    register_config(MOE_TRAIN_ARCH, get_config(MOE_ARCH).replace(
+        n_layers=MOE_TRAIN_LAYERS))
+    return MOE_TRAIN_ARCH
+
+
+def moe_train_argv(world: int = 1) -> list:
+    """19 (c)'s launcher command line (and (d)'s over ``world`` ranks)."""
+    argv = ["--arch", moe_train_arch(),
+            "--steps", str(MOE_TRAIN_STEPS if world == 1 else MOE_MESH_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatch", str(TRAIN_MICROBATCH), "--lr", str(TRAIN_LR),
+            "--seed", "0", "--log-every", "1"]
+    return argv + (["--model-axis", str(world)] if world > 1 else [])
+
+
+def moe_training_reading(ops, smi: str) -> dict:
+    """19 (c): the full-width MoE, its depth cut, through the launcher."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import train as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(MOE_ARCH)
+    cfg = get_config(moe_train_arch())
+    per_step = 2 * cfg.n_layers * TRAIN_MICROBATCH
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    run = launcher.train(launcher.parse_args(moe_train_argv()))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = (ops.LAUNCHES["flash_attention"],
+              ops.BACKWARD_CALLS["flash_attention"],
+              ops.PLAIN_CALLS["flash_attention"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    steady = sorted(run.step_seconds[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in run.state["params"].values())
+    # one more step, profiled, reading the auxiliary loss
+    batch = launcher.make_model_batch(cfg, SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0)).batch(MOE_TRAIN_STEPS), torch.device("cuda"))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, metrics = run.step_fn(run.state, batch)
+        aux, loss_p = float(metrics["aux"]), float(metrics["loss"])
+        sync()
+        wall_p = time.perf_counter() - t1
+    reading = raw_step_reading(prof)
+    log(f"moe (c) {MOE_ARCH} at full width, n_layers cut from "
+        f"{full.n_layers} to {cfg.n_layers} so that one card holds the "
+        f"weights, AdamW's moments and the activations ({n_params} "
+        f"parameters, {cfg.param_dtype} weights, {cfg.opt_state_dtype} "
+        f"moments, remat {cfg.remat}): {MOE_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICROBATCH} microbatches, "
+        f"{wall:.2f} s in the launcher; losses {losses}; step seconds "
+        f"{run.step_seconds}; median after the first {step_s:.4f} s "
+        f"({tokens / step_s:.1f} tokens/s); max_memory_allocated {peak} B; "
+        f"K6 (launches, backwards, plain calls) {counts}; one more step "
+        f"profiled: loss {loss_p:.4f}, aux {aux:.5f}, {wall_p:.4f} s wall, "
+        f"device busy {reading['busy_s']:.4f} s, K6 {reading['k6_s']:.4f} "
+        f"s; on {smi}")
+    for name, (ms, n) in reading["top"][:8]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    if not all(np.isfinite(losses)) or len(losses) != MOE_TRAIN_STEPS or \
+            not np.isfinite(aux) or aux <= 0:
+        fail(f"moe (c): losses {losses}, aux {aux}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"moe (c): the last three losses average "
+             f"{np.mean(losses[-3:])}, not below the first {losses[0]}")
+    want = (MOE_TRAIN_STEPS * per_step, MOE_TRAIN_STEPS * per_step // 2, 0)
+    if counts != want:
+        fail(f"moe (c): K6 (launches, backwards, plain calls) {counts}, not "
+             f"{want}")
+    del run, batch, prof, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, losses=losses,
+                aux=aux, step_s=step_s, tokens_per_s=tokens / step_s,
+                peak_bytes=peak, launches_per_step=per_step,
+                profiled_step=dict(wall_s=wall_p, busy_s=reading["busy_s"],
+                                   k6_s=reading["k6_s"]))
+
+
+def mesh_rank_moe_parity(rank, world, work, mesh, opts) -> dict:
+    """19 (d) on a rank: the reduced qwen3-moe in float32, 3 AdamW steps."""
+    losses, params, state = mesh_parity_run(mesh, {}, 3, 2, opts["device"],
+                                            arch=MOE_ARCH)
+    del state
+    return dict(losses=losses, params=params)
+
+
+def mesh_rank_moe_train(rank, world, work, mesh, opts) -> dict:
+    """19 (d) on a rank: (c)'s model through the launcher, registered in
+    this rank's process first."""
+    moe_train_arch()
+    return mesh_rank_train(rank, world, work, mesh, opts)
+
+
+MESH_RANK_STEPS.update(moe_parity=mesh_rank_moe_parity,
+                       moe_train=mesh_rank_moe_train)
+
+
+def moe_mesh_reading(ops, smi: str, first_loss: float,
+                     opts: dict = None, k6_shapes: set = None) -> dict:
+    """19 (d): (c)'s model over 2 ranks sharing the card, expert parallel
+    on mesh (1, 2), and the reduced qwen3-moe in float32 against one
+    rank.  ``opts`` as :func:`mesh_train_phase`'s (a host rehearsal passes
+    its own); the signatures of the ranks' K6 launches are added to
+    ``k6_shapes``."""
+    import gc
+    import shutil
+    import tempfile
+    opts = opts or dict(device="cuda", full=True,
+                        train_argv=moe_train_argv(MESH_TRAIN_RANKS))
+    device = opts["device"]
+    one_losses, one_params, _ = mesh_parity_run(None, {}, 3, 2, device,
+                                                arch=MOE_ARCH)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="moe_mesh_")
+    try:
+        t0 = time.perf_counter()
+        ranks = run_mesh_ranks(MESH_TRAIN_RANKS, work,
+                               ("moe_parity", "moe_train"), opts)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in ranks:
+        if k6_shapes is not None:
+            k6_shapes.update(map(tuple, r["k6_shapes"]))
+    par = ranks[0]["moe_parity"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(par["losses"], one_losses))
+    if rel > MESH_LOSS_RTOL:
+        fail(f"moe (d) float32: losses {par['losses']} against one rank's "
+             f"{one_losses} (relative {rel})")
+    worst = same_params("moe (d) float32", par["params"], one_params,
+                        MESH_PARAM_ATOL)
+    log(f"moe (d) reduced {MOE_ARCH} float32 on (1, {MESH_TRAIN_RANKS}), 3 "
+        f"steps: losses {par['losses']} (one rank {one_losses}; largest "
+        f"relative difference {rel:.3e}); parameters within {worst:.3e}")
+    train = [r["moe_train"] for r in ranks]
+    losses = train[0]["losses"]
+    n_layers = MOE_TRAIN_LAYERS if opts["full"] else 2
+    per_step = 2 * n_layers * TRAIN_MICROBATCH
+    want_k6 = (MOE_MESH_STEPS * per_step, MOE_MESH_STEPS * per_step // 2, 0)
+    if device != "cuda":
+        want_k6 = (0, want_k6[1], want_k6[0])
+    for r, t in enumerate(train):
+        if tuple(t["k6"]) != want_k6 or t["losses"] != losses:
+            fail(f"moe (d) rank {r}: K6 (launches, backwards, plain) "
+                 f"{t['k6']}, not {want_k6}, or losses {t['losses']} unlike "
+                 f"rank 0's {losses}")
+    if not all(np.isfinite(losses)) or abs(losses[0] - first_loss) > \
+            MOE_MESH_FIRST_RTOL * abs(first_loss):
+        fail(f"moe (d): losses {losses}; the first not within "
+             f"{MOE_MESH_FIRST_RTOL} of (c)'s {first_loss}")
+    steady = sorted(train[0]["step_seconds"][1:] or train[0]["step_seconds"])
+    step_s = steady[len(steady) // 2]
+    staged = [t["staged"] for t in train]
+    peaks = [t["peak_bytes"] for t in train]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"moe (d) {MOE_ARCH}, {n_layers} layers at full width, over "
+        f"{MESH_TRAIN_RANKS} ranks (mesh (1, {MESH_TRAIN_RANKS}), "
+        f"{128 // MESH_TRAIN_RANKS} experts a rank, gloo, sharing the "
+        f"card): {MOE_MESH_STEPS} steps; losses {losses} ((c)'s first "
+        f"{first_loss}: {abs(losses[0] - first_loss):.5f} apart); step "
+        f"seconds {train[0]['step_seconds']} ({tokens / step_s:.1f} "
+        f"tokens/s); peak memory by rank {peaks} B; collectives a step by "
+        f"rank {[st['calls'] / MOE_MESH_STEPS for st in staged]}, bytes "
+        f"staged through the host a step "
+        f"{[(st['to_host'] + st['to_card']) / MOE_MESH_STEPS for st in staged]}"
+        f", collective seconds a step "
+        f"{[st['seconds'] / MOE_MESH_STEPS for st in staged]}; K6 a rank "
+        f"{want_k6}; ranks {wall:.1f} s; on {smi}")
+    prof = train[0].get("profiled")
+    return dict(float32=dict(losses=par["losses"], loss_rel=rel,
+                             param_max_diff=worst),
+                ranks=MESH_TRAIN_RANKS, losses=losses, step_s=step_s,
+                tokens_per_s=tokens / step_s, peak_bytes=peaks,
+                collectives_per_step=[st["calls"] / MOE_MESH_STEPS
+                                      for st in staged],
+                staged_bytes_per_step=[
+                    (st["to_host"] + st["to_card"]) / MOE_MESH_STEPS
+                    for st in staged],
+                collective_s_per_step=[st["seconds"] / MOE_MESH_STEPS
+                                       for st in staged],
+                profiled_step={k: v for k, v in (prof or {}).items()
+                               if k != "top"})
+
+
+def moe_phase(ops, smi: str) -> dict:
+    """19. Mixture-of-experts (module docstring): (a) and (e) on
+    Qwen3-30B-A3B served whole, (b) card against CPU, (c) training at full
+    width, (d) over 2 ranks.  Returns the ``moe`` entry of K6's
+    kernels-line row and the monitor's K1-K3 launches."""
+    t_phase = time.perf_counter()
+    launch = ops.flash_attention_cuda
+    seen = k6_record_launches(ops)      # every K6 launch of (a)-(d) here
+    try:
+        served = moe_serving_reading(ops, smi)
+        log(f"moe (a) + (e): {time.perf_counter() - t_phase:.1f} s")
+        parity = moe_parity_reading(ops)
+        train = moe_training_reading(ops, smi)
+        log(f"moe (b) + (c): {time.perf_counter() - t_phase:.1f} s")
+        mesh = moe_mesh_reading(ops, smi, train["losses"][0], k6_shapes=seen)
+    finally:
+        ops.flash_attention_cuda = launch
+    main_shapes = k6_path_reading(ops, seen)
+    log(f"moe phase: {time.perf_counter() - t_phase:.1f} s")
+    k6 = dict(served["k6"], serving=served["serving"],
+              card_vs_host=parity, training=train, mesh_training=mesh,
+              main_path_shapes=main_shapes)
+    return dict(k6=k6, monitor=served["monitor"])
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -5165,6 +5772,22 @@ def main() -> None:
         ops, smi, k6_row["training"]["losses"][0])
     by_route = k6_row["mesh_training"]["q_offset"]["max_abs_err_by_route"]
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"], *by_route.values())
+
+    # -- 19. mixture-of-experts: Qwen3-30B-A3B, training, ranks, monitor ----
+    moe = moe_phase(ops, smi)
+    k6_row["moe"] = moe["k6"]
+    by_route = k6_row["max_abs_err_by_route"]
+    by_route[moe["k6"]["route"]] = max(by_route.get(moe["k6"]["route"], 0.0),
+                                       moe["k6"]["max_abs_err"])
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
+                                moe["k6"]["max_abs_err"])
+    for row in rows:
+        key = {"segsum_ones": "segsum_ones", "segsum_rows": "segsum_rows",
+               "mobius": "mobius"}.get(row["name"])
+        if key is not None:
+            row["moe_monitor"] = dict(launches={
+                str(layer): m["launches"][key]
+                for layer, m in moe["monitor"].items()})
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

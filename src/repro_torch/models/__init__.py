@@ -1,11 +1,13 @@
-"""The LM substrate's serving path: a dense attention decoder (prefill and
-greedy decode against a preallocated KV cache), mirroring the JAX
-package's ``repro.models`` module by module (``config``, ``layers``,
-``mlp``, ``attention``, ``transformer``, ``model``), plus ``convert`` for
-carrying the JAX package's weights across."""
+"""The LM substrate: attention decoders, dense and mixture-of-experts
+(training's loss, prefill and greedy decode against a preallocated KV
+cache), mirroring the JAX package's ``repro.models`` module by module
+(``config``, ``layers``, ``mlp``, ``moe``, ``attention``, ``transformer``,
+``model``, ``pspec``), plus ``convert`` for carrying the JAX package's
+weights across."""
 
 from .config import ModelConfig, ShapeConfig, SHAPES, SUBQUADRATIC
 from .model import LM, build_model
+from .moe import MoeParams, moe_apply, moe_init
 
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "SUBQUADRATIC", "LM",
-           "build_model"]
+           "build_model", "MoeParams", "moe_apply", "moe_init"]

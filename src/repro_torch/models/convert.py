@@ -37,21 +37,28 @@ def params_from_jax(params_np: Mapping[str, Any],
     ``params_np`` holds ``embed`` [V, D], ``final_norm`` [D] and
     ``blocks``, stacked over layers: ``norm1``/``norm2`` [L, D], ``attn``
     (``AttnParams``: ``wq``/``wk``/``wv``/``wo`` and, with ``qkv_bias``,
-    ``bq``/``bk``/``bv``) and ``mlp`` (``MlpParams``: ``wi``/``wo`` and,
-    for SwiGLU, ``wg``).  The arrays keep their dtype; the result goes to
-    ``LM.load_state_dict``, which copies onto the model's device."""
+    ``bq``/``bk``/``bv``) and either ``mlp`` (``MlpParams``: ``wi``/``wo``
+    and, for SwiGLU, ``wg``) or, for an MoE block, ``moe`` (``MoeParams``:
+    ``router`` [L, D, E], ``wi``/``wg`` [L, E, D, F], ``wo`` [L, E, F, D])
+    and, with ``dense_residual``, ``dense`` (an ``MlpParams``).  The arrays
+    keep their dtype; the result goes to ``LM.load_state_dict``, which
+    copies onto the model's device."""
     blocks = _field(params_np, "blocks")
-    attn, mlp = _field(blocks, "attn"), _field(blocks, "mlp")
     attn_names = ["wq", "wk", "wv", "wo"]
     if cfg.qkv_bias:
         attn_names += ["bq", "bk", "bv"]
     mlp_names = ["wi", "wo"] + (["wg"] if cfg.mlp == "swiglu" else [])
+    ffn = [("moe", ["router"] + mlp_names)] if cfg.block == "moe" \
+        else [("mlp", mlp_names)]
+    if cfg.block == "moe" and cfg.dense_residual:
+        ffn.append(("dense", mlp_names))
     state = {"embed": _tensor(_field(params_np, "embed")),
              "final_norm": _tensor(_field(params_np, "final_norm"))}
-    stacked = ([("norm1", _field(blocks, "norm1")),
-                ("norm2", _field(blocks, "norm2"))]
-               + [(f"attn.{n}", _field(attn, n)) for n in attn_names]
-               + [(f"mlp.{n}", _field(mlp, n)) for n in mlp_names])
+    stacked = [("norm1", _field(blocks, "norm1")),
+               ("norm2", _field(blocks, "norm2"))]
+    for mod, names in [("attn", attn_names)] + ffn:
+        tree = _field(blocks, mod)
+        stacked += [(f"{mod}.{n}", _field(tree, n)) for n in names]
     for name, arr in stacked:
         if np.shape(arr)[0] != cfg.n_layers:
             raise ValueError(f"blocks.{name}: {np.shape(arr)[0]} layers, "

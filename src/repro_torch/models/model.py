@@ -1,6 +1,7 @@
 """The decoder LM: ``loss`` for training, ``forward``, ``prefill`` and
-``decode_step`` for serving; the JAX package's ``repro.models.model.LM`` on
-one device.
+``decode_step`` for serving; the JAX package's ``repro.models.model.LM``
+for attention decoders, dense (``block == "attn"``) and mixture-of-experts
+(``block == "moe"``, with ``dense_residual``).
 
     lm = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
     logits = lm.forward({"tokens": tokens})                  # [B, S, V]
@@ -19,17 +20,20 @@ attention over a sequence is the flash kernel, one launch per layer on the
 card.  ``loss`` runs under autograd, each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (as the JAX package wraps
 its layer in ``jax.checkpoint``), so the backward runs each layer's
-forward, K6 included, once more.  The serving entry points run without
-autograd.
+forward, K6 included, once more.  An MoE block's auxiliary load-balancing
+loss is summed over the layers, as the reference's ``_stack`` carries it,
+and ``loss`` adds ``AUX_COEF`` times it.  The serving entry points run
+without autograd.
 
 :meth:`LM.shard_` cuts the weights to this rank's shards of a training
 mesh (``train/sharding.py``'s specs), after which every entry point runs
 SPMD over the mesh: each takes this rank's part of the batch
 (``batch_spec``) and the cache's block (``cache_spec``); the embedding
 and the tied head are vocab-parallel, so ``loss`` is a vocab-parallel
-float32 log-softmax, the mean over the global batch.  ``forward``,
-``prefill`` and ``decode_step`` return whole-vocab logits.  The
-encoder-decoder waits for a later slice (ROADMAP item 14).
+float32 log-softmax, the mean over the global batch; the experts are
+expert-parallel over ``model`` and the auxiliary loss is the global
+batch's.  ``forward``, ``prefill`` and ``decode_step`` return whole-vocab
+logits.  The encoder-decoder waits for a later slice (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ def _positions_for(cfg: ModelConfig, batch: Dict[str, Any], seq: int
 
 
 class LM(nn.Module):
-    """Decoder-only language model (dense attention blocks).
+    """Decoder-only language model (attention blocks, dense or MoE).
 
     Args:
         cfg: the model's configuration.
@@ -129,23 +133,29 @@ class LM(nn.Module):
         return embed_lookup(self.embed, batch["tokens"], self.mesh).to(
             self.cfg.act_dtype())
 
-    def _logits(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Logits ``[B, S, V]`` (over a vocab-parallel mesh, this rank's
-        ``V / tp``); under autograd with ``cfg.remat``, each layer runs
-        under ``checkpoint``, which keeps only its input."""
+    def _logits(self, batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(logits [B, S, V], aux)``: the logits (over a vocab-parallel
+        mesh, this rank's ``V / tp``) and the auxiliary loss summed over
+        the layers (``None`` without experts); under autograd with
+        ``cfg.remat``, each layer runs under ``checkpoint``, which keeps
+        only its input."""
         cfg = self.cfg
         x = self._embed_in(batch)
         positions = _positions_for(cfg, batch, x.shape[1])
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = None
         for blk in self.blocks:
             if remat:
-                x = checkpoint(block_apply, blk, x, cfg, positions, True,
-                               self.mesh, use_reentrant=False)
+                x, a = checkpoint(block_apply, blk, x, cfg, positions, True,
+                                  self.mesh, use_reentrant=False)
             else:
-                x = block_apply(blk, x, cfg, positions, True, self.mesh)
+                x, a = block_apply(blk, x, cfg, positions, True, self.mesh)
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = rms_norm(x, self.final_norm)
         return tied_logits(self.embed, x, fp32=cfg.logits_fp32,
-                           mesh=self.mesh)
+                           mesh=self.mesh), aux
 
     def _vocab_parallel(self) -> bool:
         return self.mesh is not None and is_tp(self.embed)
@@ -158,8 +168,9 @@ class LM(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Logits ``[B, S, V]`` of ``batch["tokens"]`` ``[B, S]`` (the JAX
-        package also returns MoE's auxiliary loss)."""
-        return self._whole_vocab(self._logits(batch))
+        package also returns MoE's auxiliary loss, which ``loss``
+        reports)."""
+        return self._whole_vocab(self._logits(batch)[0])
 
     # ---------------------------------------------------------------- loss
     def _nll(self, logits: torch.Tensor, labels: torch.Tensor
@@ -188,11 +199,13 @@ class LM(nn.Module):
         """``(total, {"ce", "aux", "ppl_proxy"})`` for ``batch["tokens"]``
         and ``batch["labels"]`` ``[B, S]``: the mean negative
         log-likelihood of the labels under a float32 log-softmax of the
-        logits, plus ``AUX_COEF * aux`` (0: dense blocks make no auxiliary
-        loss); ``ppl_proxy = exp(min(ce, 20))``.  ``total`` carries the
-        graph; the metrics are detached.  Over a mesh the mean is over the
-        global batch (every data rank's part), equal on every rank."""
-        nll = self._nll(self._logits(batch), batch["labels"])
+        logits, plus ``AUX_COEF * aux``, the MoE blocks' auxiliary loss
+        summed over the layers (0 for dense blocks); ``ppl_proxy =
+        exp(min(ce, 20))``.  ``total`` carries the graph; the metrics are
+        detached.  Over a mesh the mean is over the global batch (every
+        data rank's part), equal on every rank, and so is ``aux``."""
+        logits, aux = self._logits(batch)
+        nll = self._nll(logits, batch["labels"])
         if self.mesh is None:
             ce = nll.mean()
         else:
@@ -200,10 +213,12 @@ class LM(nn.Module):
             ce = nll.sum() / (nll.numel() * self.mesh.axis_size(fsdp))
             for axis in fsdp:
                 ce = reduce(ce, self.mesh.group(axis))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        total = ce + AUX_COEF * aux
+        if aux is None:
+            total, aux = ce, torch.zeros_like(ce)
+        else:
+            total = ce + AUX_COEF * aux
         ce = ce.detach()
-        return total, {"ce": ce, "aux": aux,
+        return total, {"ce": ce, "aux": aux.detach(),
                        "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
     # ------------------------------------------------------------- prefill
@@ -238,7 +253,7 @@ class LM(nn.Module):
         n = max(0, min(s - off, s_local))
         positions = _positions_for(cfg, batch, s)
         for i, blk in enumerate(self.blocks):
-            x, k, v = block_attend(blk, x, cfg, positions, True, mesh)
+            x, k, v = block_attend(blk, x, cfg, positions, True, mesh)[:3]
             for name, t in (("k", k), ("v", v)):
                 if t.shape[2] != cfg.n_kv_heads:       # this rank's heads
                     t = all_gather(t, 2, mesh.group("model"))

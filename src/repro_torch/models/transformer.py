@@ -1,24 +1,31 @@
 """Decoder blocks: full-sequence apply (training's forward and the
 prefill), one-token decode against a preallocated KV cache, and the cache
 itself; the JAX package's ``repro.models.transformer`` for ``block ==
-"attn"``.
+"attn"`` (attention + MLP) and ``block == "moe"`` (attention + routed
+experts, :mod:`.moe`, plus a dense MLP beside them with
+``cfg.dense_residual``).
 
 The full-sequence attention is :func:`repro_torch.kernels.ops
 .flash_attention` (K6 on the card, its plain version on the host), under
-autograd where the weights are trainable.  The decode step writes the new
+autograd where the weights are trainable.  The full-sequence block returns
+the MoE's auxiliary loss beside its output, as the reference does
+(``None`` for an attention + MLP block, which launches nothing for it).  The decode step writes the new
 token's key and value into the cache in place, at ``pos``, instead of
-returning an updated copy.  Over a training mesh (``mesh``) the block is
-tensor-parallel over ``model`` and FSDP over ``data``
-(:mod:`.attention`, :mod:`.mlp`), and the decode cache's sequence axis is
-split over ``seq_axis``: each rank attends over its slice of the cache,
-the new key is written on the rank that owns ``pos``, and the partials
-are combined over that axis (flash-decoding).  MoE, RWKV and Hymba blocks
-and the encoder-decoder blocks wait for later slices (ROADMAP item 14).
+returning an updated copy; an MoE block routes its one token per row
+with ``S = 1`` (capacity 1, so every expert's weights are read).  Over a
+training mesh (``mesh``) the block is tensor-parallel over ``model`` and
+FSDP over ``data`` (:mod:`.attention`, :mod:`.mlp`; the experts are
+expert-parallel over ``model``, :mod:`.moe`), and the decode cache's
+sequence axis is split over ``seq_axis``: each rank attends over its
+slice of the cache, the new key is written on the rank that owns ``pos``,
+and the partials are combined over that axis (flash-decoding).  RWKV and
+Hymba blocks and the encoder-decoder blocks wait for later slices
+(ROADMAP item 14).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +36,7 @@ from .attention import (AttnParams, attend, combine_partials,
 from .config import ModelConfig
 from .layers import parameter, rms_norm
 from .mlp import MlpParams, mlp_apply
+from .moe import MoeParams, moe_route_apply
 from ..parallel.mesh import local_shape, mesh_axes
 from .pspec import current_mesh
 
@@ -36,7 +44,7 @@ from .pspec import current_mesh
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not build yet."""
     why = None
-    if cfg.block != "attn":
+    if cfg.block not in ("attn", "moe"):
         why = f"block {cfg.block!r}"
     elif cfg.rope == "mrope":
         why = "M-RoPE"
@@ -46,13 +54,16 @@ def check_supported(cfg: ModelConfig) -> None:
         why = "embedding inputs (a modality frontend)"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported yet (ROADMAP item 14); the port "
-            f"builds dense attention decoders with RoPE")
+            f"{cfg.name}: {why} not ported yet (ROADMAP item 14: RWKV, "
+            f"Hymba, M-RoPE, Whisper); the port builds attention decoders "
+            f"with RoPE, dense or MoE")
 
 
 class Block(nn.Module):
-    """One attention + MLP block: ``norm1``, ``attn``, ``norm2``, ``mlp``
-    (trainable weights take gradients)."""
+    """One block: ``norm1``, ``attn``, ``norm2`` and either ``mlp``
+    (``block == "attn"``) or ``moe`` plus, with ``cfg.dense_residual``,
+    ``dense`` (an MLP beside the experts); trainable weights take
+    gradients."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  trainable: bool = False):
@@ -63,14 +74,21 @@ class Block(nn.Module):
         self.norm2 = parameter((cfg.d_model,), torch.float32, device,
                                trainable)
         self.attn = AttnParams(cfg, device, trainable)
-        self.mlp = MlpParams(cfg, device, trainable=trainable)
+        if cfg.block == "moe":
+            self.moe = MoeParams(cfg, device, trainable)
+            if cfg.dense_residual:
+                self.dense = MlpParams(cfg, device, trainable=trainable)
+        else:
+            self.mlp = MlpParams(cfg, device, trainable=trainable)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Block":
         self.norm1.fill_(1.0)
         self.norm2.fill_(1.0)
         self.attn.init_(generator)
-        self.mlp.init_(generator)
+        for name in ("mlp", "moe", "dense"):
+            if hasattr(self, name):
+                getattr(self, name).init_(generator)
         return self
 
 
@@ -78,30 +96,57 @@ def block_init(generator: torch.Generator, cfg: ModelConfig) -> Block:
     return Block(cfg, generator.device).init_(generator)
 
 
+class BlockOut(NamedTuple):
+    """A full-sequence block's results: the stream ``x``, the block's keys
+    and values ``[B, S, Hkv, hd]`` (over a mesh, this rank's KV heads
+    where the heads route splits them), the auxiliary loss (float32;
+    ``None`` without experts) and the routing the experts used (``[B, S, K]``;
+    ``None`` without experts)."""
+    x: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    aux: Optional[torch.Tensor]
+    eidx: Optional[torch.Tensor]
+
+
+def ffn_apply(p: Block, n2: torch.Tensor, cfg: ModelConfig, mesh=None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                         Optional[torch.Tensor]]:
+    """The block's feed-forward of ``n2 [B, S, D]``: ``(out, aux, eidx)``,
+    the experts (and the dense MLP beside them) or the MLP (``aux`` and
+    ``eidx`` ``None``)."""
+    if cfg.block != "moe":
+        return mlp_apply(p.mlp, n2, cfg.mlp, mesh), None, None
+    out, aux, eidx = moe_route_apply(p.moe, n2, cfg, mesh)
+    if cfg.dense_residual:
+        out = out + mlp_apply(p.dense, n2, cfg.mlp, mesh)
+    return out, aux, eidx
+
+
 def block_attend(p: Block, x: torch.Tensor, cfg: ModelConfig,
                  positions: Optional[torch.Tensor], causal: bool = True,
-                 mesh=None
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence block; returns ``(x, k, v)`` with the block's keys and
-    values ``[B, S, Hkv, hd]`` for the prefill's cache (over a mesh, this
-    rank's KV heads where the heads route splits them)."""
+                 mesh=None) -> BlockOut:
+    """Full-sequence block, with what the prefill and the routing monitor
+    read beside the stream (:class:`BlockOut`)."""
     n1 = rms_norm(x, p.norm1)
     q, k, v = qkv_project(p.attn, n1, cfg, positions, mesh)
     ao = attend(q, k, v, cfg.n_heads, cfg.n_kv_heads, causal, mesh,
                 cfg.attn_chunk)
     b, s = ao.shape[:2]
     x = x + out_project(p.attn.wo, ao.reshape(b, s, -1), mesh)
-    n2 = rms_norm(x, p.norm2)
-    return x + mlp_apply(p.mlp, n2, cfg.mlp, mesh), k, v
+    mo, aux, eidx = ffn_apply(p, rms_norm(x, p.norm2), cfg, mesh)
+    return BlockOut(x + mo, k, v, aux, eidx)
 
 
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 positions: Optional[torch.Tensor],
-                causal: bool = True, mesh=None) -> torch.Tensor:
-    """Full-sequence block (training's forward and ``LM.forward``).  The
-    JAX package also returns an auxiliary loss, which only MoE blocks
-    make."""
-    return block_attend(p, x, cfg, positions, causal, mesh)[0]
+                causal: bool = True, mesh=None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence block (training's forward and ``LM.forward``):
+    ``(x, aux_loss)``, as the reference returns them (``aux_loss`` is
+    ``None`` for a block without experts)."""
+    out = block_attend(p, x, cfg, positions, causal, mesh)
+    return out.x, out.aux
 
 
 # ------------------------------------------------------- decode attention ---
@@ -156,8 +201,7 @@ def block_decode(p: Block, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
                                seq_axis=seq_axis, mesh=mesh)
     x1 = x1 + out_project(p.attn.wo, o.reshape(x1.shape[0], -1), mesh)
     n2 = rms_norm(x1, p.norm2)
-    return (x1 + mlp_apply(p.mlp, n2[:, None], cfg.mlp, mesh)[:, 0],
-            cache)
+    return x1 + ffn_apply(p, n2[:, None], cfg, mesh)[0][:, 0], cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,

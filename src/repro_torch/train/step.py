@@ -9,8 +9,10 @@ its weights, so ``state["params"]`` is the model's own parameters by name
 
 Over a training mesh (``init_train_state(..., mesh=mesh)`` shards the
 model, :meth:`LM.shard_`) every rank runs the same step on its own
-shards: it takes this rank's part of the batch (``batch_spec``), the
-accumulator and the optimizer's state stay in the parameters' placement
+shards: it takes this rank's part of the batch (``batch_spec``; the
+microbatches are the global batch's, as the reference's reshape of the
+global batch makes them, :func:`_microbatches`), the accumulator and the
+optimizer's state stay in the parameters' placement
 (:func:`constrain_like_params`), gradients of parameters the FSDP axes do
 not split are summed over them once a step, and the optimizer's norms and
 statistics are taken over the whole tensors.  ``make_decode_step(model,
@@ -29,8 +31,8 @@ from ..models.pspec import current_mesh
 from ..optim.adamw import AdamW, OptConfig, make_optimizer
 from ..parallel.collectives import all_reduce
 from ..parallel.mesh import spec_of
-from .sharding import (mesh_axes, param_shardings, shard, spec_axes,
-                       spec_for_param)
+from .sharding import (batch_spec, mesh_axes, param_shardings, shard,
+                       spec_axes, spec_for_param, unshard)
 
 __all__ = ["ModelConfig", "LM", "AdamW", "OptConfig", "make_optimizer",
            "mesh_axes", "spec_for_param", "constrain_like_params",
@@ -79,6 +81,27 @@ def _split(batch: Dict[str, torch.Tensor], m: int):
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 
+def _microbatches(batch: Dict[str, torch.Tensor], m: int, mesh=None):
+    """``m`` microbatches of this rank's part of the batch.  Over a mesh,
+    when this rank's row count is a multiple of the FSDP axes' size, its
+    rows are its block of a global batch those axes split (``batch_spec``
+    keeps a batch whole only where they do not divide it), and microbatch
+    ``i`` is the global batch's ``i``-th slice of rows (the token rows
+    gathered over those axes), cut to this rank's part as ``batch_spec``
+    cuts it: the rows the reference's reshape of the global batch groups,
+    which a loss that is not a mean over rows (MoE's auxiliary loss)
+    needs.  Otherwise each rank slices its own rows."""
+    if mesh is None or m == 1:
+        return _split(batch, m)
+    fsdp, _ = mesh_axes(mesh)
+    n = mesh.axis_size(fsdp)
+    if n == 1 or next(iter(batch.values())).shape[0] % n:
+        return _split(batch, m)
+    whole = {k: unshard(v, (fsdp,), mesh) for k, v in batch.items()}
+    return [{k: shard(v, batch_spec(k, tuple(v.shape), mesh), mesh)
+             for k, v in mb.items()} for mb in _split(whole, m)]
+
+
 def make_train_step(model: LM, opt, compress: Optional[Callable] = None
                     ) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: the loss and
@@ -115,7 +138,7 @@ def make_train_step(model: LM, opt, compress: Optional[Callable] = None
                    for n, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=next(iter(params.values())).device)
-            for mb in _split(batch, m):
+            for mb in _microbatches(batch, m, mesh):
                 mb_loss, metrics, grads = grads_of(params, mb)
                 for name, g in grads.items():
                     acc[name].add_(g)

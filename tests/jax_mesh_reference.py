@@ -5,6 +5,10 @@ JAX results to another.
 
     python tests/jax_mesh_reference.py cases.npz out.npz
 
+Flags in the caller's ``XLA_FLAGS`` are kept beside the device count (a
+test passes single-thread flags so that the subprocess does not crowd the
+other tests' processes).
+
 Every mesh is built with ``AxisType.Auto`` axes, as
 ``tests/test_perf_features.py`` builds its mesh: under the ``Explicit``
 axes ``jax.make_mesh`` gives by default, the package's
@@ -19,12 +23,24 @@ itself is not edited.
 * ``decode/<name>``: the logits of ``make_decode_step(model, mesh)`` at
   every position of the case's tokens, the cache placed by
   ``cache_shardings`` (its sequence axis over ``model``).
+* ``moe/<name>/*``: ``moe_apply`` on the case's input under the mesh
+  (the expert-parallel ``ep`` body where ``model`` divides the experts),
+  layer 0's MoE weights of the case's config: the output, the auxiliary
+  loss, and the gradients of ``sum(out ** 2) * 1e-3 + aux`` with respect
+  to the input and each weight (``test_moe_ep_grads_match_spmd``'s
+  loss).
+
+A case's ``cfg`` may name another reduced config than ``ARCH`` under
+``arch`` (the MoE cases: ``qwen3-moe-30b-a3b``, ``arctic-480b``).
 """
 
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = " ".join(
+    ["--xla_force_host_platform_device_count=4"]
+    + [f for f in os.environ.get("XLA_FLAGS", "").split()
+       if not f.startswith("--xla_force_host_platform_device_count")])
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax  # noqa: E402
@@ -35,6 +51,7 @@ from repro import configs  # noqa: E402
 from repro.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
 from repro.models.attention import sharded_attention  # noqa: E402
 from repro.models.model import build_model  # noqa: E402
+from repro.models.moe import moe_apply  # noqa: E402
 from repro.optim import adamw  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro.train.sharding import (batch_shardings, cache_shardings,  # noqa
@@ -51,7 +68,9 @@ def make_mesh(shape):
 
 
 def config(kw):
-    return configs.get_reduced(ARCH).replace(dtype="float32",
+    kw = dict(kw)
+    arch = kw.pop("arch", ARCH)
+    return configs.get_reduced(arch).replace(dtype="float32",
                                              param_dtype="float32", **kw)
 
 
@@ -102,6 +121,26 @@ def decode(mesh_shape, cfg_kw, tokens, max_len):
     return np.stack(out, axis=1)
 
 
+def moe(mesh_shape, cfg_kw, x):
+    cfg = config(cfg_kw)
+    mesh = make_mesh(mesh_shape)
+    params = build_model(cfg).init(jax.random.PRNGKey(0))
+    p = jax.tree.map(lambda a: a[0], params["blocks"]["moe"])
+
+    def loss(p, x):
+        o, a = moe_apply(p, x, cfg)
+        return jnp.sum(o ** 2) * 1e-3 + a, (o, a)
+
+    with jax.sharding.set_mesh(mesh):
+        (_, (out, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True))(p, jnp.asarray(x))
+    res = {"out": np.asarray(out), "aux": np.asarray(aux),
+           "g_x": np.asarray(gx)}
+    for name in ("router", "wi", "wo", "wg"):
+        res[f"g_{name}"] = np.asarray(getattr(gp, name))
+    return res
+
+
 def main(cases_path, out_path):
     cases = np.load(cases_path, allow_pickle=True)
     spec = cases["spec"].item()
@@ -116,6 +155,10 @@ def main(cases_path, out_path):
         out[f"attn/{name}"] = attention(
             c["mesh"], *(cases[f"attn/{name}/{t}"] for t in "qkv"),
             c["causal"], c["chunk"])
+    for name, c in spec.get("moe", {}).items():
+        for key, a in moe(c["mesh"], c["cfg"], cases[f"moe/{name}/x"]
+                          ).items():
+            out[f"moe/{name}/{key}"] = a
     for name, c in spec["decode"].items():
         out[f"decode/{name}"] = decode(c["mesh"], c["cfg"],
                                        cases[f"decode/{name}/tokens"],

@@ -18,7 +18,8 @@ from repro_torch.kernels import ref as port_ref
 PACKAGES = ("core", "serve", "models", "discover", "obs", "configs",
             "kernels.ref", "launch.mesh", "optim.adamw", "optim.compress",
             "train.step", "train.sharding", "models.pspec",
-            "checkpoint.store", "data.pipeline", "launch.train")
+            "checkpoint.store", "data.pipeline", "launch.train",
+            "models.moe", "train.monitor")
 
 _PACKS = ("the JAX package's padded input packs have no counterpart: the "
           "port lays a group's edge lists end to end (ROADMAP A)")
@@ -26,6 +27,13 @@ _WHISPER = "queued with Whisper's encoder-decoder (ROADMAP item 14)"
 _DRYRUN = "queued with the dry run's shape cells (launch/dryrun.py, ROADMAP " \
     "item 14)"
 _TPU = "describes a TPU pod (v5e), which the port does not run on"
+_MOE_UNUSED = ("imported by the reference's moe.py and not used there; the "
+               "port's moe.py does not import it")
+_GSPMD = ("the reference's GSPMD layout hint; the port's spmd body gathers "
+          "the experts whole and its ep body is explicit")
+_TRACE = ("the port's routing_trace reads the routing from the block as it "
+          "runs (block_attend), so it normalises nothing itself and needs "
+          "no config type")
 NO_COUNTERPART = {
     "core": {"plan_input_arrays": _PACKS},
     "serve": {"plan_input_arrays": _PACKS},
@@ -33,6 +41,9 @@ NO_COUNTERPART = {
     "configs": {"all_cells": _DRYRUN, "shape_cells": _DRYRUN},
     "launch.mesh": {"make_production_mesh": _TPU, "PEAK_FLOPS_BF16": _TPU,
                     "HBM_BW": _TPU, "ICI_BW": _TPU},
+    "models.moe": {"MlpParams": _MOE_UNUSED, "mlp_apply": _MOE_UNUSED,
+                   "constrain": _GSPMD},
+    "train.monitor": {"rms_norm": _TRACE, "ModelConfig": _TRACE},
 }
 
 

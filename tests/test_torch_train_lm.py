@@ -18,6 +18,7 @@ numpy batches through both.
 
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -438,10 +439,13 @@ def test_launcher_defaults_to_the_card():
 
 
 def test_train_example_runs_on_the_host(tmp_path):
+    # one intra-op thread: the tiny model runs faster so even alone, and
+    # a pool of spinning threads stalls when the other test processes
+    # hold the cores
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "train_100m_torch.py"),
          "--tiny", "--device", "cpu", "--steps", "12", "--ckpt-dir",
          str(tmp_path)], capture_output=True, text=True, timeout=120,
-        cwd=ROOT)
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr
     assert "loss decreased" in out.stdout

@@ -9,6 +9,10 @@ The cases are plain data (``CASES``), so the test process reads the same
 shapes, weights and batches.  The weights are the JAX package's
 ``LM.init`` (``params_from_jax``), which the test process writes to
 ``params_<name>.npz`` before the ranks start.
+
+:func:`moe_main` is the ranks' body of ``tests/test_torch_moe_mesh.py``:
+the MoE cases (``MOE_*``) on the reduced ``qwen3-moe-30b-a3b`` and
+``arctic-480b``, float32.
 """
 
 import os
@@ -26,14 +30,15 @@ from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import init_group, make_train_mesh
 from repro_torch.models.attention import sharded_attention
+from repro_torch.models import moe as tmoe
 from repro_torch.models.model import build_model
 from repro_torch.models.pspec import constrain, use_mesh
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import make_compressor
-from repro_torch.parallel.collectives import all_gather
+from repro_torch.parallel.collectives import all_gather, copy_to, reduce
 from repro_torch.train import step as tstep
 from repro_torch.train.sharding import (param_shardings, shard, shard_batch,
-                                        unshard)
+                                        spec_for_param, unshard)
 
 ARCH = "qwen2.5-3b"
 TIMEOUT_S = 120.0
@@ -250,6 +255,161 @@ def main(rank, world, workdir):
                 pickle.dump(out, f)
     except BaseException:
         with open(os.path.join(workdir, f"error{world}_{rank}.txt"),
+                  "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# ------------------------------------------------------------------ MoE ---
+
+MOE_ARCHS = {"qwen3": "qwen3-moe-30b-a3b", "arctic": "arctic-480b"}
+# name -> (model axis, arch, steps, microbatch): AdamW (ADAMW) on the
+# batches above
+MOE_TRAIN = {
+    2: {"moe_12": (2, "qwen3", 3, 2), "moe_21": (1, "qwen3", 3, 2)},
+    4: {"moe_22": (2, "qwen3", 3, 2), "arctic_22": (2, "arctic", 2, 1)},
+}
+# moe_apply alone over the mesh (its ep body), and the sum of squares of
+# its output plus aux differentiated: name -> (model axis, planted fault);
+# the planted fault routes from copy_to(x) over model, so the routing's
+# gradient (the auxiliary loss's with it) is counted tp times
+MOE_EP = {2: {"ep_12": (2, False), "ep_21": (1, False),
+              "fault_12": (2, True)},
+          4: {"ep_22": (2, False)}}
+# name -> (model axis, prompt length): the sequence-sharded decode
+MOE_DECODE = {2: {"moe_decode_12": (2, 8)}, 4: {"moe_decode_22": (2, 8)}}
+MOE_X = (4, 16, 64)
+
+
+def moe_config(arch, microbatch=1):
+    return configs.get_reduced(MOE_ARCHS[arch]).replace(
+        dtype="float32", param_dtype="float32", microbatch=microbatch)
+
+
+def moe_x():
+    """moe_apply's input of the MOE_EP cases, [4, 16, 64]."""
+    return np.random.default_rng(7).standard_normal(MOE_X).astype(np.float32)
+
+
+def moe_layer0(workdir, arch="qwen3", mesh=None):
+    """Layer 0's MoE weights of ``arch`` (trainable), whole, or this
+    rank's shards carrying their specs."""
+    cfg = moe_config(arch)
+    p = tmoe.MoeParams(cfg, torch.device("cpu"), trainable=True)
+    with np.load(os.path.join(workdir, f"params_moe_{arch}.npz")) as z:
+        with torch.no_grad():
+            for name, w in p.named_parameters():
+                t = torch.from_numpy(z[f"blocks.0.moe.{name}"])
+                if mesh is not None:
+                    w.spec = spec_for_param(f"blocks.0.moe.{name}",
+                                            tuple(t.shape), mesh)
+                    w.mesh = mesh
+                    t = shard(t, w.spec, mesh)
+                w.data = t.clone()
+    return cfg, p
+
+
+def run_moe_ep(mesh, name, spec, workdir):
+    _, planted = spec
+    cfg, p = moe_layer0(workdir, mesh=mesh)
+    x = shard(torch.from_numpy(moe_x()), (("data",), None, None), mesh)
+    x.requires_grad_()
+    route = tmoe._route
+    if planted:
+        grp = mesh.group("model")
+        tmoe._route = lambda x_, r, k: route(copy_to(x_, grp), r, k)
+    try:
+        out, aux = tmoe.moe_apply(p, x, cfg, mesh)
+    finally:
+        tmoe._route = route
+    loss = reduce((out ** 2).sum() * 1e-3, mesh.group("data")) + aux
+    names, leaves = zip(*p.named_parameters())
+    grads = torch.autograd.grad(loss, (x,) + leaves)
+    data = mesh.group("data")
+    res = dict(out=all_gather(out.detach(), 0, data).numpy(),
+               aux=float(aux), g_x=all_gather(grads[0], 0, data).numpy())
+    for n, w, g in zip(names, leaves, grads[1:]):
+        res[f"g_{n}"] = unshard(g, w.spec, mesh).numpy()
+    return res
+
+
+def load_moe_weights(model, workdir, arch, mesh=None):
+    with np.load(os.path.join(workdir, f"params_moe_{arch}.npz")) as z:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                t = torch.from_numpy(z[name])
+                p.copy_(t if mesh is None else shard(t, p.spec, mesh))
+
+
+def run_moe_train(mesh, name, spec, workdir):
+    _, arch, steps, micro = spec
+    cfg = moe_config(arch, micro)
+    model = build_model(cfg, "cpu", trainable=True)
+    opt = adamw.make_optimizer(adamw.OptConfig(**ADAMW))
+    state = tstep.init_train_state(model, opt,
+                                   torch.Generator().manual_seed(0), mesh)
+    load_moe_weights(model, workdir, arch, mesh)
+    fn = tstep.make_train_step(model, opt)
+    losses, auxes = [], []
+    for b in batches(cfg, steps):
+        b = shard_batch({k: torch.from_numpy(v) for k, v in b.items()}, mesh)
+        state, metrics = fn(state, b)
+        losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux"]))
+    params = {n: unshard(p.detach(), p.spec, mesh).numpy()
+              for n, p in state["params"].items()}
+    return dict(losses=losses, aux=auxes, params=params)
+
+
+def run_moe_decode(mesh, name, spec, workdir):
+    _, prompt = spec
+    model = build_model(moe_config("qwen3"), "cpu")
+    model.init(torch.Generator().manual_seed(0))
+    model.shard_(mesh, param_shardings(dict(model.named_parameters()), mesh))
+    load_moe_weights(model, workdir, "qwen3", mesh)
+    toks = shard_batch({"tokens": torch.from_numpy(decode_tokens(name))},
+                       mesh)["tokens"]
+    cache = model.init_cache(DECODE_TOKENS[0], DECODE_MAX)
+    last, cache = tstep.make_prefill_step(model)({"tokens": toks[:, :prompt]},
+                                                 cache)
+    step = tstep.make_decode_step(model, mesh)
+    logits = [last]
+    for pos in range(prompt, toks.shape[1]):
+        out, cache = step(cache, {"token": toks[:, pos:pos + 1], "pos": pos})
+        logits.append(out)
+    return dict(logits=all_gather(torch.stack(logits, 1), 0,
+                                  mesh.group("data")).numpy())
+
+
+def moe_main(rank, world, workdir):
+    """A rank's body for the MoE cases: join the group, make the meshes
+    ``(world / tp, tp)`` the cases ask for, run them, and rank 0 pickles
+    the results to ``moe<world>.pkl``.  The rank runs at a lower priority
+    (``nice`` 10), so that on a loaded machine the other tests' processes
+    keep their share of the cores."""
+    os.nice(10)
+    torch.set_num_threads(1)
+    try:
+        init_group(rank, world, os.path.join(workdir, f"moe_store{world}"),
+                   timeout_s=TIMEOUT_S)
+        try:
+            meshes = {}
+            out = {}
+            for cases, run in ((MOE_EP, run_moe_ep),
+                               (MOE_TRAIN, run_moe_train),
+                               (MOE_DECODE, run_moe_decode)):
+                for name, spec in cases[world].items():
+                    tp = spec[0]
+                    if tp not in meshes:
+                        meshes[tp] = make_train_mesh(tp, "cpu")
+                    out[name] = run(meshes[tp], name, spec, workdir)
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            with open(os.path.join(workdir, f"moe{world}.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(workdir, f"error_moe{world}_{rank}.txt"),
                   "w") as f:
             f.write(traceback.format_exc())
         raise
