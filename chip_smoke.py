@@ -410,6 +410,33 @@ Phases (any failure exits non-zero before the last line is printed):
               (a)-(d) launched it with, here and on the ranks.  The
               ``moe`` entry of K6's kernels-line row; K1-K3's rows gain
               ``moe_monitor``.
+20. subq    — the sub-quadratic blocks at their published full sizes,
+              random weights from generator seed 0: (a) RWKV6-1.6B (24
+              layers, d_model 2,048, 32 heads of 64, no attention) and
+              (b) Hymba-1.5B (32 layers, d_model 1,600, 25/5 attention
+              heads of 64 beside 25 SSM heads): parameters and bytes,
+              phase 8's prefill/decode consistency on 2 x 256 held in
+              float32 at full size (in bf16 a reading: the chunk length
+              changes with S, and the reference's own bf16 models part
+              by several % at depth), prefill 4
+              x 4,096 and 32 greedy decode steps at batch 4 (s,
+              tokens/s, ms a step beside the bound of reading the
+              weights once, peak memory), each profiled (busy share, top
+              kernels, device events a decode step); RWKV also one 1 x
+              32,768 prefill (no KV cache: its peak memory beside the
+              main run's); Hymba's prefill launches K6 32 times and no
+              plain attention, and K6 is held to its plain version on
+              layer 0's q, k, v (B 4, S 4,096, 25/5 heads, hd 64, bf16,
+              ``K6_BF16_TOL``), timed beside SDPA and its bound.  (c) The
+              reduced configs in float32, card against CPU: logits, loss,
+              every gradient; prefill and 16 decode steps against
+              ``forward`` (``SUBQ_PARITY_TOL``).  (d) RWKV6-1.6B trained
+              at full size through the launcher: phase 17's batch,
+              ``SUBQ_TRAIN_STEPS`` steps, finite losses whose last three
+              average below the first, no K6; one more step profiled.
+              K6 against its plain version at every signature (a)-(d)
+              launched it with.  The ``subquadratic`` entry of K6's
+              kernels-line row.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -677,6 +704,19 @@ MOE_MESH_FIRST_RTOL = 1e-3
 # (e) the routing monitor on (a)'s model and prompts: these layers' complete
 # ct-tables over (Routed?, bucket, group) counted on the card.
 MOE_MONITOR_LAYERS = (0, 47)
+# The sub-quadratic blocks (phase 20): RWKV6-1.6B (24 layers, d_model
+# 2,048, 32 heads of 64, no attention) and Hymba-1.5B (32 layers, d_model
+# 1,600, 25/5 attention heads of 64 beside 25 SSM heads, N 16) served whole
+# at phase 8's shapes (LM_BATCH x LM_PROMPT, LM_NEW greedy steps; RWKV also
+# one 1 x LM_LONG prefill), random weights from generator seed 0; (c) the
+# reduced configs in float32, card against CPU (phase 17 (c)'s tolerances;
+# logits and the consistency of prefill and decode with forward at
+# SUBQ_PARITY_TOL, the CPU tests' float32 bar); (d) RWKV6-1.6B trained at
+# full size through the launcher: phase 17's batch and learning rate,
+# SUBQ_TRAIN_STEPS steps.
+SUBQ_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")
+SUBQ_PARITY_TOL = dict(rtol=1e-4, atol=1e-4)
+SUBQ_TRAIN_ARCH, SUBQ_TRAIN_STEPS = "rwkv6-1.6b", 6
 
 
 def log(msg: str) -> None:
@@ -1148,10 +1188,12 @@ def sdpa_call(q, k, v):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
-def lm_consistency(model, ops) -> None:
+def lm_consistency(model, ops, gate: bool = True) -> dict:
     """(c) ``tests/test_arch_smoke.py``'s property at full width and
     depth: prefill's last logits against ``forward`` at s-2, and
-    ``decode_step`` at s-1 against ``forward`` at s-1."""
+    ``decode_step`` at s-1 against ``forward`` at s-1; each max abs
+    difference over the largest logit, returned by name.  With ``gate``
+    false a reading only, not held to the bar."""
     b, s = LM_CHECK_BATCH, LM_CHECK_LEN
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, model.cfg.vocab, (b, s), dtype=np.int64)).cuda()
@@ -1160,6 +1202,7 @@ def lm_consistency(model, ops) -> None:
     last, cache = model.prefill({"tokens": toks[:, :s - 1]}, cache)
     logits1, _ = model.decode_step(cache, {"token": toks[:, s - 1:],
                                            "pos": s - 1})
+    rel = {}
     for name, got, want, tol in (
             ("prefill", last, logits_all[:, s - 2], LM_PREFILL_TOL),
             ("decode", logits1, logits_all[:, s - 1], LM_DECODE_TOL)):
@@ -1168,12 +1211,16 @@ def lm_consistency(model, ops) -> None:
         diff = float((got - want).abs().max())
         scale = float(want.abs().max())
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        log(f"lm consistency ({b} x {s}): {name} vs forward max abs diff "
-            f"{diff:.5f} of max |logit| {scale:.4f} ({diff / scale:.5f}, "
-            f"tolerance {tol}); argmax agreement {agree:.2f}")
-        if diff > tol * scale:
+        rel[name] = diff / scale
+        log(f"lm consistency ({b} x {s}, {model.cfg.dtype}): {name} vs "
+            f"forward max abs diff {diff:.5f} of max |logit| {scale:.4f} "
+            f"({diff / scale:.5f}, "
+            f"{'tolerance ' + str(tol) if gate else 'a reading only'}); "
+            f"argmax agreement {agree:.2f}")
+        if gate and diff > tol * scale:
             fail(f"lm consistency: {name} logits differ from forward by "
                  f"{diff} > {tol} x {scale}")
+    return rel
 
 
 def layer0_qkv(model, tokens):
@@ -4055,13 +4102,14 @@ def train_parity_reading(ops) -> dict:
     return dict(loss_card=loss_c, loss_host=loss_h, max_abs_diff=worst)
 
 
-def raw_step_reading(prof) -> dict:
-    """A profiled training step from the trace's raw events (turning a
-    step of this size into ``FunctionEvent``s takes about 20 s): device
-    busy seconds (every device event but the annotations), K6's seconds
-    (its kernels are ``flash_*``), the span on the device of the
-    ``flash_attention.backward`` ranges (``None`` where the trace holds no
-    device-side annotation of them) and the top kernels by device time."""
+def raw_step_reading(prof, label: str = "train (d)") -> dict:
+    """A profiled training step (or any traced run) from the trace's raw
+    events (turning a step of this size into ``FunctionEvent``s takes
+    about 20 s): device busy seconds (every device event but the
+    annotations), their count, K6's seconds (its kernels are ``flash_*``),
+    the span on the device of the ``flash_attention.backward`` ranges
+    (``None`` where the trace holds no device-side annotation of them) and
+    the top kernels by device time."""
     from torch.autograd import DeviceType
     by_name, span, annotated = {}, 0, False
     for e in prof.profiler.kineto_results.events():
@@ -4075,11 +4123,12 @@ def raw_step_reading(prof) -> dict:
         ns, n = by_name.get(e.name(), (0, 0))
         by_name[e.name()] = (ns + e.duration_ns(), n + 1)
     if not by_name:
-        fail("train (d): the profiled step's trace holds no device event")
+        fail(f"{label}: the profiled run's trace holds no device event")
     busy = sum(ns for ns, _ in by_name.values()) / 1e9
     k6 = sum(ns for name, (ns, _) in by_name.items() if "flash_" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(busy_s=busy, k6_s=k6 / 1e9,
+                events=sum(n for _, n in by_name.values()),
                 backward_span_s=span / 1e9 if annotated else None,
                 top=[(name, (ns / 1e6, n)) for name, (ns, n) in top])
 
@@ -5435,6 +5484,383 @@ def moe_phase(ops, smi: str) -> dict:
     return dict(k6=k6, monitor=served["monitor"])
 
 
+# ---------------------------------------------------------------- phase 20 --
+
+def subq_serving_reading(ops, arch: str, smi: str) -> dict:
+    """20 (a) or (b): ``arch`` served whole (module docstring); for Hymba
+    also K6 on layer 0's q, k, v, timed beside SDPA and its bound."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
+    from repro_torch.models.model import build_model
+
+    part = "(a)" if arch == SUBQ_ARCHS[0] else "(b)"
+    cfg = get_config(arch)
+    attn_layers = cfg.n_layers if cfg.block == "hymba" else 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
+             f"{cfg.rwkv_head_dim}, no attention" if cfg.block == "rwkv"
+             else f"{cfg.n_heads}/{cfg.n_kv_heads} attention heads of "
+             f"{cfg.hd} beside {cfg.ssm_heads} SSM heads, N "
+             f"{cfg.ssm_state}")
+    log(f"subq {part}: {arch} at full size ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}): {n_params} parameters, {w_bytes} B of weights, "
+        f"initialised in {time.perf_counter() - t0:.2f} s; on {smi}")
+    # phase 8's bar holds in float32; in bf16 the chunk length changes
+    # with S (64 at 256 tokens, 51 at 255) and the reference's own bf16
+    # models part by several % at depth (tests/test_torch_subquadratic_
+    # depth.py), so bf16's is a reading
+    f32 = build_model(cfg.replace(dtype="float32", param_dtype="float32")
+                      ).init(torch.Generator(device="cuda").manual_seed(0))
+    consistency = dict(float32=lm_consistency(f32, ops))
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    consistency["bfloat16"] = lm_consistency(model, ops, gate=False)
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int64)).cuda()
+    cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_NEW)
+    # a short prefill first warms cuBLAS and the allocator
+    model.prefill({"tokens": prompts[:, :256]}, cache)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    k6 = (ops.LAUNCHES["flash_attention"], ops.PLAIN_CALLS["flash_attention"])
+    tok = logits.argmax(dim=-1)[:, None]
+    out, steps = [tok], []
+    for i in range(LM_NEW):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"token": tok,
+                                                  "pos": LM_PROMPT + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        out.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, dim=1)
+    median = sorted(steps)[len(steps) // 2]
+    bound_decode = 1e3 * w_bytes / HBM_BYTES_PER_S
+    if k6 != (attn_layers, 0):
+        fail(f"subq {part}: the prefill launched K6 {k6[0]} times ({k6[1]} "
+             f"plain), not {attn_layers}")
+    if not torch.isfinite(logits).all() or logits.shape != (LM_BATCH,
+                                                            cfg.vocab):
+        fail(f"subq {part}: bad decode logits {tuple(logits.shape)}")
+    if gen.shape != (LM_BATCH, LM_NEW + 1) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail(f"subq {part}: generated tokens out of range")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_NEW - 4, LM_NEW):
+            model.decode_step(cache, {"token": tok, "pos": LM_PROMPT + i})
+        sync()
+        wall_d = time.perf_counter() - t0
+    dec = raw_step_reading(prof, f"subq {part} decode")
+    del prof
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.prefill({"tokens": prompts}, cache)
+        sync()
+        wall_p = time.perf_counter() - t0
+    pre = raw_step_reading(prof, f"subq {part} prefill")
+    del prof, cache, logits
+    if ops.PLAIN_CALLS["flash_attention"]:
+        fail(f"subq {part}: plain attention ran on the card")
+    log(f"subq {part} main run: prefill {LM_BATCH} x {LM_PROMPT} tokens in "
+        f"{t_prefill:.4f} s ({LM_BATCH * LM_PROMPT / t_prefill:.1f} tok/s), "
+        f"K6 launches {k6[0]} (plain {k6[1]}); {LM_NEW} decode steps x "
+        f"{LM_BATCH} requests: first {1e3 * steps[0]:.3f} ms, median "
+        f"{1e3 * median:.3f} ms a step (the weights read once a step bound "
+        f"it at {bound_decode:.3f} ms); max_memory_allocated {peak} B; first "
+        f"tokens {gen[0, :8].tolist()}; on {smi}")
+    log(f"subq {part} prefill profile: {wall_p:.4f} s wall, device busy "
+        f"{pre['busy_s']:.4f} s ({100 * pre['busy_s'] / wall_p:.2f} %), "
+        f"{pre['events']} device events, K6 {pre['k6_s']:.4f} s; decode "
+        f"profile (4 steps): {wall_d:.4f} s wall, busy {dec['busy_s']:.4f} s "
+        f"({100 * dec['busy_s'] / wall_d:.2f} %), {dec['events'] / 4:.0f} "
+        f"device events a step")
+    for name, (ms, n) in pre["top"][:8]:
+        log(f"  prefill {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    for name, (ms, n) in dec["top"][:5]:
+        log(f"  decode  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    reading = dict(
+        params=n_params, weight_bytes=w_bytes, peak_bytes=peak,
+        prefill_s=t_prefill,
+        prefill_tokens_per_s=LM_BATCH * LM_PROMPT / t_prefill,
+        prefill_busy_share=pre["busy_s"] / wall_p,
+        prefill_top=[(name[:80], ms) for name, (ms, _) in pre["top"][:6]],
+        decode_ms_per_step=1e3 * sum(steps) / LM_NEW,
+        decode_median_ms=1e3 * median, decode_bound_ms=bound_decode,
+        decode_busy_share=dec["busy_s"] / wall_d,
+        decode_events_per_step=dec["events"] / 4, k6_launches=k6[0],
+        consistency=consistency)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.block == "rwkv":
+        long = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, LM_LONG), dtype=np.int64)).cuda()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last, state = model.prefill({"tokens": long})
+        sync()
+        t_long = time.perf_counter() - t0
+        peak_long = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(last).all():
+            fail(f"subq {part}: non-finite logits after the long prefill")
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in state.values())
+        log(f"subq {part} long prefill: 1 x {LM_LONG} tokens in "
+            f"{t_long:.4f} s ({LM_LONG / t_long:.1f} tok/s); "
+            f"max_memory_allocated {peak_long} B (the main run's {peak} B); "
+            f"the recurrent state {state_bytes} B, no KV cache; on {smi}")
+        reading.update(long_prefill_s=t_long,
+                       long_tokens_per_s=LM_LONG / t_long,
+                       long_peak_bytes=peak_long, state_bytes=state_bytes)
+        del model, long, last, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return reading
+    # K6 against its plain version on layer 0's q, k, v, timed beside SDPA
+    q, k, v = layer0_qkv(model, prompts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = check_k6(ops, q, k, v, f"{arch} layer 0")
+    b, s, h, hd = q.shape
+    route = flash_attention_route(q.dtype, hd)
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    k6_reading = dict(
+        shape=f"B={b} S={s} H={h} Hkv={k.shape[2]} hd={hd} causal bf16 "
+              f"({arch} layer 0)",
+        route=route, launches=k6[0], max_abs_err=err, bound_ms=b_ms,
+        bound_by=b_by,
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        device_ms=device_ms(lambda: ops.flash_attention(
+            q, k, v, causal=True), reps=5),
+        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, True),
+                         reps=3),
+        library_ms=cuda_ms(sdpa_call(q, k, v)),
+        library_device_ms=device_ms(sdpa_call(q, k, v), reps=5))
+    log(f"subq {part} K6 on layer 0 [{k6_reading['shape']}]: {route}, "
+        f"max_abs_err {err} (tolerance {K6_BF16_TOL}); device "
+        f"{k6_reading['device_ms']} ms (events {k6_reading['ms']:.4f}), plain "
+        f"{k6_reading['plain_ms']:.4f} ms, SDPA device "
+        f"{k6_reading['library_device_ms']} ms (events "
+        f"{k6_reading['library_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}); K6 "
+        f"share of the prefill {k6[0]} x {k6_reading['ms']:.4f} ms = "
+        f"{100 * k6[0] * k6_reading['ms'] / 1e3 / t_prefill:.2f} %; on {smi}")
+    if ops.PLAIN_CALLS["flash_attention"]:
+        fail(f"subq {part}: plain attention ran on the card")
+    del q, k, v
+    torch.cuda.empty_cache()
+    reading["k6"] = k6_reading
+    return reading
+
+
+def subq_parity_reading(ops) -> dict:
+    """20 (c): the reduced RWKV-6 and Hymba in float32 (random weights from
+    seed 0 on the host, copied to the card): logits, loss and every
+    gradient, card against CPU; on the card, prefill and 16 decode steps
+    against forward."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models.model import build_model
+    out = {}
+    for arch in SUBQ_ARCHS:
+        cfg = get_reduced(arch).replace(dtype="float32",
+                                        param_dtype="float32")
+        host = build_model(cfg, device="cpu", trainable=True).init(
+            torch.Generator().manual_seed(0))
+        card = build_model(cfg, trainable=True)
+        card.load_state_dict(host.state_dict())
+        batch = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                           global_batch=4)).batch(0)
+        runs = {}
+        for dev, model in (("cpu", host), ("cuda", card)):
+            b = {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+            ops.reset_counts()
+            loss, _ = model.loss(b)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            logits = model.forward({"tokens": b["tokens"]}).cpu()
+            runs[dev] = (float(loss.detach()),
+                         {n: g.cpu() for n, g in zip(names, grads)}, logits,
+                         ops.LAUNCHES["flash_attention"],
+                         ops.PLAIN_CALLS["flash_attention"])
+        loss_h, grads_h, logits_h, _, _ = runs["cpu"]
+        loss_c, grads_c, logits_c, k6_c, plain_c = runs["cuda"]
+        # the loss's forward, its remat in the backward, and forward()
+        want_k6 = (cfg.n_layers * (3 if cfg.remat else 2)
+                   if cfg.block == "hymba" else 0)
+        if (k6_c, plain_c) != (want_k6, 0):
+            fail(f"subq (c) {arch}: K6 launched {k6_c} times ({plain_c} "
+                 f"plain) on the card, not {want_k6}")
+        if abs(loss_c - loss_h) > TRAIN_PARITY_LOSS_RTOL * abs(loss_h):
+            fail(f"subq (c) {arch}: loss {loss_c} on the card, {loss_h} on "
+                 f"the host")
+        logit_diff = float((logits_c - logits_h).abs().max())
+        if not torch.allclose(logits_c, logits_h, **SUBQ_PARITY_TOL):
+            fail(f"subq (c) {arch}: logits differ card against host by "
+                 f"{logit_diff}")
+        worst = 0.0
+        for name, g in grads_h.items():
+            diff = float((grads_c[name] - g).abs().max())
+            if not torch.allclose(grads_c[name], g, **TRAIN_PARITY_GRAD_TOL):
+                fail(f"subq (c) {arch}: gradient {name} differs card against "
+                     f"host by {diff}")
+            worst = max(worst, diff)
+        toks = torch.from_numpy(batch["tokens"][:2, :24]).cuda()
+        with torch.no_grad():
+            full = card.forward({"tokens": toks})
+            cache = card.init_cache(2, 24)
+            last, cache = card.prefill({"tokens": toks[:, :8]}, cache)
+            steps = [last]
+            for pos in range(8, 24):
+                logits, cache = card.decode_step(cache, {
+                    "token": toks[:, pos:pos + 1], "pos": pos})
+                steps.append(logits)
+        stepwise = torch.stack(steps, 1)
+        diff = float((stepwise - full[:, 7:]).abs().max())
+        if not torch.allclose(stepwise, full[:, 7:], **SUBQ_PARITY_TOL):
+            fail(f"subq (c) {arch}: prefill/decode differ from forward by "
+                 f"{diff}")
+        log(f"subq (c) reduced {arch} float32, card against CPU: loss "
+            f"{loss_c!r} / {loss_h!r}; logits within {logit_diff:.3e}; "
+            f"{len(grads_h)} gradients within {TRAIN_PARITY_GRAD_TOL} "
+            f"(largest abs difference {worst:.3e}); K6 {k6_c} launches on "
+            f"the card; prefill + 16 decode steps within {diff:.3e} of "
+            f"forward")
+        out[arch] = dict(loss_card=loss_c, loss_host=loss_h,
+                         logits_max_abs_diff=logit_diff,
+                         grad_max_abs_diff=worst,
+                         consistency_max_abs_diff=diff)
+    return out
+
+
+def subq_training_reading(ops, smi: str) -> dict:
+    """20 (d): RWKV6-1.6B trained at full size through the launcher, and
+    one more step profiled."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import train as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SUBQ_TRAIN_ARCH)
+    argv = ["--arch", SUBQ_TRAIN_ARCH, "--steps", str(SUBQ_TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatch", str(TRAIN_MICROBATCH), "--lr", str(TRAIN_LR),
+            "--seed", "0", "--log-every", "1"]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    run = launcher.train(launcher.parse_args(argv))
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = (ops.LAUNCHES["flash_attention"],
+              ops.PLAIN_CALLS["flash_attention"])
+    losses = run.losses
+    steady = sorted(run.step_seconds[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in run.state["params"].values())
+    batch = launcher.make_model_batch(cfg, SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0)).batch(SUBQ_TRAIN_STEPS), torch.device("cuda"))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, metrics = run.step_fn(run.state, batch)
+        loss_p = float(metrics["loss"])
+        sync()
+        wall_p = time.perf_counter() - t1
+    reading = raw_step_reading(prof, "subq (d)")
+    log(f"subq (d) {SUBQ_TRAIN_ARCH} at full size ({n_params} parameters, "
+        f"{cfg.param_dtype} weights, {cfg.opt_state_dtype} moments, remat "
+        f"{cfg.remat}): {SUBQ_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MICROBATCH} microbatches, {wall:.2f} s in the "
+        f"launcher; losses {losses}; step seconds {run.step_seconds}; median "
+        f"after the first {step_s:.4f} s ({tokens / step_s:.1f} tokens/s); "
+        f"max_memory_allocated {peak} B; K6 (launches, plain calls) "
+        f"{counts}; one more step profiled: loss {loss_p:.4f}, {wall_p:.4f} "
+        f"s wall, device busy {reading['busy_s']:.4f} s, "
+        f"{reading['events']} device events; on {smi}")
+    for name, (ms, n) in reading["top"][:8]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    if counts != (0, 0):
+        fail(f"subq (d): K6 (launches, plain calls) {counts} in RWKV's "
+             f"training, which has no attention")
+    if not all(np.isfinite(losses + [loss_p])) or \
+            len(losses) != SUBQ_TRAIN_STEPS:
+        fail(f"subq (d): losses {losses}, profiled {loss_p}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"subq (d): the last three losses average "
+             f"{np.mean(losses[-3:])}, not below the first {losses[0]}")
+    del run, batch, prof, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n_params, losses=losses, step_s=step_s,
+                tokens_per_s=tokens / step_s, peak_bytes=peak,
+                profiled_step=dict(wall_s=wall_p, busy_s=reading["busy_s"],
+                                   events=reading["events"],
+                                   top=[(name[:80], ms) for name, (ms, _)
+                                        in reading["top"][:6]]))
+
+
+def subq_phase(ops, smi: str) -> dict:
+    """20. The sub-quadratic blocks (module docstring): (a) RWKV6-1.6B and
+    (b) Hymba-1.5B served whole, (c) card against CPU, (d) RWKV6-1.6B
+    trained at full size; K6 held to its plain version at every signature
+    (a)-(d) launched it with.  Returns the ``subquadratic`` entry of K6's
+    kernels-line row."""
+    t_phase = time.perf_counter()
+    launch = ops.flash_attention_cuda
+    seen = k6_record_launches(ops)      # every K6 launch of (a)-(d)
+    try:
+        serving = {}
+        for arch in SUBQ_ARCHS:
+            serving[arch] = subq_serving_reading(ops, arch, smi)
+            log(f"subq {arch}: {time.perf_counter() - t_phase:.1f} s into "
+                f"the phase")
+        parity = subq_parity_reading(ops)
+        train = subq_training_reading(ops, smi)
+    finally:
+        ops.flash_attention_cuda = launch
+    main_shapes = k6_path_reading(ops, seen)
+    log(f"subq phase: {time.perf_counter() - t_phase:.1f} s")
+    k6 = serving[SUBQ_ARCHS[1]].pop("k6")
+    return dict(k6, serving=serving, card_vs_host=parity,
+                training=train, main_path_shapes=main_shapes)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -5788,6 +6214,13 @@ def main() -> None:
             row["moe_monitor"] = dict(launches={
                 str(layer): m["launches"][key]
                 for layer, m in moe["monitor"].items()})
+
+    # -- 20. the sub-quadratic blocks: RWKV6-1.6B and Hymba-1.5B ----------
+    subq = subq_phase(ops, smi)
+    k6_row["subquadratic"] = subq
+    by_route[subq["route"]] = max(by_route.get(subq["route"], 0.0),
+                                  subq["max_abs_err"])
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"], subq["max_abs_err"])
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

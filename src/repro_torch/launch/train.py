@@ -1,10 +1,10 @@
 """End-to-end training launcher; the JAX package's ``repro.launch.train``.
 
-Runs any ``--arch`` the port builds (full or reduced config) with the
-training path: microbatch accumulation, AdamW/Adafactor,
-checkpoint/resume, optional int8 gradient compression, and the
-deterministic data pipeline.  It runs on the CUDA card unless
-``--device`` names another device.
+Runs any ``--arch`` the port builds (full or reduced config; RWKV and
+Hymba on one device only, ROADMAP item 14.5) with the training path:
+microbatch accumulation, AdamW/Adafactor, checkpoint/resume, optional
+int8 gradient compression, and the deterministic data pipeline.  It
+runs on the CUDA card unless ``--device`` names another device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt --resume \\
@@ -42,7 +42,7 @@ from ..core.device import resolve_device
 from ..data.pipeline import DataConfig, Prefetcher, SyntheticCorpus
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.model import build_model
-from ..models.transformer import check_supported
+from ..models.transformer import check_meshable, check_supported
 from ..optim.adamw import OptConfig, make_optimizer
 from ..optim.compress import make_compressor
 from ..train.sharding import batch_shardings, param_shardings
@@ -124,12 +124,14 @@ def train(args: argparse.Namespace) -> TrainRun:
 
 def _train(args: argparse.Namespace) -> TrainRun:
     multi = dist.is_initialized()
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.model_axis > 1 or multi:
+        check_meshable(cfg)
     if args.model_axis > 1 and not multi:
         raise ValueError(
             f"--model-axis {args.model_axis} needs a group of ranks: run "
             f"under torch.distributed.run, or join one first "
             f"(launch.mesh.init_group)")
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(microbatch=args.microbatch)
     if args.dtype is not None:
         cfg = cfg.replace(dtype=args.dtype, param_dtype=args.dtype)

@@ -1,9 +1,10 @@
-"""The LM substrate: attention decoders, dense and mixture-of-experts
-(training's loss, prefill and greedy decode against a preallocated KV
-cache), mirroring the JAX package's ``repro.models`` module by module
-(``config``, ``layers``, ``mlp``, ``moe``, ``attention``, ``transformer``,
-``model``, ``pspec``), plus ``convert`` for carrying the JAX package's
-weights across."""
+"""The LM substrate: attention decoders, dense and mixture-of-experts,
+and the sub-quadratic RWKV-6 and Hymba (training's loss, prefill and
+greedy decode against a preallocated cache), mirroring the JAX package's
+``repro.models`` module by module (``config``, ``layers``, ``mlp``,
+``moe``, ``attention``, ``linear_attn``, ``rwkv``, ``ssm``,
+``transformer``, ``model``, ``pspec``), plus ``convert`` for carrying the
+JAX package's weights across."""
 
 from .config import ModelConfig, ShapeConfig, SHAPES, SUBQUADRATIC
 from .model import LM, build_model

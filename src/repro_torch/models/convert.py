@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .rwkv import RwkvParams
+from .ssm import SsmParams
 
 
 def _field(tree: Any, name: str) -> Any:
@@ -35,28 +37,33 @@ def params_from_jax(params_np: Mapping[str, Any],
     """The JAX ``LM.init`` pytree as numpy arrays -> ``LM``'s state dict.
 
     ``params_np`` holds ``embed`` [V, D], ``final_norm`` [D] and
-    ``blocks``, stacked over layers: ``norm1``/``norm2`` [L, D], ``attn``
-    (``AttnParams``: ``wq``/``wk``/``wv``/``wo`` and, with ``qkv_bias``,
-    ``bq``/``bk``/``bv``) and either ``mlp`` (``MlpParams``: ``wi``/``wo``
-    and, for SwiGLU, ``wg``) or, for an MoE block, ``moe`` (``MoeParams``:
-    ``router`` [L, D, E], ``wi``/``wg`` [L, E, D, F], ``wo`` [L, E, F, D])
-    and, with ``dense_residual``, ``dense`` (an ``MlpParams``).  The arrays
-    keep their dtype; the result goes to ``LM.load_state_dict``, which
-    copies onto the model's device."""
+    ``blocks``, stacked over layers: ``norm1``/``norm2`` [L, D] and, by
+    ``cfg.block``: ``attn`` (``AttnParams``: ``wq``/``wk``/``wv``/``wo``
+    and, with ``qkv_bias``, ``bq``/``bk``/``bv``) and ``mlp``
+    (``MlpParams``: ``wi``/``wo`` and, for SwiGLU, ``wg``); for an MoE
+    block ``attn``, ``moe`` (``MoeParams``: ``router`` [L, D, E],
+    ``wi``/``wg`` [L, E, D, F], ``wo`` [L, E, F, D]) and, with
+    ``dense_residual``, ``dense`` (an ``MlpParams``); for RWKV ``rwkv``
+    (``RwkvParams``' 19 fields); for Hymba ``attn``, ``ssm``
+    (``SsmParams``) and ``mlp``.  The arrays keep their dtype; the result
+    goes to ``LM.load_state_dict``, which copies onto the model's
+    device."""
     blocks = _field(params_np, "blocks")
     attn_names = ["wq", "wk", "wv", "wo"]
     if cfg.qkv_bias:
         attn_names += ["bq", "bk", "bv"]
     mlp_names = ["wi", "wo"] + (["wg"] if cfg.mlp == "swiglu" else [])
-    ffn = [("moe", ["router"] + mlp_names)] if cfg.block == "moe" \
-        else [("mlp", mlp_names)]
-    if cfg.block == "moe" and cfg.dense_residual:
-        ffn.append(("dense", mlp_names))
+    mods = {"attn": [("attn", attn_names), ("mlp", mlp_names)],
+            "moe": [("attn", attn_names), ("moe", ["router"] + mlp_names)]
+            + ([("dense", mlp_names)] if cfg.dense_residual else []),
+            "rwkv": [("rwkv", list(RwkvParams.FIELDS))],
+            "hymba": [("attn", attn_names), ("ssm", list(SsmParams.FIELDS)),
+                      ("mlp", mlp_names)]}[cfg.block]
     state = {"embed": _tensor(_field(params_np, "embed")),
              "final_norm": _tensor(_field(params_np, "final_norm"))}
     stacked = [("norm1", _field(blocks, "norm1")),
                ("norm2", _field(blocks, "norm2"))]
-    for mod, names in [("attn", attn_names)] + ffn:
+    for mod, names in mods:
         tree = _field(blocks, mod)
         stacked += [(f"{mod}.{n}", _field(tree, n)) for n in names]
     for name, arr in stacked:

@@ -1,7 +1,8 @@
 """The decoder LM: ``loss`` for training, ``forward``, ``prefill`` and
 ``decode_step`` for serving; the JAX package's ``repro.models.model.LM``
 for attention decoders, dense (``block == "attn"``) and mixture-of-experts
-(``block == "moe"``, with ``dense_residual``).
+(``block == "moe"``, with ``dense_residual``), and for the sub-quadratic
+blocks, RWKV-6 (``"rwkv"``) and Hymba (``"hymba"``).
 
     lm = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
     logits = lm.forward({"tokens": tokens})                  # [B, S, V]
@@ -17,7 +18,10 @@ The module holds its weights (``embed``, ``blocks.{i}.*``, ``final_norm``;
 parameters onto them); they take gradients only in a model built
 ``trainable``.  Layers run one after another in a Python loop; the
 attention over a sequence is the flash kernel, one launch per layer on the
-card.  ``loss`` runs under autograd, each layer under
+card (none for RWKV).  The decode cache holds each layer's keys and values
+and, for RWKV and Hymba, the recurrent states the prefill leaves
+(:func:`repro_torch.models.transformer.init_cache`).  ``loss`` runs
+under autograd, each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (as the JAX package wraps
 its layer in ``jax.checkpoint``), so the backward runs each layer's
 forward, K6 included, once more.  An MoE block's auxiliary load-balancing
@@ -33,7 +37,9 @@ and the tied head are vocab-parallel, so ``loss`` is a vocab-parallel
 float32 log-softmax, the mean over the global batch; the experts are
 expert-parallel over ``model`` and the auxiliary loss is the global
 batch's.  ``forward``, ``prefill`` and ``decode_step`` return whole-vocab
-logits.  The encoder-decoder waits for a later slice (ROADMAP item 14).
+logits.  RWKV and Hymba run on one device (``shard_`` refuses them,
+ROADMAP item 14.5).  The encoder-decoder waits for a later slice (ROADMAP
+item 14).
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from .config import ModelConfig
 from .layers import (embed_init, embed_lookup, is_tp, parameter, rms_norm,
                      tied_logits)
 from .transformer import (Block, block_apply, block_attend, block_decode,
-                          check_supported, init_cache)
+                          check_meshable, check_supported, init_cache)
 
 AUX_COEF = 0.01
 
@@ -67,7 +73,8 @@ def _positions_for(cfg: ModelConfig, batch: Dict[str, Any], seq: int
 
 
 class LM(nn.Module):
-    """Decoder-only language model (attention blocks, dense or MoE).
+    """Decoder-only language model (attention blocks, dense or MoE; RWKV;
+    Hymba).
 
     Args:
         cfg: the model's configuration.
@@ -102,6 +109,7 @@ class LM(nn.Module):
         mesh."""
         if self.mesh is not None:
             raise ValueError("the model is already sharded")
+        check_meshable(self.cfg)
         for name, p in self.named_parameters():
             p.global_shape = tuple(p.shape)
             p.data = shard(p.data, specs[name], mesh).clone()
@@ -230,7 +238,8 @@ class LM(nn.Module):
 
         The prompt's keys and values go into ``cache`` (from
         :meth:`init_cache`, at least as long as the prompt) in place, at
-        positions ``0 .. S-1``; without one, a cache of exactly the
+        positions ``0 .. S-1``, and RWKV's and Hymba's recurrent states
+        after the prompt beside them; without one, a cache of exactly the
         prompt's length ``[L, B, S, Hkv, hd]`` is returned.  Over a mesh
         ``cache`` is this rank's block (``cache_spec``: its slice of the
         positions), and each rank writes the positions it holds."""
@@ -242,22 +251,27 @@ class LM(nn.Module):
             if s % tp:
                 raise ValueError(f"a prompt of {s} does not split over "
                                  f"{tp} ranks; pass a cache")
-            shape = (cfg.n_layers, b, s // tp, cfg.n_kv_heads, cfg.hd)
-            cache = {name: torch.empty(shape, dtype=x.dtype, device=x.device)
-                     for name in ("k", "v")}
-        elif cache["k"].shape[1] != b or cache["k"].shape[2] * tp < s:
-            raise ValueError(f"cache {tuple(cache['k'].shape)} does not hold "
+            # this rank's block: its part of the batch, its slice of S
+            cache = init_cache(cfg, b, s // tp, x.device)
+        some = next(iter(cache.values()))
+        if some.shape[1] != b or ("k" in cache
+                                  and cache["k"].shape[2] * tp < s):
+            raise ValueError(f"cache {tuple(some.shape)} does not hold "
                              f"{b} prompts of {s} tokens")
-        s_local = cache["k"].shape[2]
+        s_local = cache["k"].shape[2] if "k" in cache else s
         off = 0 if mesh is None else mesh.coords["model"] * s_local
         n = max(0, min(s - off, s_local))
         positions = _positions_for(cfg, batch, s)
         for i, blk in enumerate(self.blocks):
-            x, k, v = block_attend(blk, x, cfg, positions, True, mesh)[:3]
-            for name, t in (("k", k), ("v", v)):
-                if t.shape[2] != cfg.n_kv_heads:       # this rank's heads
-                    t = all_gather(t, 2, mesh.group("model"))
-                cache[name][i, :, :n] = t[:, off:off + n]
+            out = block_attend(blk, x, cfg, positions, True, mesh)
+            x = out.x
+            if out.k is not None:
+                for name, t in (("k", out.k), ("v", out.v)):
+                    if t.shape[2] != cfg.n_kv_heads:   # this rank's heads
+                        t = all_gather(t, 2, mesh.group("model"))
+                    cache[name][i, :, :n] = t[:, off:off + n]
+            for name, t in (out.state or {}).items():
+                cache[name][i] = t
         x = rms_norm(x[:, -1:], self.final_norm)
         logits = tied_logits(self.embed, x, fp32=cfg.logits_fp32, mesh=mesh)
         return self._whole_vocab(logits)[:, 0], cache
@@ -268,10 +282,10 @@ class LM(nn.Module):
                     batch: Dict[str, Any], seq_axis: Optional[str] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token for the whole batch.  batch: {"token": [B, 1], "pos":
-        the position being written (an int)}.  Returns (logits [B, V],
-        cache), the cache updated in place.  Over a mesh the cache's
-        sequence axis is split over ``seq_axis`` (``"model"``: the
-        ``cache_spec`` layout)."""
+        the position being written (an int; RWKV, which keeps no keys,
+        reads none)}.  Returns (logits [B, V], cache), the cache updated
+        in place.  Over a mesh the cache's sequence axis is split over
+        ``seq_axis`` (``"model"``: the ``cache_spec`` layout)."""
         cfg, mesh = self.cfg, self.mesh
         if mesh is not None and seq_axis != "model":
             raise ValueError("over a mesh the decode cache is split along "
@@ -285,7 +299,7 @@ class LM(nn.Module):
             positions = torch.full((x1.shape[0], 1), pos, dtype=torch.int32,
                                    device=x1.device)
         for i, blk in enumerate(self.blocks):
-            layer = {"k": cache["k"][i], "v": cache["v"][i]}
+            layer = {name: t[i] for name, t in cache.items()}
             x1, _ = block_decode(blk, x1, layer, cfg, pos, positions, mesh,
                                  seq_axis)
         x1 = rms_norm(x1, self.final_norm)
@@ -302,6 +316,6 @@ def build_model(cfg: ModelConfig, device=None,
                 trainable: bool = False) -> LM:
     """The model for ``cfg`` on ``device`` (``None``: the CUDA card), with
     uninitialised weights, trainable or not (:class:`LM`).  Raises
-    ``NotImplementedError`` for the blocks, RoPE variants and model kinds
-    the port does not build yet."""
+    ``NotImplementedError`` for the RoPE variants and model kinds the port
+    does not build yet."""
     return LM(cfg, device, trainable)

@@ -1,26 +1,30 @@
 """Decoder blocks: full-sequence apply (training's forward and the
-prefill), one-token decode against a preallocated KV cache, and the cache
+prefill), one-token decode against a preallocated cache, and the cache
 itself; the JAX package's ``repro.models.transformer`` for ``block ==
-"attn"`` (attention + MLP) and ``block == "moe"`` (attention + routed
+"attn"`` (attention + MLP), ``block == "moe"`` (attention + routed
 experts, :mod:`.moe`, plus a dense MLP beside them with
-``cfg.dense_residual``).
+``cfg.dense_residual``), ``block == "rwkv"`` (RWKV-6's token and channel
+mixes, :mod:`.rwkv`: no attention) and ``block == "hymba"`` (attention and
+SSM heads on the same normed input, averaged, :mod:`.ssm`, then an MLP).
 
 The full-sequence attention is :func:`repro_torch.kernels.ops
 .flash_attention` (K6 on the card, its plain version on the host), under
 autograd where the weights are trainable.  The full-sequence block returns
 the MoE's auxiliary loss beside its output, as the reference does
-(``None`` for an attention + MLP block, which launches nothing for it).  The decode step writes the new
-token's key and value into the cache in place, at ``pos``, instead of
-returning an updated copy; an MoE block routes its one token per row
-with ``S = 1`` (capacity 1, so every expert's weights are read).  Over a
-training mesh (``mesh``) the block is tensor-parallel over ``model`` and
-FSDP over ``data`` (:mod:`.attention`, :mod:`.mlp`; the experts are
-expert-parallel over ``model``, :mod:`.moe`), and the decode cache's
-sequence axis is split over ``seq_axis``: each rank attends over its
-slice of the cache, the new key is written on the rank that owns ``pos``,
-and the partials are combined over that axis (flash-decoding).  RWKV and
-Hymba blocks and the encoder-decoder blocks wait for later slices
-(ROADMAP item 14).
+(``None`` for a block without experts, which launches nothing for it), and
+what the prefill keeps: the keys and values, and RWKV's and Hymba's
+recurrent states.  The decode step writes the new token's key and value
+into the cache in place, at ``pos``, and the recurrent states likewise,
+instead of returning an updated copy; an MoE block routes its one token
+per row with ``S = 1`` (capacity 1, so every expert's weights are read).
+Over a training mesh (``mesh``) the block is tensor-parallel over
+``model`` and FSDP over ``data`` (:mod:`.attention`, :mod:`.mlp`; the
+experts are expert-parallel over ``model``, :mod:`.moe`), and the decode
+cache's sequence axis is split over ``seq_axis``: each rank attends over
+its slice of the cache, the new key is written on the rank that owns
+``pos``, and the partials are combined over that axis (flash-decoding).
+RWKV and Hymba run on one device (over a mesh: ROADMAP item 14.5); M-RoPE
+and the encoder-decoder blocks wait for later slices (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -37,14 +41,20 @@ from .config import ModelConfig
 from .layers import parameter, rms_norm
 from .mlp import MlpParams, mlp_apply
 from .moe import MoeParams, moe_route_apply
+from .rwkv import (RwkvParams, rwkv_channel_mix, rwkv_channel_mix_decode,
+                   rwkv_token_mix, rwkv_token_mix_decode)
+from .ssm import SsmParams, ssm_apply, ssm_decode
 from ..parallel.mesh import local_shape, mesh_axes
 from .pspec import current_mesh
+
+
+RECURRENT = ("rwkv", "hymba")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not build yet."""
     why = None
-    if cfg.block not in ("attn", "moe"):
+    if cfg.block not in ("attn", "moe") + RECURRENT:
         why = f"block {cfg.block!r}"
     elif cfg.rope == "mrope":
         why = "M-RoPE"
@@ -54,16 +64,26 @@ def check_supported(cfg: ModelConfig) -> None:
         why = "embedding inputs (a modality frontend)"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported yet (ROADMAP item 14: RWKV, "
-            f"Hymba, M-RoPE, Whisper); the port builds attention decoders "
-            f"with RoPE, dense or MoE")
+            f"{cfg.name}: {why} not ported yet (ROADMAP item 14: M-RoPE, "
+            f"Whisper); the port builds decoders of attention (dense or "
+            f"MoE, with RoPE), RWKV and Hymba blocks")
+
+
+def check_meshable(cfg: ModelConfig) -> None:
+    """Raise for a block the port does not run over a training mesh."""
+    if cfg.block in RECURRENT:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.block!r} blocks over a training mesh are not "
+            f"ported yet (ROADMAP item 14.5); they run on one device")
 
 
 class Block(nn.Module):
-    """One block: ``norm1``, ``attn``, ``norm2`` and either ``mlp``
-    (``block == "attn"``) or ``moe`` plus, with ``cfg.dense_residual``,
-    ``dense`` (an MLP beside the experts); trainable weights take
-    gradients."""
+    """One block: ``norm1``, ``norm2`` and, by ``cfg.block``: ``attn`` and
+    ``mlp`` (``"attn"``); ``attn``, ``moe`` and, with
+    ``cfg.dense_residual``, ``dense`` (an MLP beside the experts;
+    ``"moe"``); ``rwkv`` (``"rwkv"``: its channel mix is its own, no
+    ``mlp``); ``attn``, ``ssm`` and ``mlp`` (``"hymba"``).  Trainable
+    weights take gradients."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  trainable: bool = False):
@@ -73,20 +93,24 @@ class Block(nn.Module):
                                trainable)
         self.norm2 = parameter((cfg.d_model,), torch.float32, device,
                                trainable)
+        if cfg.block == "rwkv":
+            self.rwkv = RwkvParams(cfg, device, trainable)
+            return
         self.attn = AttnParams(cfg, device, trainable)
         if cfg.block == "moe":
             self.moe = MoeParams(cfg, device, trainable)
             if cfg.dense_residual:
                 self.dense = MlpParams(cfg, device, trainable=trainable)
-        else:
-            self.mlp = MlpParams(cfg, device, trainable=trainable)
+            return
+        if cfg.block == "hymba":
+            self.ssm = SsmParams(cfg, device, trainable)
+        self.mlp = MlpParams(cfg, device, trainable=trainable)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Block":
         self.norm1.fill_(1.0)
         self.norm2.fill_(1.0)
-        self.attn.init_(generator)
-        for name in ("mlp", "moe", "dense"):
+        for name in ("rwkv", "attn", "ssm", "mlp", "moe", "dense"):
             if hasattr(self, name):
                 getattr(self, name).init_(generator)
         return self
@@ -99,14 +123,18 @@ def block_init(generator: torch.Generator, cfg: ModelConfig) -> Block:
 class BlockOut(NamedTuple):
     """A full-sequence block's results: the stream ``x``, the block's keys
     and values ``[B, S, Hkv, hd]`` (over a mesh, this rank's KV heads
-    where the heads route splits them), the auxiliary loss (float32;
-    ``None`` without experts) and the routing the experts used (``[B, S, K]``;
-    ``None`` without experts)."""
+    where the heads route splits them; ``None`` for RWKV), the auxiliary
+    loss (float32; ``None`` without experts), the routing the experts used
+    (``[B, S, K]``; ``None`` without experts) and the recurrent state
+    the decode continues from (RWKV: ``tm_x``/``cm_x`` [B, D], the last
+    token of each mix's normed input, and ``wkv`` [B, H, hd, hd]; Hymba:
+    ``ssm`` [B, H, N, hd]; ``None`` for attention blocks)."""
     x: torch.Tensor
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Optional[torch.Tensor]
+    v: Optional[torch.Tensor]
     aux: Optional[torch.Tensor]
     eidx: Optional[torch.Tensor]
+    state: Optional[Dict[str, torch.Tensor]] = None
 
 
 def ffn_apply(p: Block, n2: torch.Tensor, cfg: ModelConfig, mesh=None
@@ -128,14 +156,27 @@ def block_attend(p: Block, x: torch.Tensor, cfg: ModelConfig,
                  mesh=None) -> BlockOut:
     """Full-sequence block, with what the prefill and the routing monitor
     read beside the stream (:class:`BlockOut`)."""
+    if cfg.block == "rwkv":
+        n1 = rms_norm(x, p.norm1)
+        h, (tm_x, wkv) = rwkv_token_mix(p.rwkv, n1, cfg)
+        x = x + h
+        h, cm_x = rwkv_channel_mix(p.rwkv, rms_norm(x, p.norm2))
+        return BlockOut(x + h, None, None, None, None,
+                        dict(tm_x=tm_x, cm_x=cm_x, wkv=wkv))
     n1 = rms_norm(x, p.norm1)
     q, k, v = qkv_project(p.attn, n1, cfg, positions, mesh)
     ao = attend(q, k, v, cfg.n_heads, cfg.n_kv_heads, causal, mesh,
                 cfg.attn_chunk)
     b, s = ao.shape[:2]
-    x = x + out_project(p.attn.wo, ao.reshape(b, s, -1), mesh)
+    ao = out_project(p.attn.wo, ao.reshape(b, s, -1), mesh)
+    state = None
+    if cfg.block == "hymba":
+        so, s1 = ssm_apply(p.ssm, n1, cfg)
+        ao = (ao + so) * 0.5
+        state = dict(ssm=s1)
+    x = x + ao
     mo, aux, eidx = ffn_apply(p, rms_norm(x, p.norm2), cfg, mesh)
-    return BlockOut(x + mo, k, v, aux, eidx)
+    return BlockOut(x + mo, k, v, aux, eidx, state)
 
 
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
@@ -191,15 +232,33 @@ def block_decode(p: Block, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
                  seq_axis: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token block step.  x1 [B, D]; ``cache`` holds this layer's
-    ``k``/``v`` [B, S, Hkv, hd] (over a mesh, this rank's slice of S
-    along ``seq_axis``), updated in place.  Returns (x1, cache)."""
+    entries of :func:`init_cache` (``k``/``v`` [B, S, Hkv, hd], over a
+    mesh this rank's slice of S along ``seq_axis``; RWKV's ``tm_x``,
+    ``cm_x`` and ``wkv``; Hymba's ``ssm``), updated in place.  Returns
+    (x1, cache)."""
+    if cfg.block == "rwkv":
+        h, (tm_x, wkv) = rwkv_token_mix_decode(
+            p.rwkv, rms_norm(x1, p.norm1), cfg, (cache["tm_x"],
+                                                 cache["wkv"]))
+        cache["tm_x"].copy_(tm_x)
+        cache["wkv"].copy_(wkv)
+        x1 = x1 + h
+        h, cm_x = rwkv_channel_mix_decode(p.rwkv, rms_norm(x1, p.norm2),
+                                          cache["cm_x"])
+        cache["cm_x"].copy_(cm_x)
+        return x1 + h, cache
     n1 = rms_norm(x1, p.norm1)
     q, k, v = qkv_project(p.attn, n1[:, None], cfg, positions, mesh)
     q, k, v = (whole_heads(t[:, 0], n, mesh) for t, n in (
         (q, cfg.n_heads), (k, cfg.n_kv_heads), (v, cfg.n_kv_heads)))
     o, _, _ = decode_attention(q, cache["k"], cache["v"], k, v, pos,
                                seq_axis=seq_axis, mesh=mesh)
-    x1 = x1 + out_project(p.attn.wo, o.reshape(x1.shape[0], -1), mesh)
+    ao = out_project(p.attn.wo, o.reshape(x1.shape[0], -1), mesh)
+    if cfg.block == "hymba":
+        so, s1 = ssm_decode(p.ssm, n1, cfg, cache["ssm"])
+        cache["ssm"].copy_(s1)
+        ao = (ao + so) * 0.5
+    x1 = x1 + ao
     n2 = rms_norm(x1, p.norm2)
     return x1 + ffn_apply(p, n2[:, None], cfg, mesh)[0][:, 0], cache
 
@@ -207,14 +266,30 @@ def block_decode(p: Block, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                device: torch.device, mesh=None) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache, stacked over layers: ``k``/``v``
-    [L, B, S, Hkv, hd] in the activation dtype; over a mesh, this rank's
-    block of it as ``cache_spec`` lays it out (S split over ``model``, B
-    over the FSDP axes where they divide it)."""
+    [L, B, S, Hkv, hd] in the activation dtype for the attention blocks;
+    Hymba's ``ssm`` [L, B, H, N, hd] float32 beside them; RWKV's ``tm_x``/
+    ``cm_x`` [L, B, D] (activation dtype) and ``wkv`` [L, B, H, hd, hd]
+    (float32), and no ``k``/``v``.  Over a mesh, this rank's block of it
+    as ``cache_spec`` lays it out (S split over ``model``, B over the FSDP
+    axes where they divide it)."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
-    if mesh is not None:            # train.sharding.cache_spec's layout
-        fsdp, tp = mesh_axes(mesh)
-        b_ax = fsdp if batch % mesh.axis_size(fsdp) == 0 else None
-        shape = local_shape(shape, (None, b_ax, tp, None, None), mesh)
-    return {name: torch.zeros(shape, dtype=cfg.act_dtype(), device=device)
-            for name in ("k", "v")}
+    l, act, f32 = cfg.n_layers, cfg.act_dtype(), torch.float32
+    if mesh is not None:
+        check_meshable(cfg)
+    if cfg.block == "rwkv":
+        h, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        shapes = dict(tm_x=((l, batch, cfg.d_model), act),
+                      cm_x=((l, batch, cfg.d_model), act),
+                      wkv=((l, batch, h, hd, hd), f32))
+    else:
+        shape = (l, batch, seq, cfg.n_kv_heads, cfg.hd)
+        if mesh is not None:            # train.sharding.cache_spec's layout
+            fsdp, tp = mesh_axes(mesh)
+            b_ax = fsdp if batch % mesh.axis_size(fsdp) == 0 else None
+            shape = local_shape(shape, (None, b_ax, tp, None, None), mesh)
+        shapes = dict(k=(shape, act), v=(shape, act))
+        if cfg.block == "hymba":
+            shapes["ssm"] = ((l, batch, cfg.ssm_heads, cfg.ssm_state,
+                              cfg.hd), f32)
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in shapes.items()}

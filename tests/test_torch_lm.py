@@ -143,11 +143,31 @@ def test_qwen_full_size_and_registry():
         configs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b",
-                                  "qwen2-vl-72b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
 def test_build_model_refuses_what_is_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         build_model(configs.get_reduced(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_build_model_builds_the_subquadratic_blocks(arch):
+    """The reduced RWKV-6 and Hymba build on the host and serve: finite
+    ``forward`` logits, and a prefill and a decode step into a cache
+    (``tests/test_torch_subquadratic.py`` holds them to the JAX LM)."""
+    cfg = configs.get_reduced(arch)
+    lm = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    blk = lm.blocks[0]
+    assert hasattr(blk, "rwkv") != hasattr(blk, "attn")
+    assert hasattr(blk, "ssm") == (cfg.block == "hymba")
+    toks = torch.from_numpy(_tokens(0, 2, 9, cfg.vocab))
+    logits = lm.forward({"tokens": toks})
+    assert logits.shape == (2, 9, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    cache = lm.init_cache(2, 9)
+    assert ("k" in cache) == (cfg.block == "hymba")
+    last, cache = lm.prefill({"tokens": toks[:, :8]}, cache)
+    step, _ = lm.decode_step(cache, {"token": toks[:, 8:], "pos": 8})
+    assert torch.isfinite(last).all() and torch.isfinite(step).all()
 
 
 def test_build_model_defaults_to_the_card():

@@ -19,7 +19,8 @@ PACKAGES = ("core", "serve", "models", "discover", "obs", "configs",
             "kernels.ref", "launch.mesh", "optim.adamw", "optim.compress",
             "train.step", "train.sharding", "models.pspec",
             "checkpoint.store", "data.pipeline", "launch.train",
-            "models.moe", "train.monitor")
+            "models.moe", "train.monitor", "models.linear_attn",
+            "models.rwkv", "models.ssm")
 
 _PACKS = ("the JAX package's padded input packs have no counterpart: the "
           "port lays a group's edge lists end to end (ROADMAP A)")
