@@ -357,8 +357,9 @@ Phases (any failure exits non-zero before the last line is printed):
               (the sequence-parallel route: K6 with ``q_offset`` under
               autograd), and the (2, 2) state saved and restored on (1, 2)
               bit for bit.  (c) Qwen2.5-3B at full width and depth over 2
-              ranks on (1, 2) through the launcher: phase 17's batch, 3
-              steps, the first loss within ``MESH_FIRST_LOSS_RTOL`` of
+              ranks on (1, 2) through the launcher: phase 17's batch,
+              ``MESH_TRAIN_STEPS`` steps, the first loss within
+              ``MESH_FIRST_LOSS_RTOL`` of
               phase 17's; step seconds, tokens/s, each rank's peak memory,
               bytes staged and collective seconds a step, K6 launched 144
               times a step on each rank (8 local heads); one more step
@@ -434,9 +435,38 @@ Phases (any failure exits non-zero before the last line is printed):
               at full size through the launcher: phase 17's batch,
               ``SUBQ_TRAIN_STEPS`` steps, finite losses whose last three
               average below the first, no K6; one more step profiled.
-              K6 against its plain version at every signature (a)-(d)
-              launched it with.  The ``subquadratic`` entry of K6's
-              kernels-line row.
+              (e) Float32 parity over 2 ranks sharing the card (mesh (1,
+              2), gloo) against one rank: the reduced RWKV and Hymba and
+              a Hymba of 5 heads (``SUBQ_MESH_VARIANTS``; its SSM on the
+              chunks route, its attention on the sequence route, K6 with
+              ``q_offset``), the init's constants perturbed, 2 AdamW
+              steps of 4 x 256: losses within ``MESH_LOSS_RTOL``,
+              parameters within ``SUBQ_MESH_PARAM_ATOL``.  (f) RWKV6-1.6B
+              and Hymba-1.5B at full size over the 2 ranks through the
+              launcher (phase 17's batch, ``SUBQ_MESH_TRAIN_STEPS`` steps
+              each): s a step, tokens/s, each rank's peak memory,
+              collectives and bytes staged each way a step, K6 launches
+              a step on each rank (Hymba's sequence route), finite
+              losses, the first within ``SUBQ_MESH_FIRST_RTOL`` of one
+              card's; and Hymba-1.5B trained on one card
+              (``SUBQ_HYMBA_STEPS`` steps, one more profiled).  K6
+              against its plain version at every signature (a)-(f)
+              launched it with, here and on the ranks.  The
+              ``subquadratic`` entry of K6's kernels-line row.
+21. vlm      — Qwen2-VL-72B (M-RoPE, embedding inputs) at its published
+              width (d_model 8,192, 64/8 heads of 128, d_ff 29,568,
+              vocab 152,064, bf16, random weights from generator seed
+              0), its 80 layers cut to ``VLM_LAYERS``: the reduced config
+              in float32 first, prefill and decode fed ``embed1`` against
+              ``forward`` under phase 8's bars; then a prefill of
+              ``VLM_BATCH`` x ``VLM_PROMPT`` seeded embeddings whose
+              M-RoPE ids hold a ``VLM_GRID`` image between two text
+              runs, K6 launched once a layer on the ``wgmma`` route and
+              no plain attention, ``VLM_NEW`` greedy decode steps (ms a
+              step beside the bound of reading the weights once), peak
+              memory, the prefill profiled; K6 against its plain version
+              on layer 0's q, k, v (``K6_BF16_TOL``), timed beside SDPA
+              and its bound.  The ``vlm`` entry of K6's kernels-line row.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -665,12 +695,12 @@ MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-6, 1e-5
 # mesh (1, MESH_TRAIN_RANKS), phase 17's batch and learning rate,
 # MESH_TRAIN_STEPS steps; its first loss within MESH_FIRST_LOSS_RTOL of
 # phase 17's (bf16: the ranks sum partial products in another order).
-MESH_TRAIN_RANKS, MESH_TRAIN_STEPS = 2, 3
+MESH_TRAIN_RANKS, MESH_TRAIN_STEPS = 2, 2
 MESH_FIRST_LOSS_RTOL = 2e-2
 # (d) the sequence-sharded decode at full width: MESH_DECODE_BATCH prompts
 # of MESH_DECODE_PROMPT tokens, then MESH_DECODE_NEW decode steps
 # (teacher-forced), the cache's sequence axis over the model axis.
-MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW = 2, 512, 16
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW = 2, 512, 8
 # and the reduced qwen2.5-3b in float32: (batch, prompt, new tokens), held
 # to one rank at tests/test_torch_train_mesh.py's logits tolerance
 MESH_DECODE_F32 = (2, 64, 16)
@@ -680,7 +710,7 @@ MESH_DECODE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 # generator seed 0 (30.5 B parameters, 61 GB); phase 8's main run
 # (MOE_BATCH prompts of MOE_PROMPT tokens, MOE_NEW greedy decode steps).
 MOE_ARCH = "qwen3-moe-30b-a3b"
-MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 4096, 32
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 4096, 16
 # (b) the reduced MoE configs in float32, card against CPU (phase 17 (c)'s
 # tolerances); the consistency of prefill and decode with forward at
 # lossless capacity (capacity factor = the expert count), the CPU test's
@@ -717,6 +747,48 @@ MOE_MONITOR_LAYERS = (0, 47)
 SUBQ_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")
 SUBQ_PARITY_TOL = dict(rtol=1e-4, atol=1e-4)
 SUBQ_TRAIN_ARCH, SUBQ_TRAIN_STEPS = "rwkv6-1.6b", 6
+# (e) float32 parity over MESH_TRAIN_RANKS ranks (mesh (1, 2)) against one
+# rank: the reduced configs and a Hymba of 5 heads (SUBQ_MESH_VARIANTS:
+# its SSM on the chunks route, its attention on the sequence route),
+# SUBQ_MESH_STEPS AdamW steps (MESH_PARITY_OPT) of MESH_PARITY_BATCH x
+# SUBQ_MESH_SEQ (4 chunks of 64, which 2 ranks divide), from generator
+# seed 0 with the init's constants perturbed (SUBQ_NOISE, scales as in
+# tests/test_torch_subquadratic.py; a_log's as tests/torch_mesh_ranks.py's
+# SUBQ_NOISE_A_LOG).  Losses within MESH_LOSS_RTOL; parameters within
+# SUBQ_MESH_PARAM_ATOL: at 1,024 tokens a sum, gradients near AdamW's eps
+# part by float32 rounding and the first step magnifies that up to 250
+# times (tests/test_torch_subquadratic_mesh.py reads 1.4e-5 to 1.7e-5 on
+# 1 element in 10^5).
+SUBQ_MESH_VARIANTS = (("rwkv6-1.6b", {}), ("hymba-1.5b", {}),
+                      ("hymba-1.5b", dict(n_heads=5, n_kv_heads=1,
+                                          ssm_heads=5, head_dim=16,
+                                          d_model=80)))
+SUBQ_MESH_SEQ, SUBQ_MESH_STEPS = 256, 2
+SUBQ_MESH_PARAM_ATOL = 5e-5
+SUBQ_NOISE = dict(dict.fromkeys(("mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                                 "mu_ck", "mu_cr"), 0.15),
+                  decay_base=0.7, u_bonus=0.5, ln_x=0.2, norm1=0.2,
+                  norm2=0.2, final_norm=0.2, a_log=0.05, d_skip=0.3)
+# (f) RWKV6-1.6B and Hymba-1.5B at full size over MESH_TRAIN_RANKS ranks
+# sharing the card through the launcher: phase 17's batch and learning
+# rate, SUBQ_MESH_TRAIN_STEPS steps each, the first loss within
+# SUBQ_MESH_FIRST_RTOL of one card's (bf16: the ranks sum partial products
+# in another order, as phase 18 (c)'s); and Hymba-1.5B on one card,
+# SUBQ_HYMBA_STEPS steps.
+SUBQ_MESH_TRAIN_STEPS, SUBQ_HYMBA_STEPS = 2, 3
+SUBQ_MESH_FIRST_RTOL = 2e-2
+# Qwen2-VL-72B (phase 21) served at its published width (d_model 8,192,
+# 64/8 heads of 128, d_ff 29,568, vocab 152,064, M-RoPE, embedding inputs;
+# bf16, random weights from generator seed 0), its 80 layers cut to
+# VLM_LAYERS so that one card holds them (about 2.02 GB a layer and 2.49
+# GB of tied embedding): VLM_BATCH prompts of VLM_PROMPT seeded embeddings
+# whose M-RoPE ids hold a VLM_GRID image (t x h x w) after each row's
+# VLM_TEXT text tokens, then text; VLM_NEW greedy decode steps.  The
+# reduced config in float32 on the card: prefill and decode with embed1
+# against forward under phase 8's bars.
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 16
+VLM_BATCH, VLM_PROMPT, VLM_NEW = 4, 4096, 16
+VLM_GRID, VLM_TEXT = (1, 32, 32), (1024, 512, 1536, 2048)
 
 
 def log(msg: str) -> None:
@@ -1224,18 +1296,19 @@ def lm_consistency(model, ops, gate: bool = True) -> dict:
 
 
 def layer0_qkv(model, tokens):
-    """Layer 0's q, k, v of a prefill of ``tokens``: the same operations on
-    the same tokens as in the prefill, recomputed."""
+    """Layer 0's q, k, v of a prefill of ``tokens`` (or of a batch: its
+    ``embeds`` and M-RoPE ``positions``): the same operations on the same
+    inputs as in the prefill, recomputed."""
     from repro_torch.models.attention import qkv_project
-    from repro_torch.models.layers import embed_lookup, rms_norm
+    from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import _positions_for
     cfg = model.cfg
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     with torch.no_grad():
-        x = embed_lookup(model.embed, tokens).to(cfg.act_dtype())
+        x = model._embed_in(batch)
         blk = model.blocks[0]
         return qkv_project(blk.attn, rms_norm(x, blk.norm1), cfg,
-                           _positions_for(cfg, {"tokens": tokens},
-                                          tokens.shape[1]))
+                           _positions_for(cfg, batch, x))
 
 
 def check_k6(ops, q, k, v, label: str, causal: bool = True) -> float:
@@ -4367,6 +4440,53 @@ def k6_offset_reading(ops) -> dict:
     return reading
 
 
+def k6_signature_reading(ops, sig) -> dict:
+    """K6 at one recorded launch signature ``(q shape, k shape, dtype,
+    causal, q_offset)`` (a rank's shard of a main path, bf16, causal), on
+    random inputs: against its plain version, timed beside SDPA with an
+    explicit mask and its bound."""
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
+    qs, ks, dt, causal, off = sig
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q = torch.randn(qs, generator=gen, device="cuda").to(getattr(torch, dt))
+    k, v = (torch.randn(ks, generator=gen, device="cuda").to(q.dtype)
+            for _ in range(2))
+    b, sq, h, hd = qs
+    err = check_k6_offset(ops, q, k, v, off)
+    flops = 4.0 * b * h * hd * k6_offset_pairs(sq, ks[1], off)
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    reading = dict(
+        shape=(f"B={b} Sq={sq} Skv={ks[1]} H={h} Hkv={ks[2]} hd={hd} "
+               f"q_offset={off} causal {dt}"),
+        route=flash_attention_route(q.dtype, hd), max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.flash_attention(q, k, v, True, q_offset=off),
+                  lambda: flash_attention_plain(q, k, v, True,
+                                                q_offset=off),
+                  sdpa_offset_call(q, k, v, off), plain_reps=3))
+    log(f"K6 at a rank's shard [{reading['shape']}]: {reading['route']}, "
+        f"max_abs_err {err}; {reading['ms']:.4f} ms / device "
+        f"{reading['device_ms']} ms; SDPA (explicit mask) "
+        f"{reading['library_ms']:.4f} / {reading['library_device_ms']} ms; "
+        f"plain {reading['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return reading
+
+
+def check_k6_offset(ops, q, k, v, off: int) -> float:
+    """K6 with ``q_offset`` against its plain version (``K6_BF16_TOL``);
+    the max abs error."""
+    from repro_torch.kernels.attention import flash_attention_plain
+    got = ops.flash_attention(q, k, v, True, q_offset=off)
+    want = flash_attention_plain(q, k, v, True, q_offset=off)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **K6_BF16_TOL):
+        fail(f"K6 with q_offset {off} at q {tuple(q.shape)} outside "
+             f"{K6_BF16_TOL} of its plain version (max_abs_err {err})")
+    return err
+
+
 def k6_record_launches(ops) -> set:
     """Record the signature ``(q shape, k shape, dtype, causal, q_offset)``
     of every K6 launch in this process from here on (a rank of phase 18);
@@ -4525,7 +4645,7 @@ def mesh_rank_train(rank, world, work, mesh, opts) -> dict:
                    ops.PLAIN_CALLS["flash_attention"]),
                local_params=sum(p.numel() for p in
                                 run.state["params"].values()))
-    if on_card:
+    if on_card and opts.get("profile", True):
         out["profiled"] = mesh_profiled_step(rank, run, argv)
     del run
     gc.collect()
@@ -4681,9 +4801,10 @@ def mesh_train_rank(rank: int, world: int, work: str, steps,
         finally:
             dist.destroy_process_group()
         if rank:                       # the tensors are every rank's alike
-            out = {k: {f: v[f] for f in ("peak_bytes", "staged", "k6",
-                                         "losses", "step_seconds",
-                                         "profiled") if f in v}
+            out = {k: v if k in MESH_RANK_READINGS else
+                   {f: v[f] for f in ("peak_bytes", "staged", "k6",
+                                      "losses", "step_seconds",
+                                      "profiled") if f in v}
                    for k, v in out.items()}
         out["k6_shapes"] = sorted(seen)
         with open(os.path.join(work, f"rank{world}_{rank}.pkl"), "wb") as f:
@@ -5760,9 +5881,13 @@ def subq_parity_reading(ops) -> dict:
     return out
 
 
-def subq_training_reading(ops, smi: str) -> dict:
-    """20 (d): RWKV6-1.6B trained at full size through the launcher, and
-    one more step profiled."""
+def subq_training_reading(ops, smi: str, arch: str = SUBQ_TRAIN_ARCH,
+                          steps: int = SUBQ_TRAIN_STEPS) -> dict:
+    """20 (d): ``arch`` (RWKV6-1.6B; (f): Hymba-1.5B) trained on one card
+    at full size through the launcher for ``steps`` steps, and one more
+    step profiled.  K6 runs each attention layer once a microbatch, and
+    once more under remat, with one plain backward; at 6 steps or more
+    the last three losses average below the first."""
     import gc
     from torch.profiler import ProfilerActivity, profile
 
@@ -5771,8 +5896,13 @@ def subq_training_reading(ops, smi: str) -> dict:
     from repro_torch.launch import train as launcher
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(SUBQ_TRAIN_ARCH)
-    argv = ["--arch", SUBQ_TRAIN_ARCH, "--steps", str(SUBQ_TRAIN_STEPS),
+    part = "(d)" if arch == SUBQ_TRAIN_ARCH else "(f)"
+    cfg = get_config(arch)
+    attn_layers = cfg.n_layers if cfg.block == "hymba" else 0
+    per_step = attn_layers * TRAIN_MICROBATCH
+    want_k6 = (steps * per_step * (2 if cfg.remat else 1),
+               steps * per_step, 0)
+    argv = ["--arch", arch, "--steps", str(steps),
             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--microbatch", str(TRAIN_MICROBATCH), "--lr", str(TRAIN_LR),
             "--seed", "0", "--log-every", "1"]
@@ -5785,6 +5915,7 @@ def subq_training_reading(ops, smi: str) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = (ops.LAUNCHES["flash_attention"],
+              ops.BACKWARD_CALLS["flash_attention"],
               ops.PLAIN_CALLS["flash_attention"])
     losses = run.losses
     steady = sorted(run.step_seconds[1:])
@@ -5793,7 +5924,7 @@ def subq_training_reading(ops, smi: str) -> dict:
     n_params = sum(t.numel() for t in run.state["params"].values())
     batch = launcher.make_model_batch(cfg, SyntheticCorpus(DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-        seed=0)).batch(SUBQ_TRAIN_STEPS), torch.device("cuda"))
+        seed=0)).batch(steps), torch.device("cuda"))
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -5802,48 +5933,257 @@ def subq_training_reading(ops, smi: str) -> dict:
         loss_p = float(metrics["loss"])
         sync()
         wall_p = time.perf_counter() - t1
-    reading = raw_step_reading(prof, "subq (d)")
-    log(f"subq (d) {SUBQ_TRAIN_ARCH} at full size ({n_params} parameters, "
-        f"{cfg.param_dtype} weights, {cfg.opt_state_dtype} moments, remat "
-        f"{cfg.remat}): {SUBQ_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+    reading = raw_step_reading(prof, f"subq {part}")
+    log(f"subq {part} {arch} at full size on one card ({n_params} "
+        f"parameters, {cfg.param_dtype} weights, {cfg.opt_state_dtype} "
+        f"moments, remat {cfg.remat}): {steps} steps of {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} in {TRAIN_MICROBATCH} microbatches, {wall:.2f} s in the "
         f"launcher; losses {losses}; step seconds {run.step_seconds}; median "
         f"after the first {step_s:.4f} s ({tokens / step_s:.1f} tokens/s); "
-        f"max_memory_allocated {peak} B; K6 (launches, plain calls) "
-        f"{counts}; one more step profiled: loss {loss_p:.4f}, {wall_p:.4f} "
-        f"s wall, device busy {reading['busy_s']:.4f} s, "
-        f"{reading['events']} device events; on {smi}")
+        f"max_memory_allocated {peak} B; K6 (launches, backwards, plain "
+        f"calls) {counts}; one more step profiled: loss {loss_p:.4f}, "
+        f"{wall_p:.4f} s wall, device busy {reading['busy_s']:.4f} s, K6 "
+        f"{reading['k6_s']:.4f} s, {reading['events']} device events; on "
+        f"{smi}")
     for name, (ms, n) in reading["top"][:8]:
         log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
-    if counts != (0, 0):
-        fail(f"subq (d): K6 (launches, plain calls) {counts} in RWKV's "
-             f"training, which has no attention")
-    if not all(np.isfinite(losses + [loss_p])) or \
-            len(losses) != SUBQ_TRAIN_STEPS:
-        fail(f"subq (d): losses {losses}, profiled {loss_p}")
-    if not np.mean(losses[-3:]) < losses[0]:
-        fail(f"subq (d): the last three losses average "
+    if counts != want_k6:
+        fail(f"subq {part}: K6 (launches, backwards, plain calls) {counts} "
+             f"in {arch}'s training, not {want_k6}")
+    if not all(np.isfinite(losses + [loss_p])) or len(losses) != steps:
+        fail(f"subq {part}: losses {losses}, profiled {loss_p}")
+    if steps >= 6 and not np.mean(losses[-3:]) < losses[0]:
+        fail(f"subq {part}: the last three losses average "
              f"{np.mean(losses[-3:])}, not below the first {losses[0]}")
     del run, batch, prof, metrics
     gc.collect()
     torch.cuda.empty_cache()
     return dict(params=n_params, losses=losses, step_s=step_s,
                 tokens_per_s=tokens / step_s, peak_bytes=peak,
+                k6_per_step=[c // steps for c in counts[:2]],
                 profiled_step=dict(wall_s=wall_p, busy_s=reading["busy_s"],
+                                   k6_s=reading["k6_s"],
                                    events=reading["events"],
                                    top=[(name[:80], ms) for name, (ms, _)
                                         in reading["top"][:6]]))
 
 
+def subq_perturb_(model, seed: int = 7) -> None:
+    """Add ``SUBQ_NOISE[name]`` times N(0, 1) (a generator of ``seed`` on
+    the model's device) to every parameter whose name ends in a key of
+    ``SUBQ_NOISE``: the init's constants, which would hide a rank reading
+    another rank's slice of them."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            scale = SUBQ_NOISE.get(name.rsplit(".", 1)[-1])
+            if scale is not None:
+                p.add_((scale * torch.randn(p.shape, generator=gen,
+                                            device=p.device)).to(p.dtype))
+
+
+def subq_mesh_run(mesh, arch: str, variant: dict, device: str) -> dict:
+    """20 (e): ``SUBQ_MESH_STEPS`` AdamW steps of the reduced float32
+    ``arch`` with ``variant``'s changes (generator seed 0, perturbed) on
+    ``device``, over ``mesh`` or one rank: the losses, the whole
+    parameters on the host and K6's (launches, plain calls)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train.sharding import (param_shardings, shard_batch,
+                                            unshard)
+    cfg = mesh_parity_config(variant, 1, arch)
+    model = build_model(cfg, device, trainable=True).init(
+        torch.Generator(device=device).manual_seed(0))
+    subq_perturb_(model)
+    if mesh is not None:
+        model.shard_(mesh, param_shardings(dict(model.named_parameters()),
+                                           mesh))
+    opt = adamw.make_optimizer(adamw.OptConfig(**MESH_PARITY_OPT))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    fn = tstep.make_train_step(model, opt)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=SUBQ_MESH_SEQ,
+        global_batch=MESH_PARITY_BATCH, seed=MESH_PARITY_SEED))
+    ops.reset_counts()
+    losses = []
+    for i in range(SUBQ_MESH_STEPS):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in corpus.batch(i).items()}
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        state, metrics = fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    return dict(losses=losses, params={
+        n: (p.detach() if mesh is None else
+            unshard(p.detach(), p.spec, mesh)).cpu()
+        for n, p in state["params"].items()},
+        k6=(ops.LAUNCHES["flash_attention"],
+            ops.PLAIN_CALLS["flash_attention"]))
+
+
+def mesh_rank_subq_parity(rank, world, work, mesh, opts) -> dict:
+    """20 (e) on a rank: every ``SUBQ_MESH_VARIANTS`` case."""
+    return {i: subq_mesh_run(mesh, arch, variant, opts["device"])
+            for i, (arch, variant) in enumerate(SUBQ_MESH_VARIANTS)}
+
+
+def subq_mesh_argv(arch: str, world: int = MESH_TRAIN_RANKS) -> list:
+    """20 (f)'s launcher command line for ``arch`` over ``world`` ranks."""
+    return ["--arch", arch, "--steps", str(SUBQ_MESH_TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatch", str(TRAIN_MICROBATCH), "--lr", str(TRAIN_LR),
+            "--seed", "0", "--log-every", "1", "--model-axis", str(world)]
+
+
+def mesh_rank_subq_train(rank, world, work, mesh, opts) -> dict:
+    """20 (f) on a rank: each of ``SUBQ_ARCHS`` through the launcher
+    (``opts["subq_argv"][arch]``), unprofiled."""
+    return {arch: mesh_rank_train(rank, world, work, mesh, dict(
+        opts, train_argv=opts["subq_argv"][arch], profile=False))
+        for arch in SUBQ_ARCHS}
+
+
+MESH_RANK_STEPS.update(subq_parity=mesh_rank_subq_parity,
+                       subq_train=mesh_rank_subq_train)
+# steps whose results hold no tensors: every rank returns them whole
+MESH_RANK_READINGS = ("subq_train",)
+
+
+def subq_mesh_reading(ops, smi: str, first_losses: dict, opts: dict = None,
+                      k6_shapes: set = None) -> dict:
+    """20 (e) and (f) over ``MESH_TRAIN_RANKS`` ranks sharing the card
+    (mesh (1, 2)): (e) float32 parity of every ``SUBQ_MESH_VARIANTS`` case
+    against one rank in this process; (f) RWKV6-1.6B and Hymba-1.5B at
+    full size through the launcher, each first loss against
+    ``first_losses[arch]`` (one card's).  ``opts`` as
+    :func:`mesh_train_phase`'s; the ranks' K6 signatures are added to
+    ``k6_shapes``."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.linear_attn import linear_attention_route
+    opts = opts or dict(device="cuda", full=True, subq_argv={
+        arch: subq_mesh_argv(arch) for arch in SUBQ_ARCHS})
+    device = opts["device"]
+    tp = MESH_TRAIN_RANKS
+    one = [subq_mesh_run(None, arch, variant, device)
+           for arch, variant in SUBQ_MESH_VARIANTS]
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="subq_mesh_")
+    try:
+        t0 = time.perf_counter()
+        ranks = run_mesh_ranks(tp, work, ("subq_parity", "subq_train"),
+                               opts)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in ranks:
+        if k6_shapes is not None:
+            k6_shapes.update(map(tuple, r["k6_shapes"]))
+    parity = []
+    for i, (arch, variant) in enumerate(SUBQ_MESH_VARIANTS):
+        got, want = ranks[0]["subq_parity"][i], one[i]
+        cfg = get_reduced(arch).replace(**variant)
+        heads = (cfg.d_model // cfg.rwkv_head_dim if cfg.block == "rwkv"
+                 else cfg.ssm_heads)
+        route = linear_attention_route(heads, SUBQ_MESH_SEQ, tp)
+        label = f"subq (e) {arch} {variant or 'reduced'} on (1, {tp})"
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(got["losses"], want["losses"]))
+        if rel > MESH_LOSS_RTOL:
+            fail(f"{label}: losses {got['losses']} against one rank's "
+                 f"{want['losses']} (relative {rel})")
+        worst = same_params(label, got["params"], want["params"],
+                            SUBQ_MESH_PARAM_ATOL)
+        mean = float(np.mean([float((got["params"][n] - p).abs().mean())
+                              for n, p in want["params"].items()]))
+        want_k6 = want["k6"] if device == "cuda" else (0, want["k6"][1])
+        if tuple(got["k6"]) != tuple(want_k6):
+            fail(f"{label}: K6 (launches, plain) {got['k6']} on rank 0, one "
+                 f"rank {want['k6']}")
+        log(f"{label}, float32, {SUBQ_MESH_STEPS} steps of "
+            f"{MESH_PARITY_BATCH} x {SUBQ_MESH_SEQ}: the mix's route "
+            f"{route}; losses {got['losses']} (one rank {want['losses']}; "
+            f"largest relative difference {rel:.3e}); parameters within "
+            f"{worst:.3e} (mean {mean:.3e}); K6 (launches, plain) on rank 0 "
+            f"{got['k6']}")
+        parity.append(dict(arch=arch, variant=variant, route=route,
+                           losses=got["losses"], loss_rel=rel,
+                           param_max_diff=worst, param_mean_diff=mean))
+    full = {}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for arch in SUBQ_ARCHS:
+        cfg = get_config(arch) if opts["full"] else get_reduced(arch)
+        train = [r["subq_train"][arch] for r in ranks]
+        losses = train[0]["losses"]
+        steps = len(losses)
+        attn = cfg.n_layers if cfg.block == "hymba" else 0
+        per_step = attn * TRAIN_MICROBATCH
+        want_k6 = (steps * per_step * (2 if cfg.remat else 1),
+                   steps * per_step, 0)
+        if device != "cuda":
+            want_k6 = (0, want_k6[1], want_k6[0])
+        for r, t in enumerate(train):
+            if tuple(t["k6"]) != want_k6 or t["losses"] != losses:
+                fail(f"subq (f) {arch} rank {r}: K6 (launches, backwards, "
+                     f"plain) {t['k6']}, not {want_k6}, or losses "
+                     f"{t['losses']} unlike rank 0's {losses}")
+        first = first_losses.get(arch)
+        if not all(np.isfinite(losses)) or (
+                first is not None
+                and abs(losses[0] - first) > SUBQ_MESH_FIRST_RTOL
+                * abs(first)):
+            fail(f"subq (f) {arch}: losses {losses}; the first not within "
+                 f"{SUBQ_MESH_FIRST_RTOL} of one card's {first}")
+        steady = sorted(train[0]["step_seconds"][1:]
+                        or train[0]["step_seconds"])
+        step_s = steady[len(steady) // 2]
+        staged = [t["staged"] for t in train]
+        peaks = [t["peak_bytes"] for t in train]
+        reading = dict(
+            losses=losses, first_loss_one_card=first, step_s=step_s,
+            step_seconds=train[0]["step_seconds"],
+            tokens_per_s=tokens / step_s, peak_bytes=peaks,
+            collectives_per_step=[st["calls"] / steps for st in staged],
+            to_host_bytes_per_step=[st["to_host"] / steps for st in staged],
+            to_card_bytes_per_step=[st["to_card"] / steps for st in staged],
+            collective_s_per_step=[st["seconds"] / steps for st in staged],
+            k6_per_step_per_rank=[want_k6[0] // steps, want_k6[1] // steps])
+        log(f"subq (f) {arch} at full size over {tp} ranks (mesh (1, {tp}), "
+            f"gloo, sharing the card): {steps} steps of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} in {TRAIN_MICROBATCH} microbatches; losses "
+            f"{losses} (one card's first {first}); step seconds "
+            f"{train[0]['step_seconds']} ({tokens / step_s:.1f} tokens/s); "
+            f"peak memory by rank {peaks} B; collectives a step by rank "
+            f"{reading['collectives_per_step']}, bytes staged a step to the "
+            f"host {reading['to_host_bytes_per_step']} and to the card "
+            f"{reading['to_card_bytes_per_step']}, collective seconds a step "
+            f"{reading['collective_s_per_step']}; K6 (launches, backwards) "
+            f"a step on each rank {reading['k6_per_step_per_rank']}; on "
+            f"{smi}")
+        full[arch] = reading
+    log(f"subq (e) + (f) ranks: {wall:.1f} s")
+    return dict(float32=parity, full=full)
+
+
 def subq_phase(ops, smi: str) -> dict:
     """20. The sub-quadratic blocks (module docstring): (a) RWKV6-1.6B and
     (b) Hymba-1.5B served whole, (c) card against CPU, (d) RWKV6-1.6B
-    trained at full size; K6 held to its plain version at every signature
-    (a)-(d) launched it with.  Returns the ``subquadratic`` entry of K6's
+    trained at full size, (e) float32 parity over 2 ranks, (f) both
+    trained at full size over 2 ranks and Hymba-1.5B on one card; K6 held
+    to its plain version at every signature (a)-(f) launched it with,
+    here and on the ranks.  Returns the ``subquadratic`` entry of K6's
     kernels-line row."""
     t_phase = time.perf_counter()
     launch = ops.flash_attention_cuda
-    seen = k6_record_launches(ops)      # every K6 launch of (a)-(d)
+    seen = k6_record_launches(ops)      # every K6 launch of (a)-(f) here
     try:
         serving = {}
         for arch in SUBQ_ARCHS:
@@ -5852,13 +6192,238 @@ def subq_phase(ops, smi: str) -> dict:
                 f"the phase")
         parity = subq_parity_reading(ops)
         train = subq_training_reading(ops, smi)
+        hymba = subq_training_reading(ops, smi, SUBQ_ARCHS[1],
+                                      SUBQ_HYMBA_STEPS)
+        log(f"subq (a)-(d), (f) one card: {time.perf_counter() - t_phase:.1f}"
+            f" s into the phase")
+        mesh = subq_mesh_reading(ops, smi, {
+            SUBQ_ARCHS[0]: train["losses"][0],
+            SUBQ_ARCHS[1]: hymba["losses"][0]}, k6_shapes=seen)
     finally:
         ops.flash_attention_cuda = launch
     main_shapes = k6_path_reading(ops, seen)
+    # (f)'s sequence route: the last rank's query rows, timed
+    shard = max((sg for sg in seen if sg[2] == "bfloat16" and sg[4] > 0),
+                key=lambda sg: (int(np.prod(sg[0])), sg[4]))
+    mesh["k6_rank"] = k6_signature_reading(ops, shard)
     log(f"subq phase: {time.perf_counter() - t_phase:.1f} s")
     k6 = serving[SUBQ_ARCHS[1]].pop("k6")
+    mesh["full"][SUBQ_ARCHS[1]]["one_card"] = hymba
     return dict(k6, serving=serving, card_vs_host=parity,
-                training=train, main_path_shapes=main_shapes)
+                training=train, mesh=mesh, main_path_shapes=main_shapes)
+
+
+# ---------------------------------------------------------------- phase 21 --
+
+def vlm_positions(b: int, s: int, grid, text) -> np.ndarray:
+    """``[3, b, s]`` int32 M-RoPE ids of VLM prompts: per row ``i``,
+    ``text[i]`` text tokens, then an image block of the ``t x h x w``
+    ``grid`` (temporal ``text + frame``, height ``text + row``, width
+    ``text + column``), then text from the largest id so far plus 1, all
+    three streams equal."""
+    t, h, w = grid
+    out = np.zeros((3, b, s), np.int32)
+    frames, rows, cols = np.meshgrid(np.arange(t), np.arange(h),
+                                     np.arange(w), indexing="ij")
+    img = np.stack([frames, rows, cols]).reshape(3, -1)
+    for i in range(b):
+        n = text[i % len(text)]
+        out[:, i, :n] = np.arange(n)
+        out[:, i, n:n + img.shape[1]] = img + n
+        rest = s - n - img.shape[1]
+        out[:, i, s - rest:] = img.max() + n + 1 + np.arange(rest)
+    return out
+
+
+def vlm_batch(cfg, b: int, s: int, grid, text, seed: int, device) -> dict:
+    """Seeded embeddings ``[b, s, D]`` (N(0, 1), as the reference's stub
+    frontend draws its table) in the activation dtype and the M-RoPE ids
+    of :func:`vlm_positions`, on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    emb = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+    return {"embeds": emb.to(cfg.act_dtype()), "positions": torch.from_numpy(
+        vlm_positions(b, s, grid, text)).to(device)}
+
+
+def vlm_consistency_reading() -> dict:
+    """21: the reduced qwen2-vl-72b in float32 on the card (generator seed
+    0): a prefill of a VLM prompt's first 20 positions (text, a 1 x 4 x 4
+    image, text) and decode steps fed ``embed1`` for the rest, against
+    ``forward`` on ids that give the decoded tokens their positions (the
+    reference's decode sets all three ids to ``pos``), under phase 8's
+    bars over the largest logit."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import build_model
+    cfg = get_reduced(VLM_ARCH).replace(dtype="float32",
+                                        param_dtype="float32")
+    model = build_model(cfg).init(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+    b, s, p = 2, 26, 20
+    batch = vlm_batch(cfg, b, s, (1, 4, 4), (4, 2), 21, "cuda")
+    pos = batch["positions"].clone()
+    pos[:, :, p:] = torch.arange(p, s, device="cuda")
+    full = model.forward({"embeds": batch["embeds"], "positions": pos})
+    cache = model.init_cache(b, s)
+    last, cache = model.prefill({"embeds": batch["embeds"][:, :p],
+                                 "positions": pos[:, :, :p]}, cache)
+    steps = [last]
+    for i in range(p, s - 1):
+        out, cache = model.decode_step(cache, {
+            "embed1": batch["embeds"][:, i:i + 1], "pos": i})
+        steps.append(out)
+    stepwise = torch.stack(steps, 1)
+    want = full[:, p - 1:s - 1]
+    scale = float(want.abs().max())
+    rel = dict(prefill=float((last - want[:, 0]).abs().max()) / scale,
+               decode=float((stepwise - want).abs().max()) / scale)
+    log(f"vlm reduced {VLM_ARCH} float32 on the card: prefill of {p} "
+        f"positions (a 1 x 4 x 4 image inside) and {s - 1 - p} decode steps "
+        f"fed embed1 against forward, max abs difference over the largest "
+        f"logit {rel} (bars {LM_PREFILL_TOL}, {LM_DECODE_TOL})")
+    if not (rel["prefill"] <= LM_PREFILL_TOL
+            and rel["decode"] <= LM_DECODE_TOL):
+        fail(f"vlm: the reduced model's prefill and decode differ from "
+             f"forward by {rel}")
+    del model, cache
+    return rel
+
+
+def vlm_phase(ops, smi: str) -> dict:
+    """21. Qwen2-VL-72B served at its published width, its layers cut to
+    ``VLM_LAYERS`` (``VLM_*``; module docstring).  Returns K6's reading at
+    layer 0, the ``vlm`` entry of K6's kernels-line row."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    consistency = vlm_consistency_reading()
+    full = get_config(VLM_ARCH)
+    cfg = full.replace(n_layers=VLM_LAYERS)
+    route = flash_attention_route(cfg.act_dtype(), cfg.hd)
+    if route != "wgmma":
+        fail(f"K6 takes the {route} route at hd {cfg.hd}, not wgmma")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"vlm: {VLM_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff} "
+        f"{cfg.mlp}, vocab {cfg.vocab}, rope {cfg.rope}, embedding inputs "
+        f"{cfg.embeds_input}, {cfg.dtype}); n_layers cut from "
+        f"{full.n_layers} to {cfg.n_layers} so that one card holds the "
+        f"weights: {n_params} parameters, {w_bytes} B, initialised in "
+        f"{time.perf_counter() - t0:.2f} s; K6 route at hd {cfg.hd}: "
+        f"{route}; on {smi}")
+    b, s, n_new = VLM_BATCH, VLM_PROMPT, VLM_NEW
+    batch = vlm_batch(cfg, b, s, VLM_GRID, VLM_TEXT, 0, "cuda")
+    cache = model.init_cache(b, s + n_new)
+    # a short prefill first warms cuBLAS and the allocator
+    model.prefill({"embeds": batch["embeds"][:, :256],
+                   "positions": batch["positions"][:, :, :256]}, cache)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    k6 = (ops.LAUNCHES["flash_attention"], ops.PLAIN_CALLS["flash_attention"])
+    tok = logits.argmax(dim=-1)[:, None]
+    out, steps = [tok], []
+    for i in range(n_new):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"token": tok,
+                                                  "pos": s + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        out.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, dim=1)
+    median = sorted(steps)[len(steps) // 2]
+    bound_decode = 1e3 * w_bytes / HBM_BYTES_PER_S
+    if k6 != (cfg.n_layers, 0):
+        fail(f"vlm: the prefill launched K6 {k6[0]} times ({k6[1]} plain), "
+             f"not {cfg.n_layers}")
+    if not torch.isfinite(logits).all() or logits.shape != (b, cfg.vocab):
+        fail(f"vlm: bad decode logits {tuple(logits.shape)}")
+    if gen.shape != (b, n_new + 1) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail("vlm: generated tokens out of range")
+    log(f"vlm main run: prefill {b} x {s} embeddings (a {VLM_GRID} image "
+        f"after {VLM_TEXT} text tokens a row) in {t_prefill:.4f} s "
+        f"({b * s / t_prefill:.1f} tok/s), K6 launches {k6[0]} (plain "
+        f"{k6[1]}); {n_new} greedy decode steps x {b} requests: first "
+        f"{1e3 * steps[0]:.3f} ms, median {1e3 * median:.3f} ms, mean "
+        f"{1e3 * sum(steps) / n_new:.3f} ms a step (reading the weights "
+        f"once bounds it at {bound_decode:.3f} ms); max_memory_allocated "
+        f"{peak} B; first tokens {gen[0, :8].tolist()}; on {smi}")
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(batch, cache)
+        sync()
+    wall_p = time.perf_counter() - t0
+    pre = raw_step_reading(prof, "vlm prefill")
+    log(f"vlm prefill profile: {wall_p:.4f} s wall, device busy "
+        f"{pre['busy_s']:.4f} s ({100 * pre['busy_s'] / wall_p:.2f} %), K6 "
+        f"{pre['k6_s']:.4f} s")
+    for name, (ms, n) in pre["top"][:8]:
+        log(f"  prefill {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    del prof, cache, logits
+    q, k, v = layer0_qkv(model, batch)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = check_k6(ops, q, k, v, f"{VLM_ARCH} layer 0")
+    if ops.PLAIN_CALLS["flash_attention"]:
+        fail("vlm: plain attention ran on the card")
+    hq, hd = q.shape[2], q.shape[3]
+    flops = 4.0 * b * hq * hd * s * (s + 1) / 2      # causal pairs only
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    reading = dict(
+        shape=f"B={b} S={s} H={hq} Hkv={k.shape[2]} hd={hd} causal bf16 "
+              f"({VLM_ARCH} layer 0, M-RoPE ids of an image)",
+        route=route, launches=k6[0], max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        device_ms=device_ms(lambda: ops.flash_attention(q, k, v,
+                                                        causal=True), reps=5),
+        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, True),
+                         reps=3),
+        library_ms=cuda_ms(sdpa_call(q, k, v)),
+        library_device_ms=device_ms(sdpa_call(q, k, v), reps=5),
+        layers=cfg.n_layers, params=n_params, weight_bytes=w_bytes,
+        prefill_s=t_prefill, prefill_tokens_per_s=b * s / t_prefill,
+        prefill_busy_share=pre["busy_s"] / wall_p,
+        decode_ms_per_step=1e3 * sum(steps) / n_new,
+        decode_median_ms=1e3 * median, decode_bound_ms=bound_decode,
+        peak_bytes=peak, reduced_float32=consistency)
+    log(f"K6 on {VLM_ARCH} layer 0 [{reading['shape']}]: {route}, "
+        f"max_abs_err {err} (tolerance {K6_BF16_TOL}); device "
+        f"{reading['device_ms']} ms (events {reading['ms']:.4f}), plain "
+        f"{reading['plain_ms']:.4f} ms, SDPA device "
+        f"{reading['library_device_ms']} ms (events "
+        f"{reading['library_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}); K6 "
+        f"share of the prefill {k6[0]} x {reading['ms']:.4f} ms = "
+        f"{100 * k6[0] * reading['ms'] / 1e3 / t_prefill:.2f} %; on {smi}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    del q, k, v, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading
 
 
 def main() -> None:
@@ -6221,6 +6786,13 @@ def main() -> None:
     by_route[subq["route"]] = max(by_route.get(subq["route"], 0.0),
                                   subq["max_abs_err"])
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"], subq["max_abs_err"])
+
+    # -- 21. Qwen2-VL-72B at full width: M-RoPE and embedding inputs --------
+    vlm = vlm_phase(ops, smi)
+    k6_row["vlm"] = vlm
+    by_route[vlm["route"]] = max(by_route.get(vlm["route"], 0.0),
+                                 vlm["max_abs_err"])
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"], vlm["max_abs_err"])
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -1,7 +1,7 @@
 """End-to-end training launcher; the JAX package's ``repro.launch.train``.
 
-Runs any ``--arch`` the port builds (full or reduced config; RWKV and
-Hymba on one device only, ROADMAP item 14.5) with the training path:
+Runs any ``--arch`` the port builds from tokens (full or reduced config)
+with the training path:
 microbatch accumulation, AdamW/Adafactor, checkpoint/resume, optional
 int8 gradient compression, and the deterministic data pipeline.  It
 runs on the CUDA card unless ``--device`` names another device.
@@ -42,7 +42,7 @@ from ..core.device import resolve_device
 from ..data.pipeline import DataConfig, Prefetcher, SyntheticCorpus
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.model import build_model
-from ..models.transformer import check_meshable, check_supported
+from ..models.transformer import check_supported
 from ..optim.adamw import OptConfig, make_optimizer
 from ..optim.compress import make_compressor
 from ..train.sharding import batch_shardings, param_shardings
@@ -125,8 +125,6 @@ def train(args: argparse.Namespace) -> TrainRun:
 def _train(args: argparse.Namespace) -> TrainRun:
     multi = dist.is_initialized()
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    if args.model_axis > 1 or multi:
-        check_meshable(cfg)
     if args.model_axis > 1 and not multi:
         raise ValueError(
             f"--model-axis {args.model_axis} needs a group of ranks: run "
@@ -219,9 +217,16 @@ def _load_into(state: Any, restored: Any) -> None:
 def make_model_batch(cfg: ModelConfig, host_batch: Dict[str, np.ndarray],
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """The pipeline's numpy batch (this rank's part over a mesh) as tensors
-    on ``device``.  Stub frontends (embedding inputs, the
-    encoder-decoder) are not ported (ROADMAP item 14)."""
+    on ``device``.  The reference's stub frontends (embeddings drawn from
+    a JAX key for ``embeds_input``, the encoder-decoder's frames) have no
+    counterpart: a model fed embeddings is driven through ``LM`` with
+    ``batch["embeds"]``."""
     check_supported(cfg)
+    if cfg.embeds_input:
+        raise NotImplementedError(
+            f"{cfg.name}: the launcher trains from tokens; the reference's "
+            f"stub frontend draws its embeddings from a JAX key, which the "
+            f"port does not reproduce (pass batch['embeds'] to LM.loss)")
     return {k: torch.from_numpy(host_batch[k]).to(device)
             for k in ("tokens", "labels")}
 

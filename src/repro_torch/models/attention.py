@@ -35,7 +35,8 @@ from torch import nn
 from ..kernels import ops
 from ..parallel.collectives import all_reduce, copy_to, gather, reduce, split
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, is_tp, parameter, weight
+from .layers import (apply_mrope, apply_rope, dense_init, is_tp, parameter,
+                     weight)
 from .pspec import current_mesh
 
 
@@ -96,7 +97,8 @@ def qkv_project(p: AttnParams, x: torch.Tensor, cfg: ModelConfig,
                 positions: Optional[torch.Tensor], mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``x [B, S, D]`` -> q ``[B, S, Hq, hd]``, k, v ``[B, S, Hkv, hd]``,
-    with RoPE on q and k.
+    with RoPE (``positions [B, S]``) or M-RoPE (``[3, B, S]``) on q and
+    k.
 
     Over a mesh the weights are gathered over the FSDP axes and the
     products whose weight ``model`` splits are column-parallel.  Then q
@@ -107,9 +109,6 @@ def qkv_project(p: AttnParams, x: torch.Tensor, cfg: ModelConfig,
     the ranks use them apart)."""
     b, s, _ = x.shape
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet "
-                                  "(ROADMAP item 14)")
     tp = _tp(mesh)
     grp = mesh.group("model") if tp > 1 else None
     xs = copy_to(x, grp) if tp > 1 else x
@@ -140,9 +139,10 @@ def qkv_project(p: AttnParams, x: torch.Tensor, cfg: ModelConfig,
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
-    if cfg.rope == "rope" and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if positions is not None and cfg.rope in ("rope", "mrope"):
+        rope = apply_rope if cfg.rope == "rope" else apply_mrope
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

@@ -9,13 +9,13 @@ plain functions on tensors.  ``rms_norm`` has the JAX package's
 hand-written backward (:class:`RmsNorm`).  Over a training mesh a
 parameter holds its shard (``spec_of``): :func:`weight` gathers it over
 the FSDP axes before use, and the embedding and the tied head are
-vocab-parallel over ``model``.  M-RoPE and the sinusoidal table wait for
-the models that use them.
+vocab-parallel over ``model``.  :func:`apply_mrope` is Qwen2-VL's
+multimodal RoPE; the sinusoidal table waits for Whisper.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -89,6 +89,14 @@ def is_tp(p: torch.Tensor) -> bool:
     return any(axes == "model" for axes in spec_of(p) or ())
 
 
+def model_group(mesh):
+    """The ``model`` axis's process group on a mesh where it holds more
+    than one rank, else ``None``."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh.group("model")
+
+
 def weight(p: torch.Tensor, mesh=None,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A parameter as a product uses it: its shard gathered over the FSDP
@@ -145,6 +153,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: [B, S, H, hd]; positions: [B, S] int32."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)             # [hd/2]
     ang = positions[..., None].float() * freqs                     # [B,S,hd/2]
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_bounds(hd: int, sections: Tuple[int, ...] = (2, 1, 1)
+                 ) -> Tuple[int, ...]:
+    """Where each id stream's frequencies end in the rotary spectrum of
+    ``hd / 2``: ``sections`` in proportion, rounded down, the last
+    stream to the end (at hd 128 and ``(2, 1, 1)``: 32, 48, 64)."""
+    half, tot = hd // 2, sum(sections)
+    bounds, acc = [], 0
+    for sec in sections:
+        acc += (half * sec) // tot
+        bounds.append(acc)
+    bounds[-1] = half
+    return tuple(bounds)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...] = (2, 1, 1)) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): x [B, S, H, hd]; positions [3, B, S] int32, the
+    (temporal, height, width) ids.  The rotary spectrum is split over the
+    three id streams in proportion to ``sections`` (:func:`mrope_bounds`);
+    with all three streams equal it is :func:`apply_rope`."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                      # [hd/2]
+    parts, start = [], 0
+    for i, end in enumerate(mrope_bounds(hd, sections)):
+        parts.append(positions[i][..., None].float() * freqs[start:end])
+        start = end
+    ang = torch.cat(parts, dim=-1)                               # [B,S,hd/2]
     cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -26,9 +26,19 @@ under ``torch.utils.checkpoint``, as the reference wraps its chunk in
 ``jax.checkpoint``: the backward recomputes the pairwise tensors.  The
 masked pairs (``i >= t``) are exponentiated from ``-inf``, so they are 0
 and carry no gradient, where the reference selects 0 after the
-exponential.  Decode is the O(1) recurrence update.  Over a training mesh
-the reference shards the chunk axis over ``model``; the port's RWKV and
-Hymba blocks run on one device (ROADMAP item 14.5).
+exponential.  Decode is the O(1) recurrence update.
+
+Over a training mesh (its ``model`` axis of ``tp`` ranks) the mixes take
+one route a call, :func:`linear_attention_route`, as
+:func:`repro_torch.models.attention.attention_route` decides the
+attention's: ``"heads"`` when the heads divide ``tp`` (each rank runs the
+core on its heads, no collective here); ``"chunks"``, the reference's
+``_chunk_mesh`` route, when the ``n`` chunks divide ``tp`` (the inputs
+whole on every rank: each rank runs pass 1 and pass 2 on its ``n / tp``
+chunks, the chunk states and decays are gathered over ``model`` in one
+collective, every rank runs the same combine, and the outputs are
+gathered back along the chunks); ``"replicated"`` otherwise (every rank
+all of it).
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.collectives import copy_to, gather, split
 
 # pass 2's group of chunks keeps one [g, B, H, c, c, dk] float32 tensor
 # near this size (a few such tensors are live at once)
@@ -51,6 +63,20 @@ def chunk_len(chunk: int, s: int) -> int:
     while s % c:
         c -= 1
     return c
+
+
+def linear_attention_route(n_heads: int, s: int, tp: int,
+                           chunk: int = 64) -> str:
+    """The route of a mix over ``s`` tokens in ``n_heads`` heads on a
+    ``model`` axis of ``tp`` ranks: ``"heads"``, ``"chunks"`` or
+    ``"replicated"`` (module docstring).  ``"chunks"`` needs the chunk
+    count ``n = s / chunk_len(chunk, s)`` to divide ``tp``: at ``s`` 128
+    there are 2 chunks of 64, too few for 4 ranks."""
+    if tp == 1 or n_heads % tp == 0:
+        return "heads"
+    if (s // chunk_len(chunk, s)) % tp == 0:
+        return "chunks"
+    return "replicated"
 
 
 def _chunk_out(rr, kk, vv, lw, s0, uu, mask):
@@ -74,21 +100,39 @@ def chunked_linear_attention(r: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, logw: torch.Tensor,
                              u: Optional[torch.Tensor] = None,
                              chunk: int = 64,
-                             state0: Optional[torch.Tensor] = None
+                             state0: Optional[torch.Tensor] = None,
+                             mesh=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, logw: [B, S, H, dk]; v: [B, S, H, dv]; u: [H, dk] or None;
     state0: [B, H, dk, dv] or None (zeros).
 
     Returns ``(o [B, S, H, dv]`` in ``r``'s dtype, ``final_state [B, H,
-    dk, dv]`` float32); everything inside is float32 (module
-    docstring)."""
+    dk, dv]`` float32); everything inside is float32 (module docstring).
+    With ``mesh`` this is the ``"chunks"`` route over its ``model`` axis
+    (the chunk count must divide it): the inputs, the output and the
+    final state are whole on every rank, each input's gradient is every
+    rank's whole (each rank's chunks are a ``split``, whose backward
+    gathers), and the final state takes no gradient."""
     b, s, h, dk = r.shape
     dv = v.shape[-1]
     c = chunk_len(chunk, s)
     n = s // c
+    out_dtype = r.dtype
+    grp, n_own, first = None, n, 0
+    if mesh is not None and mesh.shape["model"] > 1:
+        tp, grp = mesh.shape["model"], mesh.group("model")
+        if n % tp:
+            raise ValueError(f"{n} chunks of {c} do not split over {tp} "
+                             f"ranks: take the heads or replicated route")
+        # this rank's chunks are its n / tp consecutive runs of c tokens,
+        # the four inputs cut in one split (one gather in the backward)
+        n_own, first = n // tp, mesh.coords["model"] * (n // tp)
+        r, k, v, logw = split(torch.cat(
+            [t.float() for t in (r, k, v, logw)], dim=-1), 1, grp).split(
+                [dk, dk, dv, dk], dim=-1)
 
     def chunks(t, d):                                    # [n, b, h, c, d]
-        return t.float().reshape(b, n, c, h, d).permute(1, 0, 3, 2, 4)
+        return t.float().reshape(b, n_own, c, h, d).permute(1, 0, 3, 2, 4)
 
     rr, kk, lw = (chunks(t, dk) for t in (r, k, logw))
     vv = chunks(v, dv)
@@ -96,6 +140,11 @@ def chunked_linear_attention(r: torch.Tensor, k: torch.Tensor,
                          device=r.device) if state0 is None
              else state0.float())
     uu = None if u is None else u.float()
+    if grp is not None:
+        # every rank's chunks read u and the starting state: their
+        # gradients are the sum of the ranks'
+        state = state if state0 is None else copy_to(state, grp)
+        uu = None if uu is None else copy_to(uu, grp)
 
     # pass 1: each chunk's local state and total decay
     p = torch.cumsum(lw, dim=3)
@@ -104,13 +153,23 @@ def chunked_linear_attention(r: torch.Tensor, k: torch.Tensor,
                          vv)
     decay = torch.exp(plast.squeeze(3))                  # [n, b, h, dk]
     del p, plast
+    if grp is not None:
+        # every chunk's state and decay on every rank, in one gather; each
+        # rank's pass 2 reads its own chunks' starting states, so the
+        # ranks' gradients of them are summed
+        both = gather(torch.cat([s_loc, decay[..., None]], dim=-1), 0, grp,
+                      "sum")
+        s_loc, decay = both[..., :dv], both[..., dv]
 
     # combine: the state before each chunk, and the final state
     before = []
     for i in range(n):
         before.append(state)
         state = state * decay[i][..., None] + s_loc[i]
-    s0s = torch.stack(before)
+    # (sliced after the stack: every rank's graph then reaches the gather,
+    # rank 0's too, whose own chunks start from state0, so that every rank
+    # runs the gather's backward collective)
+    s0s = torch.stack(before)[first:first + n_own]
 
     # pass 2 over groups of chunks
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
@@ -119,14 +178,18 @@ def chunked_linear_attention(r: torch.Tensor, k: torch.Tensor,
     remat = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (r, k, v, logw, u, state0))
     outs = []
-    for i in range(0, n, g):
+    for i in range(0, n_own, g):
         args = (rr[i:i + g], kk[i:i + g], vv[i:i + g], lw[i:i + g],
                 s0s[i:i + g], uu, mask)
         outs.append(checkpoint(_chunk_out, *args, use_reentrant=False)
                     if remat else _chunk_out(*args))
     o = torch.cat(outs) if len(outs) > 1 else outs[0]
-    o = o.permute(1, 0, 3, 2, 4).reshape(b, s, h, dv)
-    return o.to(r.dtype), state
+    o = o.permute(1, 0, 3, 2, 4).reshape(b, n_own * c, h, dv).to(out_dtype)
+    if grp is not None:       # every rank reads the whole output alike
+        # (the final state, which the decode continues from, takes no
+        # gradient here: the gather above sums the ranks' gradients)
+        return gather(o, 1, grp, "split"), state.detach()
+    return o, state
 
 
 def linear_attention_decode(r: torch.Tensor, k: torch.Tensor,

@@ -2,7 +2,13 @@
 ``decode_step`` for serving; the JAX package's ``repro.models.model.LM``
 for attention decoders, dense (``block == "attn"``) and mixture-of-experts
 (``block == "moe"``, with ``dense_residual``), and for the sub-quadratic
-blocks, RWKV-6 (``"rwkv"``) and Hymba (``"hymba"``).
+blocks, RWKV-6 (``"rwkv"``) and Hymba (``"hymba"``).  A decoder with
+``embeds_input`` (Qwen2-VL's backbone, whose vision frontend is a stub)
+reads ``batch["embeds"]`` ``[B, S, D]`` in place of ``tokens``, and one
+with ``rope == "mrope"`` reads its M-RoPE ids ``batch["positions"]`` ``[3,
+B, S]`` (temporal, height, width); its decode step reads ``embed1`` ``[B,
+1, D]`` when given (else the table's row of ``token``) and sets all three
+ids to ``pos``, as the reference does.
 
     lm = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
     logits = lm.forward({"tokens": tokens})                  # [B, S, V]
@@ -37,9 +43,9 @@ and the tied head are vocab-parallel, so ``loss`` is a vocab-parallel
 float32 log-softmax, the mean over the global batch; the experts are
 expert-parallel over ``model`` and the auxiliary loss is the global
 batch's.  ``forward``, ``prefill`` and ``decode_step`` return whole-vocab
-logits.  RWKV and Hymba run on one device (``shard_`` refuses them,
-ROADMAP item 14.5).  The encoder-decoder waits for a later slice (ROADMAP
-item 14).
+logits.  RWKV's and Hymba's recurrent states are split over heads where
+the heads divide ``model`` (``cache_spec``).  The encoder-decoder waits
+for a later slice (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -58,18 +64,21 @@ from .config import ModelConfig
 from .layers import (embed_init, embed_lookup, is_tp, parameter, rms_norm,
                      tied_logits)
 from .transformer import (Block, block_apply, block_attend, block_decode,
-                          check_meshable, check_supported, init_cache)
+                          check_supported, init_cache)
 
 AUX_COEF = 0.01
 
 
-def _positions_for(cfg: ModelConfig, batch: Dict[str, Any], seq: int
+def _positions_for(cfg: ModelConfig, batch: Dict[str, Any], x: torch.Tensor
                    ) -> Optional[torch.Tensor]:
+    """The rotary positions of the embedded input ``x [B, S, D]``: none,
+    the batch's M-RoPE ids ``[3, B, S]``, or ``0 .. S-1`` ``[B, S]``."""
     if cfg.rope == "none":
         return None
-    tokens = batch["tokens"]
-    return torch.arange(seq, dtype=torch.int32,
-                        device=tokens.device).expand(tokens.shape[0], seq)
+    if cfg.rope == "mrope":
+        return batch["positions"]
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
 
 class LM(nn.Module):
@@ -109,7 +118,6 @@ class LM(nn.Module):
         mesh."""
         if self.mesh is not None:
             raise ValueError("the model is already sharded")
-        check_meshable(self.cfg)
         for name, p in self.named_parameters():
             p.global_shape = tuple(p.shape)
             p.data = shard(p.data, specs[name], mesh).clone()
@@ -138,6 +146,10 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- forward
     def _embed_in(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """``[B, S, D]`` in the activation dtype: ``batch["embeds"]`` with
+        ``cfg.embeds_input``, else the table's rows of ``tokens``."""
+        if self.cfg.embeds_input:
+            return batch["embeds"].to(self.cfg.act_dtype())
         return embed_lookup(self.embed, batch["tokens"], self.mesh).to(
             self.cfg.act_dtype())
 
@@ -150,7 +162,7 @@ class LM(nn.Module):
         only its input."""
         cfg = self.cfg
         x = self._embed_in(batch)
-        positions = _positions_for(cfg, batch, x.shape[1])
+        positions = _positions_for(cfg, batch, x)
         remat = cfg.remat and torch.is_grad_enabled()
         aux = None
         for blk in self.blocks:
@@ -175,9 +187,9 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Logits ``[B, S, V]`` of ``batch["tokens"]`` ``[B, S]`` (the JAX
-        package also returns MoE's auxiliary loss, which ``loss``
-        reports)."""
+        """Logits ``[B, S, V]`` of ``batch["tokens"]`` ``[B, S]`` (or of
+        ``embeds``, module docstring; the JAX package also returns MoE's
+        auxiliary loss, which ``loss`` reports)."""
         return self._whole_vocab(self._logits(batch)[0])
 
     # ---------------------------------------------------------------- loss
@@ -248,11 +260,15 @@ class LM(nn.Module):
         b, s, _ = x.shape
         tp = 1 if mesh is None else mesh.shape["model"]
         if cache is None:
-            if s % tp:
+            if s % tp and cfg.block != "rwkv":     # a KV cache to split
                 raise ValueError(f"a prompt of {s} does not split over "
                                  f"{tp} ranks; pass a cache")
-            # this rank's block: its part of the batch, its slice of S
-            cache = init_cache(cfg, b, s // tp, x.device)
+            # this rank's block: its part of the batch (b rows of b times
+            # the FSDP axes' size: cache_spec splits them back to b), its
+            # slice of S, the recurrent states' heads where they split
+            n_fsdp = 1 if mesh is None else mesh.axis_size(
+                mesh_axes(mesh)[0])
+            cache = init_cache(cfg, b * n_fsdp, s, x.device, mesh)
         some = next(iter(cache.values()))
         if some.shape[1] != b or ("k" in cache
                                   and cache["k"].shape[2] * tp < s):
@@ -261,7 +277,7 @@ class LM(nn.Module):
         s_local = cache["k"].shape[2] if "k" in cache else s
         off = 0 if mesh is None else mesh.coords["model"] * s_local
         n = max(0, min(s - off, s_local))
-        positions = _positions_for(cfg, batch, s)
+        positions = _positions_for(cfg, batch, x)
         for i, blk in enumerate(self.blocks):
             out = block_attend(blk, x, cfg, positions, True, mesh)
             x = out.x
@@ -283,7 +299,9 @@ class LM(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token for the whole batch.  batch: {"token": [B, 1], "pos":
         the position being written (an int; RWKV, which keeps no keys,
-        reads none)}.  Returns (logits [B, V], cache), the cache updated
+        reads none)} and, with ``cfg.embeds_input``, ``"embed1"`` [B, 1,
+        D] in place of the token's row of the table; with M-RoPE all three
+        ids are ``pos``.  Returns (logits [B, V], cache), the cache updated
         in place.  Over a mesh the cache's sequence axis is split over
         ``seq_axis`` (``"model"``: the ``cache_spec`` layout)."""
         cfg, mesh = self.cfg, self.mesh
@@ -292,12 +310,16 @@ class LM(nn.Module):
                              "its sequence axis over 'model' (cache_spec): "
                              "pass seq_axis='model'")
         pos = int(batch["pos"])
-        x1 = embed_lookup(self.embed, batch["token"][:, 0], mesh).to(
-            cfg.act_dtype())
+        if cfg.embeds_input and "embed1" in batch:
+            x1 = batch["embed1"][:, 0].to(cfg.act_dtype())
+        else:
+            x1 = embed_lookup(self.embed, batch["token"][:, 0], mesh).to(
+                cfg.act_dtype())
         positions = None
-        if cfg.rope == "rope":
-            positions = torch.full((x1.shape[0], 1), pos, dtype=torch.int32,
-                                   device=x1.device)
+        if cfg.rope != "none":
+            lead = (3,) if cfg.rope == "mrope" else ()
+            positions = torch.full(lead + (x1.shape[0], 1), pos,
+                                   dtype=torch.int32, device=x1.device)
         for i, blk in enumerate(self.blocks):
             layer = {name: t[i] for name, t in cache.items()}
             x1, _ = block_decode(blk, x1, layer, cfg, pos, positions, mesh,
@@ -316,6 +338,6 @@ def build_model(cfg: ModelConfig, device=None,
                 trainable: bool = False) -> LM:
     """The model for ``cfg`` on ``device`` (``None``: the CUDA card), with
     uninitialised weights, trainable or not (:class:`LM`).  Raises
-    ``NotImplementedError`` for the RoPE variants and model kinds the port
-    does not build yet."""
+    ``NotImplementedError`` for the model kinds the port does not build
+    yet (the encoder-decoder)."""
     return LM(cfg, device, trainable)

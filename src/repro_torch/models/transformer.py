@@ -23,8 +23,11 @@ experts are expert-parallel over ``model``, :mod:`.moe`), and the decode
 cache's sequence axis is split over ``seq_axis``: each rank attends over
 its slice of the cache, the new key is written on the rank that owns
 ``pos``, and the partials are combined over that axis (flash-decoding).
-RWKV and Hymba run on one device (over a mesh: ROADMAP item 14.5); M-RoPE
-and the encoder-decoder blocks wait for later slices (ROADMAP item 14).
+RWKV's mixes and Hymba's SSM heads take the route of
+:func:`repro_torch.models.linear_attn.linear_attention_route` over the
+mesh (:mod:`.rwkv`, :mod:`.ssm`), and their recurrent states in the cache
+are split over heads where the heads divide ``model``.  The
+encoder-decoder blocks wait for a later slice (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -56,25 +59,14 @@ def check_supported(cfg: ModelConfig) -> None:
     why = None
     if cfg.block not in ("attn", "moe") + RECURRENT:
         why = f"block {cfg.block!r}"
-    elif cfg.rope == "mrope":
-        why = "M-RoPE"
     elif cfg.enc_dec:
         why = "encoder-decoder models"
-    elif cfg.embeds_input:
-        why = "embedding inputs (a modality frontend)"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported yet (ROADMAP item 14: M-RoPE, "
-            f"Whisper); the port builds decoders of attention (dense or "
-            f"MoE, with RoPE), RWKV and Hymba blocks")
-
-
-def check_meshable(cfg: ModelConfig) -> None:
-    """Raise for a block the port does not run over a training mesh."""
-    if cfg.block in RECURRENT:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.block!r} blocks over a training mesh are not "
-            f"ported yet (ROADMAP item 14.5); they run on one device")
+            f"{cfg.name}: {why} not ported yet (ROADMAP item 14: Whisper); "
+            f"the port builds decoders of attention (dense or MoE, with "
+            f"RoPE or M-RoPE, from tokens or embeddings), RWKV and Hymba "
+            f"blocks")
 
 
 class Block(nn.Module):
@@ -158,9 +150,9 @@ def block_attend(p: Block, x: torch.Tensor, cfg: ModelConfig,
     read beside the stream (:class:`BlockOut`)."""
     if cfg.block == "rwkv":
         n1 = rms_norm(x, p.norm1)
-        h, (tm_x, wkv) = rwkv_token_mix(p.rwkv, n1, cfg)
+        h, (tm_x, wkv) = rwkv_token_mix(p.rwkv, n1, cfg, mesh=mesh)
         x = x + h
-        h, cm_x = rwkv_channel_mix(p.rwkv, rms_norm(x, p.norm2))
+        h, cm_x = rwkv_channel_mix(p.rwkv, rms_norm(x, p.norm2), mesh=mesh)
         return BlockOut(x + h, None, None, None, None,
                         dict(tm_x=tm_x, cm_x=cm_x, wkv=wkv))
     n1 = rms_norm(x, p.norm1)
@@ -171,7 +163,7 @@ def block_attend(p: Block, x: torch.Tensor, cfg: ModelConfig,
     ao = out_project(p.attn.wo, ao.reshape(b, s, -1), mesh)
     state = None
     if cfg.block == "hymba":
-        so, s1 = ssm_apply(p.ssm, n1, cfg)
+        so, s1 = ssm_apply(p.ssm, n1, cfg, mesh=mesh)
         ao = (ao + so) * 0.5
         state = dict(ssm=s1)
     x = x + ao
@@ -239,12 +231,12 @@ def block_decode(p: Block, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
     if cfg.block == "rwkv":
         h, (tm_x, wkv) = rwkv_token_mix_decode(
             p.rwkv, rms_norm(x1, p.norm1), cfg, (cache["tm_x"],
-                                                 cache["wkv"]))
+                                                 cache["wkv"]), mesh)
         cache["tm_x"].copy_(tm_x)
         cache["wkv"].copy_(wkv)
         x1 = x1 + h
         h, cm_x = rwkv_channel_mix_decode(p.rwkv, rms_norm(x1, p.norm2),
-                                          cache["cm_x"])
+                                          cache["cm_x"], mesh)
         cache["cm_x"].copy_(cm_x)
         return x1 + h, cache
     n1 = rms_norm(x1, p.norm1)
@@ -255,7 +247,7 @@ def block_decode(p: Block, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
                                seq_axis=seq_axis, mesh=mesh)
     ao = out_project(p.attn.wo, o.reshape(x1.shape[0], -1), mesh)
     if cfg.block == "hymba":
-        so, s1 = ssm_decode(p.ssm, n1, cfg, cache["ssm"])
+        so, s1 = ssm_decode(p.ssm, n1, cfg, cache["ssm"], mesh)
         cache["ssm"].copy_(s1)
         ao = (ao + so) * 0.5
     x1 = x1 + ao
@@ -270,12 +262,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     Hymba's ``ssm`` [L, B, H, N, hd] float32 beside them; RWKV's ``tm_x``/
     ``cm_x`` [L, B, D] (activation dtype) and ``wkv`` [L, B, H, hd, hd]
     (float32), and no ``k``/``v``.  Over a mesh, this rank's block of it
-    as ``cache_spec`` lays it out (S split over ``model``, B over the FSDP
-    axes where they divide it)."""
+    as ``cache_spec`` lays it out: S split over ``model``, the recurrent
+    states' heads over ``model`` where they divide it (the ``"heads"``
+    route of the mixes), B over the FSDP axes where they divide it."""
     check_supported(cfg)
     l, act, f32 = cfg.n_layers, cfg.act_dtype(), torch.float32
-    if mesh is not None:
-        check_meshable(cfg)
     if cfg.block == "rwkv":
         h, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         shapes = dict(tm_x=((l, batch, cfg.d_model), act),
@@ -283,13 +274,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                       wkv=((l, batch, h, hd, hd), f32))
     else:
         shape = (l, batch, seq, cfg.n_kv_heads, cfg.hd)
-        if mesh is not None:            # train.sharding.cache_spec's layout
-            fsdp, tp = mesh_axes(mesh)
-            b_ax = fsdp if batch % mesh.axis_size(fsdp) == 0 else None
-            shape = local_shape(shape, (None, b_ax, tp, None, None), mesh)
         shapes = dict(k=(shape, act), v=(shape, act))
         if cfg.block == "hymba":
             shapes["ssm"] = ((l, batch, cfg.ssm_heads, cfg.ssm_state,
                               cfg.hd), f32)
+    if mesh is not None:                # train.sharding.cache_spec's layout
+        fsdp, tp = mesh_axes(mesh)
+        b_ax = fsdp if batch % mesh.axis_size(fsdp) == 0 else None
+        for name, (shape, dtype) in shapes.items():
+            third = {"k": tp, "v": tp}.get(
+                name, tp if name in ("wkv", "ssm")
+                and shape[2] % mesh.shape[tp] == 0 else None)
+            shapes[name] = (local_shape(shape, (None, b_ax, third), mesh),
+                            dtype)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name, (shape, dtype) in shapes.items()}

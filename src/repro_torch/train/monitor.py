@@ -48,7 +48,7 @@ def routing_trace(model: LM, batch) -> torch.Tensor:
     if not cfg.is_moe:
         raise ValueError("routing_trace requires an MoE config")
     x = model._embed_in(batch)
-    positions = _positions_for(cfg, batch, x.shape[1])
+    positions = _positions_for(cfg, batch, x)
     traces = []
     for blk in model.blocks:
         out = block_attend(blk, x, cfg, positions, True, model.mesh)

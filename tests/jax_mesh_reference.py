@@ -18,11 +18,21 @@ itself is not edited.
 
 * ``train/<name>``: the losses of ``make_train_step`` under ``jax.jit``,
   the parameters placed by ``param_shardings`` and each batch by
-  ``batch_shardings`` (the reduced qwen2.5-3b in float32, or a variant).
+  ``batch_shardings`` (the reduced qwen2.5-3b in float32, or a variant);
+  a case that names ``params`` starts from the weights stored under
+  ``params/<that name>/<leaf path>`` (``init_params``) in place of
+  ``LM.init``; the parameters after the last step are
+  ``train/<name>/param/<leaf path>``.  The RWKV and
+  Hymba cases run the reference's ``_chunk_mesh`` route where the chunk
+  count ``n = S / 64`` divides ``model`` (``src/repro/models/
+  linear_attn.py:30-50``): at ``model`` = 4 that needs S >= 256, since at
+  S = 128 its 2 chunks fall back to the replicated path unseen.
 * ``attn/<name>``: ``sharded_attention`` on the case's q, k, v.
 * ``decode/<name>``: the logits of ``make_decode_step(model, mesh)`` at
   every position of the case's tokens, the cache placed by
-  ``cache_shardings`` (its sequence axis over ``model``).
+  ``cache_shardings`` (its sequence axis over ``model``; RWKV's and
+  Hymba's recurrent states over heads where they divide it), from the
+  case's ``params`` where it names them.
 * ``moe/<name>/*``: ``moe_apply`` on the case's input under the mesh
   (the expert-parallel ``ep`` body where ``model`` divides the experts),
   layer 0's MoE weights of the case's config: the output, the auxiliary
@@ -31,7 +41,9 @@ itself is not edited.
   loss).
 
 A case's ``cfg`` may name another reduced config than ``ARCH`` under
-``arch`` (the MoE cases: ``qwen3-moe-30b-a3b``, ``arctic-480b``).
+``arch`` (the MoE cases: ``qwen3-moe-30b-a3b``, ``arctic-480b``; the
+sub-quadratic ones: ``rwkv6-1.6b``, ``hymba-1.5b``, and a Hymba of 5 heads
+given as config changes beside it).
 """
 
 import os
@@ -74,13 +86,32 @@ def config(kw):
                                              param_dtype="float32", **kw)
 
 
-def train(mesh_shape, cfg_kw, opt_kw, batches):
+def leaf_paths(tree):
+    """``{path: leaf}`` of a parameter tree, paths as ``jax.tree_util
+    .keystr`` spells them."""
+    return {jax.tree_util.keystr(path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def init_params(model, arrays=None, name=None):
+    """``LM.init(PRNGKey(0))``, or, with ``name``, the same tree holding
+    ``arrays[f"params/{name}/{path}"]``."""
+    if name is None:
+        return model.init(jax.random.PRNGKey(0))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    paths, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    return jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(arrays[f"params/{name}/{jax.tree_util.keystr(p)}"])
+        for p, _ in paths])
+
+
+def train(mesh_shape, cfg_kw, opt_kw, batches, arrays=None, params=None):
     cfg = config(cfg_kw)
     model = build_model(cfg)
     opt = adamw.make_optimizer(adamw.OptConfig(**opt_kw))
     mesh = make_mesh(mesh_shape)
     with jax.sharding.set_mesh(mesh):
-        params = model.init(jax.random.PRNGKey(0))
+        params = init_params(model, arrays, params)
         params = jax.device_put(params, param_shardings(params, mesh))
         state = {"params": params, "opt": opt.init(params)}
         fn = jax.jit(jstep.make_train_step(model, opt))
@@ -90,7 +121,8 @@ def train(mesh_shape, cfg_kw, opt_kw, batches):
             b = jax.device_put(b, batch_shardings(b, mesh))
             state, metrics = fn(state, b)
             losses.append(float(metrics["loss"]))
-    return np.asarray(losses, np.float64)
+    return np.asarray(losses, np.float64), {
+        k: np.asarray(v) for k, v in leaf_paths(state["params"]).items()}
 
 
 def attention(mesh_shape, q, k, v, causal, chunk):
@@ -101,14 +133,14 @@ def attention(mesh_shape, q, k, v, causal, chunk):
     return np.asarray(out)
 
 
-def decode(mesh_shape, cfg_kw, tokens, max_len):
+def decode(mesh_shape, cfg_kw, tokens, max_len, arrays=None, params=None):
     cfg = config(cfg_kw)
     model = build_model(cfg)
     mesh = make_mesh(mesh_shape)
     b = tokens.shape[0]
     out = []
     with jax.sharding.set_mesh(mesh):
-        params = model.init(jax.random.PRNGKey(0))
+        params = init_params(model, arrays, params)
         params = jax.device_put(params, param_shardings(params, mesh))
         cache = model.init_cache(b, max_len)
         cache = jax.device_put(cache, cache_shardings(cache, mesh))
@@ -150,8 +182,10 @@ def main(cases_path, out_path):
             vocab=config(c["cfg"]).vocab, seq_len=c["seq"],
             global_batch=c["batch"], seed=c["seed"])).batch(i)
             for i in range(c["steps"])]
-        out[f"train/{name}"] = train(c["mesh"], c["cfg"], c["opt"], batches)
-    for name, c in spec["attn"].items():
+        out[f"train/{name}"], kept = train(c["mesh"], c["cfg"], c["opt"],
+                                           batches, cases, c.get("params"))
+        out.update({f"train/{name}/param/{k}": v for k, v in kept.items()})
+    for name, c in spec.get("attn", {}).items():
         out[f"attn/{name}"] = attention(
             c["mesh"], *(cases[f"attn/{name}/{t}"] for t in "qkv"),
             c["causal"], c["chunk"])
@@ -162,7 +196,7 @@ def main(cases_path, out_path):
     for name, c in spec["decode"].items():
         out[f"decode/{name}"] = decode(c["mesh"], c["cfg"],
                                        cases[f"decode/{name}/tokens"],
-                                       c["max_len"])
+                                       c["max_len"], cases, c.get("params"))
     np.savez(out_path, **out)
 
 

@@ -61,17 +61,18 @@ def _cfgs(arch, dtype="float32"):
             configs.get_reduced(arch).replace(**kw))
 
 
-def perturbed(tree, rng):
+def perturbed(tree, rng, noise=None):
     """``tree`` (numpy leaves; dicts and named tuples) with
-    ``NOISE[name]`` times N(0, 1) added to each leaf named in ``NOISE``,
-    in the leaf's dtype."""
+    ``noise[name]`` (default ``NOISE``) times N(0, 1) added to each leaf
+    named in it, in the leaf's dtype."""
+    noise = NOISE if noise is None else noise
     if isinstance(tree, dict):
-        return {k: (_noisy(v, NOISE[k], rng) if k in NOISE
-                    else perturbed(v, rng)) for k, v in tree.items()}
+        return {k: (_noisy(v, noise[k], rng) if k in noise
+                    else perturbed(v, rng, noise)) for k, v in tree.items()}
     if hasattr(tree, "_fields"):
-        return type(tree)(**{f: (_noisy(getattr(tree, f), NOISE[f], rng)
-                                 if f in NOISE
-                                 else perturbed(getattr(tree, f), rng))
+        return type(tree)(**{f: (_noisy(getattr(tree, f), noise[f], rng)
+                                 if f in noise
+                                 else perturbed(getattr(tree, f), rng, noise))
                              for f in tree._fields})
     return tree
 
@@ -395,7 +396,7 @@ def test_bf16_port_tracks_float32_jax(arch, seed):
     assert r["port_mean"] <= 1.12 * r["jax_mean"]
 
 
-# ------------------------------------------- one device, and the mesh ----
+# ---------------------------------------------------------- one device --
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launcher_trains_on_one_device(arch):
@@ -406,24 +407,3 @@ def test_launcher_trains_on_one_device(arch):
                            "--steps", "3", "--batch", "4", "--seq", "16",
                            "--microbatch", "2", "--log-every", "100"])
     assert len(losses) == 3 and all(np.isfinite(losses))
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_refuses_the_subquadratic_blocks(arch):
-    """``LM.shard_``, a sharded decode cache and the launcher's
-    ``--model-axis`` refuse RWKV and Hymba over a mesh, naming ROADMAP
-    item 14.5."""
-    from repro_torch.launch import train as launcher
-    from repro_torch.models.transformer import init_cache
-    from repro_torch.train.sharding import abstract_mesh
-    cfg = configs.get_reduced(arch)
-    mesh = abstract_mesh({"data": 1, "model": 2})
-    lm = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14.5"):
-        lm.shard_(mesh, {})
-    assert lm.mesh is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14.5"):
-        init_cache(cfg, 2, 8, torch.device("cpu"), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14.5"):
-        launcher.run(["--arch", arch, "--reduced", "--device", "cpu",
-                      "--steps", "1", "--model-axis", "2"])

@@ -12,7 +12,12 @@ shapes, weights and batches.  The weights are the JAX package's
 
 :func:`moe_main` is the ranks' body of ``tests/test_torch_moe_mesh.py``:
 the MoE cases (``MOE_*``) on the reduced ``qwen3-moe-30b-a3b`` and
-``arctic-480b``, float32.
+``arctic-480b``, float32.  :func:`subq_main` is the ranks' body of
+``tests/test_torch_subquadratic_mesh.py`` (RWKV trained over meshes
+``(2, 2)`` and ``(1, 4)``, and the launcher),
+``tests/test_torch_subquadratic_mesh_hymba.py`` (Hymba trained over them)
+and ``tests/test_torch_subquadratic_mesh_decode.py`` (their decode): the
+``SUBQ_*`` cases.
 """
 
 import os
@@ -410,6 +415,175 @@ def moe_main(rank, world, workdir):
                 pickle.dump(out, f)
     except BaseException:
         with open(os.path.join(workdir, f"error_moe{world}_{rank}.txt"),
+                  "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# ------------------------------------------------------- RWKV and Hymba ---
+
+# variant -> (arch, config changes): the reduced rwkv6-1.6b (4 heads of 16)
+# and hymba-1.5b (4/2 attention and 4 SSM heads of 16), and a Hymba of 5
+# heads of 16 (5/1 attention, 5 SSM heads), which divide no model axis
+# above 1, as Hymba-1.5B's 25 divide neither 2 nor 4
+SUBQ_VARIANTS = {"rwkv": ("rwkv6-1.6b", {}), "hymba": ("hymba-1.5b", {}),
+                 "hymba5": ("hymba-1.5b", dict(
+                     n_heads=5, n_kv_heads=1, ssm_heads=5, head_dim=16,
+                     d_model=80))}
+# name -> (model axis, variant): SUBQ_STEPS AdamW steps (ADAMW) of the
+# SyntheticCorpus batches of SUBQ_SEQ tokens (global batch BATCH, seed
+# SEED) on a 4-rank mesh (4 / tp, tp).  At 256 tokens there are 4 chunks
+# of 64, which 4 ranks divide: the 5-head Hymba's SSM takes the "chunks"
+# route there (its attention the sequence route); the rest take "heads".
+SUBQ_TRAIN = {"rwkv_22": (2, "rwkv"), "rwkv_14": (4, "rwkv"),
+              "hymba5_14": (4, "hymba5"), "hymba_22": (2, "hymba")}
+SUBQ_STEPS, SUBQ_SEQ = 2, 256
+# name -> (model axis, variant, prompt): the logits of a decode step at
+# every one of SUBQ_DECODE_TOKENS' positions into a cache of
+# SUBQ_DECODE_MAX, and of a prefill of ``prompt`` tokens followed by
+# decode steps
+SUBQ_DECODE = {"rwkv_decode_14": (4, "rwkv", 4),
+               "hymba_decode_14": (4, "hymba", 4),
+               "hymba5_decode_14": (4, "hymba5", 4)}
+SUBQ_DECODE_TOKENS, SUBQ_DECODE_MAX = (2, 8), 16
+# the launcher over 2 ranks: 3 AdamW steps of 4 x 16 in 2 microbatches
+SUBQ_LAUNCH_ARGV = ["--arch", "rwkv6-1.6b", "--reduced", "--steps", "3",
+                    "--batch", "4", "--seq", "16", "--microbatch", "2",
+                    "--device", "cpu", "--log-every", "1"]
+
+
+# the noise added to the constants of the JAX init (tests/
+# test_torch_subquadratic.py's NOISE) but a_log's: at 0.5, Hymba's decay
+# over a chunk of 64 passes exp's float32 range in the JAX package's
+# masked pairs (exponentiated before they are selected away), and its
+# gradients turn NaN at S = 256; the port's stay finite
+SUBQ_NOISE_A_LOG = 0.05
+
+
+def subq_config(variant):
+    arch, kw = SUBQ_VARIANTS[variant]
+    return configs.get_reduced(arch).replace(
+        dtype="float32", param_dtype="float32", **kw)
+
+
+def subq_batches(cfg, steps=SUBQ_STEPS, seq=SUBQ_SEQ, seed=SEED):
+    return [SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                       global_batch=BATCH, seed=seed)
+                            ).batch(i) for i in range(steps)]
+
+
+def subq_tokens(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return rng.integers(0, 256, SUBQ_DECODE_TOKENS).astype(np.int32)
+
+
+def subq_model(workdir, variant, mesh=None, trainable=False):
+    """The test process's (perturbed JAX) weights of ``variant`` in a model
+    on the host: whole, or this rank's shards of ``mesh``."""
+    model = build_model(subq_config(variant), "cpu", trainable=trainable)
+    if mesh is not None:
+        model.shard_(mesh, param_shardings(dict(model.named_parameters()),
+                                           mesh))
+    with np.load(os.path.join(workdir, f"params_subq_{variant}.npz")) as z:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                t = torch.from_numpy(z[name])
+                p.copy_(t if mesh is None else shard(t, p.spec, mesh))
+    return model
+
+
+def run_subq_train(mesh, name, spec, workdir):
+    _, variant = spec
+    model = subq_model(workdir, variant, mesh, trainable=True)
+    opt = adamw.make_optimizer(adamw.OptConfig(**ADAMW))
+    state = {"params": dict(model.named_parameters())}
+    state["opt"] = opt.init(state["params"])
+    fn = tstep.make_train_step(model, opt)
+    losses = []
+    for b in subq_batches(model.cfg):
+        b = shard_batch({k: torch.from_numpy(v) for k, v in b.items()}, mesh)
+        state, metrics = fn(state, b)
+        losses.append(float(metrics["loss"]))
+    params = {n: unshard(p.detach(), p.spec, mesh).numpy()
+              for n, p in state["params"].items()}
+    return dict(losses=losses, params=params)
+
+
+def subq_decode_logits(model, toks, prompt, step):
+    """``[B, T, V]`` logits: a decode step at every position of ``toks``
+    from an empty cache, then (``prompt``) a prefill of the first
+    ``prompt`` tokens and decode steps for the rest into a new cache (its
+    logits from position ``prompt - 1`` on)."""
+    b, t = toks.shape
+    every = []
+    cache = model.init_cache(b, SUBQ_DECODE_MAX)
+    for pos in range(t):
+        out, cache = step(cache, {"token": toks[:, pos:pos + 1],
+                                  "pos": pos})
+        every.append(out)
+    cache = model.init_cache(b, SUBQ_DECODE_MAX)
+    last, cache = model.prefill({"tokens": toks[:, :prompt]}, cache)
+    after = [last]
+    for pos in range(prompt, t):
+        out, cache = step(cache, {"token": toks[:, pos:pos + 1],
+                                  "pos": pos})
+        after.append(out)
+    return torch.stack(every, 1), torch.stack(after, 1)
+
+
+def run_subq_decode(mesh, name, spec, workdir):
+    _, variant, prompt = spec
+    model = subq_model(workdir, variant, mesh)
+    toks = shard_batch({"tokens": torch.from_numpy(subq_tokens(name))},
+                       mesh)["tokens"]
+    every, after = subq_decode_logits(model, toks, prompt,
+                                      tstep.make_decode_step(model, mesh))
+    data = mesh.group("data")
+    return dict(every=all_gather(every, 0, data).numpy(),
+                after=all_gather(after, 0, data).numpy())
+
+
+def subq_part(part):
+    """``(cases, run)`` of a part: ``"decode"``'s ``SUBQ_DECODE``, or the
+    ``SUBQ_TRAIN`` cases whose variant starts with the part's name
+    (``"rwkv"``, ``"hymba"``)."""
+    if part == "decode":
+        return SUBQ_DECODE, run_subq_decode
+    return ({n: c for n, c in SUBQ_TRAIN.items() if c[1].startswith(part)},
+            run_subq_train)
+
+
+def subq_main(rank, world, workdir, part):
+    """A rank's body for the RWKV and Hymba cases of ``part``
+    (:func:`subq_part`): join the group; on 4 ranks run the part's cases
+    on the meshes they ask for, on 2 ranks the launcher with
+    ``--model-axis 2``; rank 0 pickles the results to
+    ``subq<world>.pkl``.  At ``nice`` 10, as :func:`moe_main`."""
+    os.nice(10)
+    torch.set_num_threads(1)
+    try:
+        init_group(rank, world, os.path.join(workdir, f"subq_store{world}"),
+                   timeout_s=TIMEOUT_S)
+        try:
+            out = {}
+            if world == 2:
+                out["launch"] = launcher.train(launcher.parse_args(
+                    SUBQ_LAUNCH_ARGV + ["--model-axis", "2"])).losses
+            else:
+                meshes = {}
+                cases, run = subq_part(part)
+                for name, spec in cases.items():
+                    tp = spec[0]
+                    if tp not in meshes:
+                        meshes[tp] = make_train_mesh(tp, "cpu")
+                    out[name] = run(meshes[tp], name, spec, workdir)
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            with open(os.path.join(workdir, f"subq{world}.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(workdir, f"error_subq{world}_{rank}.txt"),
                   "w") as f:
             f.write(traceback.format_exc())
         raise
