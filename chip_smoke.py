@@ -467,6 +467,33 @@ Phases (any failure exits non-zero before the last line is printed):
               memory, the prefill profiled; K6 against its plain version
               on layer 0's q, k, v (``K6_BF16_TOL``), timed beside SDPA
               and its bound.  The ``vlm`` entry of K6's kernels-line row.
+22. whisper  — Whisper-base (the encoder-decoder) at its published size,
+              nothing cut (6 + 6 layers, d_model 512, 8/8 heads of 64,
+              vocab 51,865, 1,500 stub frames; bf16, random weights from
+              generator seed 0).  (a) ``WHISPER_BATCH`` chunks of 1,500
+              seeded frames encoded, prompts of ``WHISPER_PROMPT`` tokens
+              prefilled into a ``WHISPER_CTX`` cache, ``WHISPER_NEW``
+              greedy decode steps: encode, prefill and decode seconds,
+              tokens/s, each step's ms beside the bound of reading the
+              decoder's weights, the tied head and ``xk``/``xv`` once,
+              peak memory; K6 launched 18 times a prefill (6 encoder,
+              non-causal over 1,500 keys, a ragged end for every key tile;
+              6 decoder self; 6 cross at ``Sq != Skv``) and 6 a decode
+              step (the cross-attention at one query row), no plain
+              attention; 4 decode steps and the prefill profiled.  (b)
+              Phase 8's consistency at full size, and the reduced config
+              in float32 on the card at 64 and 50 frames within
+              ``WHISPER_F32_REL``.  (c) K6 against its plain version on
+              layer 0's q, k, v at the three signatures
+              (``K6_BF16_TOL``), timed beside SDPA and its bound.  (d)
+              ``WHISPER_TRAIN_STEPS`` AdamW steps of ``WHISPER_BATCH`` x
+              ``WHISPER_CTX`` tokens over the stub frames through the
+              launcher: losses finite and falling, K6 18 launches and 18
+              plain backwards a step (the encoder's non-causal included),
+              s a step, tokens/s, peak memory, one step profiled.  K6
+              against its plain version at every signature (a), (b) and
+              (d) launched it with.  The ``whisper`` entry of K6's
+              kernels-line row.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -485,9 +512,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
-BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor cores
+# The H100 SXM's rates (data sheet), the port's roofline constants: device
+# memory, float32 outside the tensor cores, bf16 dense tensor cores.
+from repro_torch.roofline import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                  PEAK_FLOPS_BF16 as BF16_OPS_PER_S,
+                                  PEAK_FLOPS_F32 as FP32_OPS_PER_S)
+
 LGAMMA_OPS = 70                    # float32 operations per lgamma_f32 call
                                    # (count of bdeu.cu's lgamma_f32 + log_f32)
 PROFILE_PAUSE_S = 0.1              # host pause before a kept profiler step
@@ -789,6 +819,22 @@ SUBQ_MESH_FIRST_RTOL = 2e-2
 VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 16
 VLM_BATCH, VLM_PROMPT, VLM_NEW = 4, 4096, 16
 VLM_GRID, VLM_TEXT = (1, 32, 32), (1024, 512, 1536, 2048)
+# Whisper-base (phase 22) at its published size, nothing cut (6 encoder and
+# 6 decoder layers, d_model 512, 8/8 heads of 64, d_ff 2,048 GELU, vocab
+# 51,865, 1,500 encoder frames; bf16, random weights from generator seed
+# 0): (a) WHISPER_BATCH chunks of 30 s of audio (1,500 seeded stub frames
+# each) encoded, prompts of WHISPER_PROMPT tokens (Whisper's previous-text
+# limit) prefilled into a cache of WHISPER_CTX (the decoder's context),
+# WHISPER_NEW greedy decode steps; (b) phase 8's consistency at full size
+# in bf16, and the reduced config in float32 on the card within
+# WHISPER_F32_REL of the largest logit (tests/test_torch_whisper.py's
+# float32 bar); (d) WHISPER_TRAIN_STEPS AdamW steps of WHISPER_BATCH x
+# WHISPER_CTX tokens over the stub frames through the launcher, at
+# Whisper's published base learning rate.
+WHISPER_ARCH = "whisper-base"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CTX, WHISPER_NEW = 16, 224, 448, 64
+WHISPER_F32_REL = 1e-4
+WHISPER_TRAIN_STEPS, WHISPER_LR = 6, 1e-3
 
 
 def log(msg: str) -> None:
@@ -1243,20 +1289,20 @@ def hist_phase(ops) -> dict:
         shape=f"N={n} P={p} D={d}; max_abs_err over the three shapes")
 
 
-def sdpa_call(q, k, v):
+def sdpa_call(q, k, v, causal: bool = True):
     """One PyTorch library call of the same attention (the yardstick; the
     port never calls it), as a function of no arguments.  KV heads are
     repeated beforehand where this PyTorch has no ``enable_gqa``."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     try:
-        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt, is_causal=True,
-                                       enable_gqa=True)
-        kw = dict(is_causal=True, enable_gqa=True)
+        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt,
+                                       is_causal=causal, enable_gqa=True)
+        kw = dict(is_causal=causal, enable_gqa=True)
     except TypeError:
         rep = q.shape[2] // k.shape[2]
         kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
-        kw = dict(is_causal=True)
+        kw = dict(is_causal=causal)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
@@ -6426,6 +6472,376 @@ def vlm_phase(ops, smi: str) -> dict:
     return reading
 
 
+# ---------------------------------------------------------------- phase 22 --
+
+def whisper_inputs(cfg, b: int, s: int, seed: int, device="cuda"):
+    """Seeded stub frames ``[b, enc_frames, D]`` (N(0, 1), as the
+    reference's stub frontend draws them) in the activation dtype and
+    tokens ``[b, s]`` int64 (numpy ``default_rng(seed)``) on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randn((b, cfg.enc_frames, cfg.d_model), generator=gen,
+                         device=device).to(cfg.act_dtype())
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (b, s), dtype=np.int64)).to(device)
+    return frames, toks
+
+
+def whisper_consistency(model, b: int, s: int, bars: dict,
+                        seed: int = 1) -> dict:
+    """(b) ``tests/test_arch_smoke.py``'s property on the encoder-decoder:
+    a prefill of ``s - 1`` tokens (its last logits against ``forward`` at
+    ``s - 2``) into a cache of ``s``, then one decode step (against
+    ``forward`` at ``s - 1``); each max abs difference over the largest
+    logit, held to ``bars`` by name."""
+    frames, toks = whisper_inputs(model.cfg, b, s, seed, model.device)
+    logits_all = model.forward({"frames": frames, "tokens": toks})
+    cache = model.init_cache(b, s)
+    last, cache = model.prefill({"frames": frames, "tokens": toks[:, :-1]},
+                                cache)
+    step, _ = model.decode_step(cache, {"token": toks[:, -1:],
+                                        "pos": s - 1})
+    rel = {}
+    for name, got, want in (("prefill", last, logits_all[:, s - 2]),
+                            ("decode", step, logits_all[:, s - 1])):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            fail(f"whisper consistency: non-finite {name} logits")
+        rel[name] = float((got - want).abs().max()) / float(
+            want.abs().max())
+    log(f"whisper consistency ({b} x {s} tokens over {model.cfg.enc_frames} "
+        f"frames, {model.cfg.dtype}, {model.cfg.n_layers} decoder layers): "
+        f"max abs difference from forward over the largest logit {rel} "
+        f"(bars {bars})")
+    if any(rel[k] > bars[k] for k in rel):
+        fail(f"whisper consistency: prefill and decode differ from forward "
+             f"by {rel} (bars {bars})")
+    return rel
+
+
+def whisper_layer0_qkv(model, frames, tokens) -> dict:
+    """Layer 0's q, k, v of each of Whisper's attentions in a prefill of
+    ``frames`` and ``tokens``, recomputed by the same operations:
+    ``{name: ((q, k, v), causal)}`` for the encoder's self-attention, the
+    decoder's self-attention and its cross-attention (the query of the
+    decoder's layer 0 over that layer's ``xk``, ``xv`` of the encoder's
+    output)."""
+    from repro_torch.models.attention import attend, out_project, qkv_project
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import cross_kv
+    cfg = model.cfg
+    with torch.no_grad():
+        blk = model.enc[0]
+        x = model._positioned(frames.to(cfg.act_dtype()))
+        enc = qkv_project(blk.attn, rms_norm(x, blk.norm1), cfg, None)
+        dec = model.dec[0]
+        y = model._decoder_in(tokens)
+        own = qkv_project(dec.attn, rms_norm(y, dec.norm1), cfg, None)
+        ao = attend(*own, cfg.n_heads, cfg.n_kv_heads, True)
+        b, s = y.shape[:2]
+        y = y + out_project(dec.attn.wo, ao.reshape(b, s, -1))
+        qx = (rms_norm(y, dec.norm_x) @ dec.xattn.wq.to(y.dtype)).reshape(
+            b, s, cfg.n_heads, cfg.hd)
+        xk, xv = cross_kv(dec, model.encode(frames), cfg)
+    return {"encoder": (enc, False), "decoder_self": (own, True),
+            "cross": ((qx, xk, xv), False)}
+
+
+def whisper_k6_reading(ops, name: str, qkv, causal: bool,
+                       launches: int) -> dict:
+    """(c) K6 at one of Whisper's signatures: against its plain version
+    (``K6_BF16_TOL``), timed (CUDA events and device time) beside SDPA and
+    the bound of its bytes and its operations (the pairs this run's mask
+    keeps)."""
+    from repro_torch.kernels.attention import (flash_attention_plain,
+                                               flash_attention_route)
+    q, k, v = qkv
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    err = check_k6(ops, q, k, v, f"whisper {name}", causal=causal)
+    pairs = sq * (sq + 1) / 2 if causal else sq * skv
+    flops = 4.0 * b * h * hd * pairs
+    b_ms, b_by = bound_ms(2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                          flops, BF16_OPS_PER_S)
+    reading = dict(
+        shape=(f"B={b} Sq={sq} Skv={skv} H={h} Hkv={k.shape[2]} hd={hd} "
+               f"{'causal' if causal else 'full'} {str(q.dtype)[6:]} "
+               f"({WHISPER_ARCH} layer 0, {name})"),
+        route=flash_attention_route(q.dtype, hd), launches=launches,
+        max_abs_err=err, operations=flops, bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ops.flash_attention(q, k, v, causal),
+                  lambda: flash_attention_plain(q, k, v, causal),
+                  sdpa_call(q, k, v, causal), plain_reps=3))
+    log(f"K6 at whisper's {name} [{reading['shape']}]: {reading['route']}, "
+        f"max_abs_err {err} (tolerance {K6_BF16_TOL}); events "
+        f"{reading['ms']:.4f} ms, device {reading['device_ms']} ms; plain "
+        f"{reading['plain_ms']:.4f} ms; SDPA {reading['library_ms']:.4f} / "
+        f"{reading['library_device_ms']} ms; bound {b_ms:.4f} ms ({b_by}, "
+        f"{flops:.3e} operations); {launches} launches a prefill")
+    return reading
+
+
+def whisper_serving_reading(ops, smi: str) -> dict:
+    """22 (a) and (c): whisper-base served at full size, then K6 at its
+    three signatures on layer 0's q, k, v."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(WHISPER_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"whisper: {WHISPER_ARCH} at full size ({cfg.enc_layers} encoder "
+        f"and {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff} "
+        f"{cfg.mlp}, vocab {cfg.vocab}, {cfg.enc_frames} frames, "
+        f"{cfg.dtype}): {n_params} parameters, {w_bytes} B, initialised in "
+        f"{time.perf_counter() - t0:.2f} s; on {smi}")
+    consistency = whisper_consistency(model, LM_CHECK_BATCH, LM_CHECK_LEN,
+                                      dict(prefill=LM_PREFILL_TOL,
+                                           decode=LM_DECODE_TOL))
+    b, s, n_new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    frames, prompts = whisper_inputs(cfg, b, s, 22)
+    cache = model.init_cache(b, WHISPER_CTX)
+    # a short prefill first warms cuBLAS and the allocator
+    model.prefill({"frames": frames[:2], "tokens": prompts[:2, :16]})
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    enc_out = model.encode(frames)
+    sync()
+    t_encode = time.perf_counter() - t0
+    k6_encode = ops.LAUNCHES["flash_attention"]
+    del enc_out
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"frames": frames, "tokens": prompts},
+                                  cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    k6 = (ops.LAUNCHES["flash_attention"], ops.PLAIN_CALLS["flash_attention"])
+    tok = logits.argmax(dim=-1)[:, None]
+    out, steps = [tok], []
+    ops.reset_counts()
+    for i in range(n_new):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"token": tok,
+                                                  "pos": s + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        out.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t1)
+    k6_decode = ops.LAUNCHES["flash_attention"]
+    check_no_plain(ops, "whisper decode")
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, dim=1)
+    median = sorted(steps)[len(steps) // 2]
+    dec_bytes = sum(p.numel() * p.element_size()
+                    for p in model.dec.parameters())
+    x_bytes = cache["xk"].numel() * cache["xk"].element_size() * 2
+    e_bytes = model.embed.numel() * model.embed.element_size()
+    bound_decode = 1e3 * (dec_bytes + e_bytes + x_bytes) / HBM_BYTES_PER_S
+    want_k6 = (cfg.enc_layers + 2 * cfg.n_layers, 0)
+    if k6 != want_k6 or k6_encode != cfg.enc_layers:
+        fail(f"whisper: the prefill launched K6 {k6[0]} times ({k6[1]} "
+             f"plain), the encoder alone {k6_encode}; not {want_k6[0]} and "
+             f"{cfg.enc_layers}")
+    if k6_decode != n_new * cfg.n_layers:
+        fail(f"whisper: {n_new} decode steps launched K6 {k6_decode} times, "
+             f"not once a decoder layer a step")
+    if not torch.isfinite(logits).all() or logits.shape != (b, cfg.vocab):
+        fail(f"whisper: bad decode logits {tuple(logits.shape)}")
+    if gen.shape != (b, n_new + 1) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail("whisper: generated tokens out of range")
+    log(f"whisper main run: encode {b} x {cfg.enc_frames} frames in "
+        f"{t_encode:.4f} s ({b * cfg.enc_frames / t_encode:.1f} frames/s, "
+        f"K6 {k6_encode}); prefill (encoder, {b} x {s} prompt tokens, xk/xv) "
+        f"in {t_prefill:.4f} s ({b * s / t_prefill:.1f} prompt tok/s), K6 "
+        f"launches {k6[0]} (plain {k6[1]}); {n_new} greedy decode steps x "
+        f"{b} requests into a {WHISPER_CTX} cache: first "
+        f"{1e3 * steps[0]:.3f} ms, median {1e3 * median:.3f} ms, mean "
+        f"{1e3 * sum(steps) / n_new:.3f} ms a step ({b * n_new / sum(steps):.1f}"
+        f" tok/s; reading the decoder's weights, the tied head and xk/xv "
+        f"once bounds a step at {bound_decode:.4f} ms), K6 {k6_decode // n_new}"
+        f" launches a step; max_memory_allocated {peak} B; first tokens "
+        f"{gen[0, :8].tolist()}; on {smi}")
+    log(f"  decode step ms: {[round(1e3 * t, 3) for t in steps]}")
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(4):
+            model.decode_step(cache, {"token": tok, "pos": s + n_new + i})
+        sync()
+    dec_prof = raw_step_reading(prof, "whisper decode")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"frames": frames, "tokens": prompts}, cache)
+        sync()
+    wall_p = time.perf_counter() - t0
+    pre = raw_step_reading(prof, "whisper prefill")
+    log(f"whisper profiles: decode {dec_prof['events'] / 4:.0f} device "
+        f"events and {1e3 * dec_prof['busy_s'] / 4:.3f} ms busy a step; "
+        f"prefill {wall_p:.4f} s wall, device busy {pre['busy_s']:.4f} s "
+        f"({100 * pre['busy_s'] / wall_p:.2f} %), K6 {pre['k6_s']:.4f} s")
+    for name, (ms, n) in pre["top"][:8]:
+        log(f"  prefill {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    del prof, cache, logits
+    sigs = whisper_layer0_qkv(model, frames, prompts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"encoder": cfg.enc_layers, "decoder_self": cfg.n_layers,
+                "cross": cfg.n_layers}
+    k6_sigs = {name: whisper_k6_reading(ops, name, qkv, causal,
+                                        launches[name])
+               for name, (qkv, causal) in sigs.items()}
+    if ops.PLAIN_CALLS["flash_attention"]:
+        fail("whisper: plain attention ran on the card")
+    del sigs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n_params, weight_bytes=w_bytes,
+                consistency=consistency, encode_s=t_encode,
+                prefill_s=t_prefill, prefill_tokens_per_s=b * s / t_prefill,
+                prefill_busy_share=pre["busy_s"] / wall_p,
+                decode_ms=[1e3 * t for t in steps],
+                decode_median_ms=1e3 * median,
+                decode_tokens_per_s=b * n_new / sum(steps),
+                decode_bound_ms=bound_decode,
+                decode_events_per_step=dec_prof["events"] / 4,
+                k6_prefill=k6[0], k6_decode_per_step=k6_decode // n_new,
+                peak_bytes=peak, k6=k6_sigs)
+
+
+def whisper_reduced_f32_reading() -> dict:
+    """22 (b): the reduced whisper-base in float32 on the card, its prefill
+    and decode against ``forward`` within ``WHISPER_F32_REL``, at the
+    reduced config's 64 frames and at 50 (the ragged key end)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import build_model
+    out = {}
+    for frames in (64, 50):
+        cfg = get_reduced(WHISPER_ARCH).replace(
+            dtype="float32", param_dtype="float32", enc_frames=frames)
+        model = build_model(cfg).init(torch.Generator(device="cuda")
+                                      .manual_seed(0))
+        bars = dict(prefill=WHISPER_F32_REL, decode=WHISPER_F32_REL)
+        out[frames] = whisper_consistency(model, 2, 24, bars, seed=2)
+    return out
+
+
+def whisper_training_reading(ops, smi: str) -> dict:
+    """22 (d): whisper-base trained at full size through the launcher,
+    ``WHISPER_TRAIN_STEPS`` steps of ``WHISPER_BATCH`` x ``WHISPER_CTX``
+    tokens over the stub frames, and one more step profiled.  K6 runs each
+    attention once a step (the encoder-decoder runs no layer under remat),
+    with one plain backward each; the last three losses average below the
+    first."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import train as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    steps, b, s = WHISPER_TRAIN_STEPS, WHISPER_BATCH, WHISPER_CTX
+    per_step = cfg.enc_layers + 2 * cfg.n_layers
+    want_k6 = (steps * per_step, steps * per_step, 0)
+    argv = ["--arch", WHISPER_ARCH, "--steps", str(steps), "--batch",
+            str(b), "--seq", str(s), "--lr", str(WHISPER_LR), "--seed", "0",
+            "--log-every", "1"]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    run = launcher.train(launcher.parse_args(argv))
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = (ops.LAUNCHES["flash_attention"],
+              ops.BACKWARD_CALLS["flash_attention"],
+              ops.PLAIN_CALLS["flash_attention"])
+    losses = run.losses
+    steady = sorted(run.step_seconds[1:])
+    step_s = steady[len(steady) // 2]
+    batch = launcher.make_model_batch(cfg, SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0)).batch(steps),
+        torch.device("cuda"))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, metrics = run.step_fn(run.state, batch)
+        loss_p = float(metrics["loss"])
+        sync()
+        wall_p = time.perf_counter() - t1
+    reading = raw_step_reading(prof, "whisper (d)")
+    log(f"whisper (d) {WHISPER_ARCH} trained at full size: {steps} steps of "
+        f"{b} x {s} tokens over {b} x {cfg.enc_frames} stub frames, AdamW at "
+        f"{WHISPER_LR}, {wall:.2f} s in the launcher; losses {losses}; step "
+        f"seconds {run.step_seconds}; median after the first {step_s:.4f} s "
+        f"({b * s / step_s:.1f} tokens/s); max_memory_allocated {peak} B; K6 "
+        f"(launches, backwards, plain calls) {counts}; one more step "
+        f"profiled: loss {loss_p:.4f}, {wall_p:.4f} s wall, device busy "
+        f"{reading['busy_s']:.4f} s, K6 {reading['k6_s']:.4f} s, attention "
+        f"backward span {reading['backward_span_s']} s; on {smi}")
+    for name, (ms, n) in reading["top"][:8]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
+    if counts != want_k6:
+        fail(f"whisper (d): K6 (launches, backwards, plain calls) {counts}, "
+             f"not {want_k6}")
+    if not all(np.isfinite(losses + [loss_p])) or len(losses) != steps:
+        fail(f"whisper (d): losses {losses}, profiled {loss_p}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"whisper (d): the last three losses average "
+             f"{np.mean(losses[-3:])}, not below the first {losses[0]}")
+    del run, batch, prof, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=step_s, tokens_per_s=b * s / step_s,
+                peak_bytes=peak, k6_per_step=[c // steps for c in counts[:2]],
+                profiled_step=dict(wall_s=wall_p, busy_s=reading["busy_s"],
+                                   k6_s=reading["k6_s"],
+                                   backward_span_s=reading["backward_span_s"],
+                                   top=[(name[:80], ms) for name, (ms, _)
+                                        in reading["top"][:6]]))
+
+
+def whisper_phase(ops, smi: str) -> dict:
+    """22. Whisper-base served and trained at full size (``WHISPER_*``;
+    module docstring), K6 held to its plain version at every signature
+    (a), (b) and (d) launched it with.  Returns the ``whisper`` entry of
+    K6's kernels-line row."""
+    t_phase = time.perf_counter()
+    launch = ops.flash_attention_cuda
+    seen = k6_record_launches(ops)
+    try:
+        serving = whisper_serving_reading(ops, smi)
+        reduced = whisper_reduced_f32_reading()
+        training = whisper_training_reading(ops, smi)
+    finally:
+        ops.flash_attention_cuda = launch
+    main_shapes = k6_path_reading(ops, seen)
+    k6 = serving.pop("k6")
+    errs = [r["max_abs_err"] for r in k6.values()]
+    log(f"whisper phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(route=k6["encoder"]["route"], max_abs_err=max(errs),
+                signatures=k6, serving=serving, reduced_float32=reduced,
+                training=training, main_path_shapes=main_shapes)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -6793,6 +7209,14 @@ def main() -> None:
     by_route[vlm["route"]] = max(by_route.get(vlm["route"], 0.0),
                                  vlm["max_abs_err"])
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"], vlm["max_abs_err"])
+
+    # -- 22. Whisper-base: the encoder-decoder, K6 non-causal ----------------
+    whisper = whisper_phase(ops, smi)
+    k6_row["whisper"] = whisper
+    by_route[whisper["route"]] = max(by_route.get(whisper["route"], 0.0),
+                                     whisper["max_abs_err"])
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
+                                whisper["max_abs_err"])
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

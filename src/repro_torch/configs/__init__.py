@@ -2,16 +2,17 @@
 
 Each module defines ``CONFIG`` (the exact published figures from the brief)
 and ``reduced()`` (a small same-family config for CPU smoke tests), as in
-the JAX package.  All ten are carried as data; the port builds models for
-the dense attention blocks only (:func:`repro_torch.models.model.build_model`
-says which)."""
+the JAX package; the port builds a model for each
+(:func:`repro_torch.models.model.build_model`).  :func:`all_cells` lists
+every (arch, shape) cell, as the reference's dry run reads them."""
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.models.config import ModelConfig, SHAPES, ShapeConfig
+from repro_torch.models.config import (ModelConfig, SHAPES, ShapeConfig,
+                                      shape_cells)
 
 _MODULES = {
     "granite-8b": "granite_8b",
@@ -59,3 +60,8 @@ def get_reduced(arch: str) -> ModelConfig:
     if arch in _RUNTIME:
         return _RUNTIME[arch]
     return _mod(arch).reduced()
+
+
+def all_cells() -> List[tuple]:
+    """Every (arch, shape) dry-run cell, with skip rules applied."""
+    return [(a, s) for a in ARCHS for s in shape_cells(a)]

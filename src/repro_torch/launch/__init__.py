@@ -1,6 +1,7 @@
-"""Launchers of the PyTorch port: the rank layout (:mod:`.mesh`) and the
+"""Launchers of the PyTorch port: the rank layout (:mod:`.mesh`), the
 paper's discovery workload over the ranks of a ``torch.distributed``
-group (:mod:`.discover`)."""
+group (:mod:`.discover`), training (:mod:`.train`) and each cell's
+inputs (:mod:`.specs`)."""
 
 from .mesh import make_local_mesh
 

@@ -1,10 +1,12 @@
 """End-to-end training launcher; the JAX package's ``repro.launch.train``.
 
-Runs any ``--arch`` the port builds from tokens (full or reduced config)
-with the training path:
+Runs any ``--arch`` (full or reduced config) with the training path:
 microbatch accumulation, AdamW/Adafactor, checkpoint/resume, optional
 int8 gradient compression, and the deterministic data pipeline.  It
-runs on the CUDA card unless ``--device`` names another device.
+runs on the CUDA card unless ``--device`` names another device.  The
+encoder-decoder (Whisper) and the models fed embeddings (Qwen2-VL) train
+on the synthetic tokens through the reference's stub frontends
+(:func:`make_model_batch`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt --resume \\
@@ -136,6 +138,9 @@ def _train(args: argparse.Namespace) -> TrainRun:
     device = _rank_device(args.device)
     mesh = make_train_mesh(args.model_axis, device) if multi else None
     lead = mesh is None or mesh.rank == 0
+    if lead and (cfg.embeds_input or cfg.enc_dec):
+        print(f"note: {args.arch} uses a stub frontend; training on "
+              f"synthetic tokens routed through the stub inputs")
     model = build_model(cfg, device, trainable=True)
     opt = make_optimizer(OptConfig(
         lr=args.lr, total_steps=args.steps, eps=args.adam_eps,
@@ -217,18 +222,36 @@ def _load_into(state: Any, restored: Any) -> None:
 def make_model_batch(cfg: ModelConfig, host_batch: Dict[str, np.ndarray],
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """The pipeline's numpy batch (this rank's part over a mesh) as tensors
-    on ``device``.  The reference's stub frontends (embeddings drawn from
-    a JAX key for ``embeds_input``, the encoder-decoder's frames) have no
-    counterpart: a model fed embeddings is driven through ``LM`` with
-    ``batch["embeds"]``."""
+    on ``device``, in each family's input layout, with the reference's
+    stub frontends: for the encoder-decoder, ``frames`` ``[B, enc_frames,
+    D]`` bf16 N(0, 1) from a ``torch.Generator`` seeded 7 (the same frames
+    every step, as the reference folds the same key); for a model fed
+    embeddings, ``embeds`` = the tokens' rows of a ``[vocab, D]`` bf16
+    N(0, 1) table from a generator seeded 11, and with M-RoPE the ids
+    ``0 .. S-1`` on all three streams.  The generators are torch's on
+    ``device``, so the numbers are not ``jax.random``'s: the layouts,
+    shapes, dtypes and distributions are the reference's, the values
+    not."""
     check_supported(cfg)
+    tokens, labels = (torch.from_numpy(host_batch[k]).to(device)
+                      for k in ("tokens", "labels"))
+    b, s = tokens.shape
+    if cfg.enc_dec:
+        gen = torch.Generator(device=device).manual_seed(7)
+        frames = torch.randn((b, cfg.enc_frames, cfg.d_model),
+                             generator=gen, device=device,
+                             dtype=torch.bfloat16)
+        return {"frames": frames, "tokens": tokens, "labels": labels}
     if cfg.embeds_input:
-        raise NotImplementedError(
-            f"{cfg.name}: the launcher trains from tokens; the reference's "
-            f"stub frontend draws its embeddings from a JAX key, which the "
-            f"port does not reproduce (pass batch['embeds'] to LM.loss)")
-    return {k: torch.from_numpy(host_batch[k]).to(device)
-            for k in ("tokens", "labels")}
+        gen = torch.Generator(device=device).manual_seed(11)
+        table = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                            device=device, dtype=torch.bfloat16)
+        batch = {"embeds": table[tokens.long()], "labels": labels}
+        if cfg.rope == "mrope":
+            batch["positions"] = torch.arange(
+                s, dtype=torch.int32, device=device).expand(3, b, s)
+        return batch
+    return {"tokens": tokens, "labels": labels}
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -135,3 +135,11 @@ SHAPES = {
 
 # archs allowed to run long_500k (sub-quadratic sequence mixing)
 SUBQUADRATIC = ("rwkv6-1.6b", "hymba-1.5b")
+
+
+def shape_cells(arch: str) -> Tuple[str, ...]:
+    """The shape cells assigned to an architecture (skip rules per DESIGN.md)."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in SUBQUADRATIC:
+        cells.append("long_500k")
+    return tuple(cells)

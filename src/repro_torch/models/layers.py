@@ -10,7 +10,7 @@ hand-written backward (:class:`RmsNorm`).  Over a training mesh a
 parameter holds its shard (``spec_of``): :func:`weight` gathers it over
 the FSDP axes before use, and the embedding and the tied head are
 vocab-parallel over ``model``.  :func:`apply_mrope` is Qwen2-VL's
-multimodal RoPE; the sinusoidal table waits for Whisper.
+multimodal RoPE; :func:`sinusoidal_positions` is Whisper's fixed table.
 """
 
 from __future__ import annotations
@@ -190,3 +190,20 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Fixed sinusoidal table ``[seq, d_model]`` float32 (Whisper's
+    encoder and decoder): ``sin`` on the even columns, ``cos`` on the odd
+    ones, of ``pos / 10000 ** (dim / d_model)`` for ``dim`` the even
+    column."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d_model))
+    out = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out

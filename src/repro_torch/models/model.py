@@ -44,8 +44,20 @@ float32 log-softmax, the mean over the global batch; the experts are
 expert-parallel over ``model`` and the auxiliary loss is the global
 batch's.  ``forward``, ``prefill`` and ``decode_step`` return whole-vocab
 logits.  RWKV's and Hymba's recurrent states are split over heads where
-the heads divide ``model`` (``cache_spec``).  The encoder-decoder waits
-for a later slice (ROADMAP item 14).
+the heads divide ``model`` (``cache_spec``).
+
+:class:`EncDecLM` is Whisper's encoder-decoder (the JAX package's
+``EncDecLM``): ``batch["frames"]`` ``[B, F, D]`` (the audio frontend is a
+stub: precomputed frame embeddings) go through the encoder, and the
+decoder reads ``tokens`` with a cross-attention over the encoder's output
+in each layer; both add the fixed sinusoidal table.  It runs on one
+device (ROADMAP item 14.9 holds it over a mesh).
+
+    lm = build_model(get_config("whisper-base")).init(generator)
+    logits = lm.forward({"frames": frames, "tokens": tokens})
+    last, cache = lm.prefill({"frames": frames, "tokens": prompt},
+                             lm.init_cache(batch, max_len))
+    logits, cache = lm.decode_step(cache, {"token": tok, "pos": s})
 """
 
 from __future__ import annotations
@@ -62,9 +74,11 @@ from ..parallel.collectives import all_gather, all_reduce, reduce
 from ..parallel.mesh import mesh_axes, shard
 from .config import ModelConfig
 from .layers import (embed_init, embed_lookup, is_tp, parameter, rms_norm,
-                     tied_logits)
-from .transformer import (Block, block_apply, block_attend, block_decode,
-                          check_supported, init_cache)
+                     sinusoidal_positions, tied_logits)
+from .transformer import (Block, CrossBlock, block_apply, block_attend,
+                          block_decode, check_mesh, check_supported,
+                          cross_block_attend, cross_block_decode, cross_kv,
+                          init_cache)
 
 AUX_COEF = 0.01
 
@@ -102,11 +116,19 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embed = parameter((cfg.vocab, cfg.d_model), cfg.p_dtype(), dev,
                                trainable)
-        self.blocks = nn.ModuleList(Block(cfg, dev, trainable)
-                                    for _ in range(cfg.n_layers))
+        self._build_layers(cfg, dev, trainable)
         self.final_norm = parameter((cfg.d_model,), torch.float32, dev,
                                     trainable)
         self.mesh = None
+
+    def _build_layers(self, cfg: ModelConfig, dev: torch.device,
+                      trainable: bool) -> None:
+        self.blocks = nn.ModuleList(Block(cfg, dev, trainable)
+                                    for _ in range(cfg.n_layers))
+
+    def _layers(self):
+        """Every block, in the order :meth:`init` draws them."""
+        return list(self.blocks)
 
     @torch.no_grad()
     def shard_(self, mesh, specs: Dict[str, Any]) -> "LM":
@@ -118,6 +140,7 @@ class LM(nn.Module):
         mesh."""
         if self.mesh is not None:
             raise ValueError("the model is already sharded")
+        check_mesh(self.cfg, mesh)
         for name, p in self.named_parameters():
             p.global_shape = tuple(p.shape)
             p.data = shard(p.data, specs[name], mesh).clone()
@@ -139,7 +162,7 @@ class LM(nn.Module):
         cfg = self.cfg
         self.embed.copy_(embed_init(generator, cfg.vocab, cfg.d_model,
                                     cfg.p_dtype()))
-        for blk in self.blocks:
+        for blk in self._layers():
             blk.init_(generator)
         self.final_norm.fill_(1.0)
         return self
@@ -334,10 +357,132 @@ class LM(nn.Module):
         return init_cache(self.cfg, batch, seq, self.device, self.mesh)
 
 
+class EncDecLM(LM):
+    """Whisper-style encoder-decoder: ``embed`` (tied head), ``enc`` (the
+    encoder's ``cfg.enc_layers`` :class:`Block` s, run non-causally),
+    ``dec`` (``cfg.n_layers`` :class:`CrossBlock` s), ``enc_norm`` and
+    ``final_norm``.  ``loss`` is :class:`LM`'s, with no auxiliary loss.
+    Layers run one after another, none under ``checkpoint`` (the
+    reference unrolls them without ``jax.checkpoint``); every attention
+    is K6 on the card: the encoder's non-causal, the decoder's causal
+    self-attention and its cross-attention at ``Sq != Skv``."""
+
+    def _build_layers(self, cfg: ModelConfig, dev: torch.device,
+                      trainable: bool) -> None:
+        self.enc = nn.ModuleList(Block(cfg, dev, trainable)
+                                 for _ in range(cfg.enc_layers))
+        self.dec = nn.ModuleList(CrossBlock(cfg, dev, trainable)
+                                 for _ in range(cfg.n_layers))
+        self.enc_norm = parameter((cfg.d_model,), torch.float32, dev,
+                                  trainable)
+
+    def _layers(self):
+        return list(self.enc) + list(self.dec)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "EncDecLM":
+        super().init(generator)
+        self.enc_norm.fill_(1.0)
+        return self
+
+    def _positioned(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, S, D]`` plus the sinusoidal table's first ``S`` rows,
+        in ``x``'s dtype."""
+        tab = sinusoidal_positions(x.shape[1], self.cfg.d_model, x.device)
+        return x + tab.to(x.dtype)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder's output ``[B, F, D]`` of ``frames [B, F, D]``: the
+        frames in the activation dtype plus the sinusoidal table, the
+        encoder blocks (non-causal), ``enc_norm``."""
+        x = self._positioned(frames.to(self.cfg.act_dtype()))
+        for blk in self.enc:
+            x, _ = block_apply(blk, x, self.cfg, None, False)
+        return rms_norm(x, self.enc_norm)
+
+    def _decoder_in(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed_lookup(self.embed, tokens).to(self.cfg.act_dtype())
+        return self._positioned(x)
+
+    def _logits(self, batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(logits [B, S, V], None)`` of ``batch["frames"]`` and
+        ``batch["tokens"]``."""
+        cfg = self.cfg
+        enc_out = self.encode(batch["frames"])
+        x = self._decoder_in(batch["tokens"])
+        for blk in self.dec:
+            x = cross_block_attend(blk, x, cross_kv(blk, enc_out, cfg),
+                                   cfg).x
+        x = rms_norm(x, self.final_norm)
+        return tied_logits(self.embed, x, fp32=cfg.logits_fp32), None
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, Any],
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Returns (last-position logits [B, V], cache) for
+        ``batch["frames"]`` ``[B, F, D]`` and the prompt
+        ``batch["tokens"]`` ``[B, S]``.  The prompt's keys and values go
+        into ``cache`` (from :meth:`init_cache`, at least ``S`` long and
+        with ``F`` encoder positions) in place at ``0 .. S-1``, and each
+        layer's cross-attention keys and values of the encoder's output
+        into ``xk``/``xv``; without one, a cache of exactly the prompt's
+        length is returned."""
+        cfg = self.cfg
+        frames, tokens = batch["frames"], batch["tokens"]
+        b, s = tokens.shape
+        if cache is None:
+            cache = init_cache(cfg.replace(enc_frames=frames.shape[1]), b,
+                               s, self.device)
+        if cache["k"].shape[1] != b or cache["k"].shape[2] < s \
+                or cache["xk"].shape[2] != frames.shape[1]:
+            raise ValueError(f"cache {tuple(cache['k'].shape)}, xk "
+                             f"{tuple(cache['xk'].shape)} does not hold "
+                             f"{b} prompts of {s} tokens over "
+                             f"{frames.shape[1]} frames")
+        enc_out = self.encode(frames)
+        x = self._decoder_in(tokens)
+        for i, blk in enumerate(self.dec):
+            xk, xv = cross_kv(blk, enc_out, cfg)
+            out = cross_block_attend(blk, x, (xk, xv), cfg)
+            x = out.x
+            cache["k"][i, :, :s] = out.k
+            cache["v"][i, :, :s] = out.v
+            cache["xk"][i] = xk
+            cache["xv"][i] = xv
+        x = rms_norm(x[:, -1:], self.final_norm)
+        return tied_logits(self.embed, x, fp32=cfg.logits_fp32)[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: Dict[str, torch.Tensor],
+                    batch: Dict[str, Any], seq_axis: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One token for the whole batch: ``batch`` {"token": [B, 1],
+        "pos": the position written}; the token's embedding plus the
+        sinusoidal table's row ``pos``, then each decoder layer against
+        its cache (:func:`cross_block_decode`).  Returns (logits [B, V],
+        cache), the cache updated in place."""
+        if seq_axis is not None:
+            raise ValueError("the encoder-decoder decodes on one device")
+        cfg = self.cfg
+        pos = int(batch["pos"])
+        x1 = embed_lookup(self.embed, batch["token"][:, 0]).to(
+            cfg.act_dtype())
+        x1 = x1 + sinusoidal_positions(pos + 1, cfg.d_model,
+                                       x1.device)[pos].to(x1.dtype)
+        for i, blk in enumerate(self.dec):
+            x1, _ = cross_block_decode(
+                blk, x1, {name: t[i] for name, t in cache.items()}, cfg, pos)
+        x1 = rms_norm(x1, self.final_norm)
+        return tied_logits(self.embed, x1, fp32=cfg.logits_fp32), cache
+
+
 def build_model(cfg: ModelConfig, device=None,
                 trainable: bool = False) -> LM:
     """The model for ``cfg`` on ``device`` (``None``: the CUDA card), with
-    uninitialised weights, trainable or not (:class:`LM`).  Raises
-    ``NotImplementedError`` for the model kinds the port does not build
-    yet (the encoder-decoder)."""
-    return LM(cfg, device, trainable)
+    uninitialised weights, trainable or not: :class:`EncDecLM` for
+    ``cfg.enc_dec`` (Whisper), else :class:`LM`.  Raises
+    ``NotImplementedError`` for a model kind the port does not build
+    (:func:`repro_torch.models.transformer.check_supported`)."""
+    return (EncDecLM if cfg.enc_dec else LM)(cfg, device, trainable)

@@ -26,8 +26,16 @@ its slice of the cache, the new key is written on the rank that owns
 RWKV's mixes and Hymba's SSM heads take the route of
 :func:`repro_torch.models.linear_attn.linear_attention_route` over the
 mesh (:mod:`.rwkv`, :mod:`.ssm`), and their recurrent states in the cache
-are split over heads where the heads divide ``model``.  The
-encoder-decoder blocks wait for a later slice (ROADMAP item 14).
+are split over heads where the heads divide ``model``.
+
+Whisper's encoder is a stack of ``"attn"`` blocks run non-causally
+(:func:`block_attend` with ``causal=False``); its decoder's
+:class:`CrossBlock` adds a cross-attention over the encoder's keys and
+values (:func:`cross_kv`) between the causal self-attention and the MLP.
+Both attentions are K6, the cross-attention at ``Sq != Skv``; the decode
+step's cross-attention is K6 at one query row over the ``xk``/``xv`` the
+prefill cached.  The encoder-decoder runs on one device only
+(:func:`check_mesh`).
 """
 
 from __future__ import annotations
@@ -55,18 +63,28 @@ RECURRENT = ("rwkv", "hymba")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not build yet."""
+    """Raise for a model kind the port does not build."""
     why = None
     if cfg.block not in ("attn", "moe") + RECURRENT:
         why = f"block {cfg.block!r}"
-    elif cfg.enc_dec:
-        why = "encoder-decoder models"
+    elif cfg.enc_dec and cfg.block != "attn":
+        why = f"an encoder-decoder of {cfg.block!r} blocks"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported yet (ROADMAP item 14: Whisper); "
-            f"the port builds decoders of attention (dense or MoE, with "
-            f"RoPE or M-RoPE, from tokens or embeddings), RWKV and Hymba "
-            f"blocks")
+            f"{cfg.name}: {why} not ported; the port builds decoders of "
+            f"attention (dense or MoE, with RoPE or M-RoPE, from tokens or "
+            f"embeddings), RWKV and Hymba blocks, and encoder-decoders of "
+            f"attention blocks (Whisper)")
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise for an encoder-decoder over a training mesh, which the port
+    does not run (ROADMAP item 14.9)."""
+    if cfg.enc_dec and mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder over a training mesh (mesh "
+            f"{dict(mesh.shape)}) is not ported (ROADMAP item 14.9); it "
+            f"runs on one device")
 
 
 class Block(nn.Module):
@@ -261,7 +279,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     [L, B, S, Hkv, hd] in the activation dtype for the attention blocks;
     Hymba's ``ssm`` [L, B, H, N, hd] float32 beside them; RWKV's ``tm_x``/
     ``cm_x`` [L, B, D] (activation dtype) and ``wkv`` [L, B, H, hd, hd]
-    (float32), and no ``k``/``v``.  Over a mesh, this rank's block of it
+    (float32), and no ``k``/``v``; an encoder-decoder's ``xk``/``xv``
+    [L, B, enc_frames, Hkv, hd] (activation dtype), the encoder's keys
+    and values for each decoder layer's cross-attention.  Over a mesh,
+    this rank's block of it
     as ``cache_spec`` lays it out: S split over ``model``, the recurrent
     states' heads over ``model`` where they divide it (the ``"heads"``
     route of the mixes), B over the FSDP axes where they divide it."""
@@ -278,6 +299,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
         if cfg.block == "hymba":
             shapes["ssm"] = ((l, batch, cfg.ssm_heads, cfg.ssm_state,
                               cfg.hd), f32)
+    if cfg.enc_dec:
+        check_mesh(cfg, mesh)
+        shape = (l, batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
+        shapes.update(xk=(shape, act), xv=(shape, act))
     if mesh is not None:                # train.sharding.cache_spec's layout
         fsdp, tp = mesh_axes(mesh)
         b_ax = fsdp if batch % mesh.axis_size(fsdp) == 0 else None
@@ -289,3 +314,89 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                             dtype)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name, (shape, dtype) in shapes.items()}
+
+
+# ------------------------------------------------------ whisper enc/dec -----
+
+class CrossBlock(Block):
+    """A decoder block of the encoder-decoder: a :class:`Block`
+    (``"attn"``: ``norm1``, ``attn``, ``norm2``, ``mlp``) plus ``norm_x``
+    and ``xattn`` (an :class:`AttnParams`) for the cross-attention over
+    the encoder's output."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 trainable: bool = False):
+        super().__init__(cfg, device, trainable)
+        self.norm_x = parameter((cfg.d_model,), torch.float32, device,
+                                trainable)
+        self.xattn = AttnParams(cfg, device, trainable)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "CrossBlock":
+        super().init_(generator)
+        self.norm_x.fill_(1.0)
+        self.xattn.init_(generator)
+        return self
+
+
+def cross_kv(p: CrossBlock, enc_out: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's keys and values of the encoder's output
+    ``enc_out [B, F, D]``: ``enc_out @ wk`` and ``enc_out @ wv``, each
+    ``[B, F, Hkv, hd]`` and contiguous (as K6 reads them)."""
+    b, f, _ = enc_out.shape
+    return tuple((enc_out @ w.to(enc_out.dtype))
+                 .reshape(b, f, cfg.n_kv_heads, cfg.hd).contiguous()
+                 for w in (p.xattn.wk, p.xattn.wv))
+
+
+def _cross_attend(p: CrossBlock, x: torch.Tensor,
+                  enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """``x`` plus the cross-attention of ``rms_norm(x, norm_x) @ wq``
+    (``x [B, S, D]``) over the encoder's keys and values, non-causal (K6
+    at ``Sq = S``, ``Skv = F``)."""
+    b, s = x.shape[:2]
+    nx = rms_norm(x, p.norm_x)
+    qx = (nx @ p.xattn.wq.to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
+    xo = attend(qx, enc_kv[0], enc_kv[1], cfg.n_heads, cfg.n_kv_heads,
+                False, None, cfg.attn_chunk)
+    return x + out_project(p.xattn.wo, xo.reshape(b, s, -1))
+
+
+def cross_block_attend(p: CrossBlock, x: torch.Tensor,
+                       enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                       cfg: ModelConfig) -> BlockOut:
+    """Full-sequence decoder block: causal self-attention, the
+    cross-attention over ``enc_kv`` (:func:`cross_kv`), the MLP; with the
+    self-attention's keys and values, which the prefill keeps."""
+    n1 = rms_norm(x, p.norm1)
+    q, k, v = qkv_project(p.attn, n1, cfg, None)
+    ao = attend(q, k, v, cfg.n_heads, cfg.n_kv_heads, True, None,
+                cfg.attn_chunk)
+    b, s = ao.shape[:2]
+    x = x + out_project(p.attn.wo, ao.reshape(b, s, -1))
+    x = _cross_attend(p, x, enc_kv, cfg)
+    x = x + mlp_apply(p.mlp, rms_norm(x, p.norm2), cfg.mlp)
+    return BlockOut(x, k, v, None, None)
+
+
+def cross_block_decode(p: CrossBlock, x1: torch.Tensor,
+                       cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+                       pos: int
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decoder step.  ``x1 [B, D]``; ``cache`` holds this
+    layer's ``k``/``v`` [B, S, Hkv, hd] (the new token's written at
+    ``pos`` in place) and ``xk``/``xv`` [B, F, Hkv, hd].  The
+    cross-attention is K6 at one query row over all ``F`` encoder keys,
+    non-causal.  Returns (x1, cache)."""
+    b = x1.shape[0]
+    n1 = rms_norm(x1, p.norm1)
+    q, k, v = qkv_project(p.attn, n1[:, None], cfg, None)
+    o, _, _ = decode_attention(q[:, 0], cache["k"], cache["v"], k[:, 0],
+                               v[:, 0], pos)
+    x1 = x1 + out_project(p.attn.wo, o.reshape(b, -1))
+    x1 = _cross_attend(p, x1[:, None], (cache["xk"], cache["xv"]),
+                       cfg)[:, 0]
+    n2 = rms_norm(x1, p.norm2)
+    return x1 + mlp_apply(p.mlp, n2[:, None], cfg.mlp)[:, 0], cache

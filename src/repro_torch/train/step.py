@@ -71,13 +71,19 @@ def init_train_state(model: LM, opt, generator: torch.Generator,
     return {"params": params, "opt": opt.init(params)}
 
 
+def _batch_axis(name: str) -> int:
+    """The batch axis of a batch leaf: 1 for M-RoPE's ``positions`` ``[3,
+    B, S]``, else 0 (the reference's microbatch reshape)."""
+    return 1 if name == "positions" else 0
+
+
 def _split(batch: Dict[str, torch.Tensor], m: int):
     """``m`` microbatches: each tensor cut in ``m`` along its batch axis."""
-    b = next(iter(batch.values())).shape[0]
+    b = next(v.shape[_batch_axis(k)] for k, v in batch.items())
     if b % m:
         raise ValueError(f"batch of {b} does not split into {m} "
                          f"microbatches")
-    parts = {k: v.chunk(m) for k, v in batch.items()}
+    parts = {k: v.chunk(m, dim=_batch_axis(k)) for k, v in batch.items()}
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 
@@ -95,9 +101,11 @@ def _microbatches(batch: Dict[str, torch.Tensor], m: int, mesh=None):
         return _split(batch, m)
     fsdp, _ = mesh_axes(mesh)
     n = mesh.axis_size(fsdp)
-    if n == 1 or next(iter(batch.values())).shape[0] % n:
+    if n == 1 or next(v.shape[_batch_axis(k)]
+                      for k, v in batch.items()) % n:
         return _split(batch, m)
-    whole = {k: unshard(v, (fsdp,), mesh) for k, v in batch.items()}
+    whole = {k: unshard(v, (None,) * _batch_axis(k) + (fsdp,), mesh)
+             for k, v in batch.items()}
     return [{k: shard(v, batch_spec(k, tuple(v.shape), mesh), mesh)
              for k, v in mb.items()} for mb in _split(whole, m)]
 

@@ -20,13 +20,13 @@ PACKAGES = ("core", "serve", "models", "discover", "obs", "configs",
             "train.step", "train.sharding", "models.pspec",
             "checkpoint.store", "data.pipeline", "launch.train",
             "models.moe", "train.monitor", "models.linear_attn",
-            "models.rwkv", "models.ssm")
+            "models.rwkv", "models.ssm", "roofline", "launch.specs")
 
 _PACKS = ("the JAX package's padded input packs have no counterpart: the "
           "port lays a group's edge lists end to end (ROADMAP A)")
-_WHISPER = "queued with Whisper's encoder-decoder (ROADMAP item 14)"
-_DRYRUN = "queued with the dry run's shape cells (launch/dryrun.py, ROADMAP " \
-    "item 14)"
+_HLO = ("parses XLA's compiled HLO text for collective bytes; the port "
+        "compiles no HLO and counts its collectives as they run "
+        "(parallel/collectives.STAGED)")
 _TPU = "describes a TPU pod (v5e), which the port does not run on"
 _MOE_UNUSED = ("imported by the reference's moe.py and not used there; the "
                "port's moe.py does not import it")
@@ -38,8 +38,7 @@ _TRACE = ("the port's routing_trace reads the routing from the block as it "
 NO_COUNTERPART = {
     "core": {"plan_input_arrays": _PACKS},
     "serve": {"plan_input_arrays": _PACKS},
-    "models": {"EncDecLM": _WHISPER, "shape_cells": _DRYRUN},
-    "configs": {"all_cells": _DRYRUN, "shape_cells": _DRYRUN},
+    "roofline": {"parse_collectives": _HLO},
     "launch.mesh": {"make_production_mesh": _TPU, "PEAK_FLOPS_BF16": _TPU,
                     "HBM_BW": _TPU, "ICI_BW": _TPU},
     "models.moe": {"MlpParams": _MOE_UNUSED, "mlp_apply": _MOE_UNUSED,

@@ -426,9 +426,41 @@ def test_launcher_run_returns_the_losses_and_refuses_what_is_not_ported():
     # runs it on 2 and 4)
     with pytest.raises(ValueError, match="group of ranks"):
         launcher.run(_argv("", 1, "--model-axis", "2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        launcher.run(["--arch", "whisper-base", "--reduced", "--device",
-                      "cpu"])
+    # the stub frontends: Whisper's frames, Qwen2-VL's embeddings and
+    # M-RoPE ids
+    for arch in ("whisper-base", "qwen2-vl-72b"):
+        losses = launcher.run(["--arch", arch, "--reduced", "--steps", "2",
+                               "--batch", "4", "--seq", "16", "--device",
+                               "cpu"])
+        assert len(losses) == 2 and all(np.isfinite(losses)), arch
+
+
+@pytest.mark.parametrize("arch", ("whisper-base", "qwen2-vl-72b"))
+def test_stub_frontend_batches_and_microbatches(arch):
+    """``make_model_batch``'s stub inputs have the reference's layout
+    (``src/repro/launch/train.py:113-133``) and are the same every step;
+    a step over 2 microbatches (M-RoPE's ``positions`` cut along their
+    batch axis) gives the loss of one over the whole batch, float32."""
+    cfg = configs.get_reduced(arch)
+    host = launcher.SyntheticCorpus(launcher.DataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=4, seed=0)).batch(0)
+    batch = launcher.make_model_batch(cfg, host, torch.device("cpu"))
+    again = launcher.make_model_batch(cfg, host, torch.device("cpu"))
+    want = ({"frames": ((4, cfg.enc_frames, cfg.d_model), torch.bfloat16),
+             "tokens": ((4, 16), torch.int32)} if cfg.enc_dec else
+            {"embeds": ((4, 16, cfg.d_model), torch.bfloat16),
+             "positions": ((3, 4, 16), torch.int32)})
+    want["labels"] = ((4, 16), torch.int32)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} == want
+    assert all(torch.equal(batch[k], again[k]) for k in batch)
+    if "positions" in batch:
+        assert torch.equal(batch["positions"][2, 3], torch.arange(16,
+                                                         dtype=torch.int32))
+    first = [launcher.run(["--arch", arch, "--reduced", "--steps", "1",
+                           "--batch", "4", "--seq", "16", "--dtype",
+                           "float32", "--device", "cpu", "--microbatch",
+                           m])[0] for m in ("1", "2")]
+    assert first[1] == pytest.approx(first[0], rel=1e-6)
 
 
 def test_launcher_defaults_to_the_card():

@@ -68,10 +68,11 @@ def _jax_leaves(arch, reduced):
 def _port_name(path):
     """The port's parameter name of a JAX leaf (layer 0 of a stacked
     block leaf) and whether the JAX leaf is stacked."""
-    keys = [getattr(k, "key", getattr(k, "name", None)) for k in path]
+    keys = [getattr(k, "key", getattr(k, "name", getattr(k, "idx", None)))
+            for k in path]
     if keys[0] == "blocks":
         return "blocks.0." + ".".join(keys[1:]), True
-    return ".".join(keys), False
+    return ".".join(map(str, keys)), False
 
 
 @pytest.mark.parametrize("shape", MESHES)
