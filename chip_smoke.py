@@ -492,8 +492,30 @@ Phases (any failure exits non-zero before the last line is printed):
               plain backwards a step (the encoder's non-causal included),
               s a step, tokens/s, peak memory, one step profiled.  K6
               against its plain version at every signature (a), (b) and
-              (d) launched it with.  The ``whisper`` entry of K6's
-              kernels-line row.
+              (d) launched it with.  (e) Over 2 ranks sharing the card
+              (mesh (1, 2), gloo): the reduced config in float32 against
+              one rank (losses and parameters); whisper-base at full size,
+              ``WHISPER_MESH_STEPS`` steps of (d)'s batch through the
+              launcher (s a step, collectives and bytes staged each way,
+              each rank's peak memory, K6 launches and backwards a step,
+              the first loss against (d)'s); (a)'s prefill into a cache
+              split 224/224 over the ranks and ``WHISPER_MESH_NEW`` greedy
+              steps (ms a step; the first step's logits against (a)'s);
+              the launcher under ``torch.distributed.run``.  K6 against
+              its plain version at every signature the ranks launched
+              (a rank's 4 of the 8 heads) and timed at each beside SDPA
+              and its bound.  The ``whisper`` entry of K6's kernels-line
+              row.
+
+23. strategies — ``examples/discover_strategies_torch.py`` (the paper's
+              Figs. 3-4 comparison) on UW at ``UW_SCALE`` on the card:
+              PRECOUNT, ONDEMAND, HYBRID and TUPLEID learn one model
+              through the dense executor (the default) and the sparse
+              one, the same edges as the same calls on the host; K1-K4
+              launched by each strategy (K1 by the sparse executor's leaf
+              hops; no plain version); each strategy's wall, Fig. 3
+              split, joins and peak.  The ``uw_strategies``
+              entries of K1-K4's kernels-line rows.
 
 The line before the last is one JSON object with a row per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -551,6 +573,9 @@ K4_EDGE_Q = (1, 2, 31, 32, 33, 255, 256, 257, 1000, 4096)
 K4_EDGE_R = (1, 2, 3, 8, 33)
 K4_EDGE_B = (1, 9, 200)
 K4_EDGE_ESS = (1.0, 10.0)
+# and (B, q, r) shapes beside the grid: a chunk of one row whose lgammas
+# and the kernel's static shared memory pass 48 KB together
+K4_EDGE_EXTRA = ((1, 1, 12_100), (9, 3, 12_100))
 K4_SCALING = (64, 4096, 4)
 # K3's shapes where its bytes bind (phase 4), [B, 2^k, D]: the register
 # path at k = 3 and k = 5 with 128 MB in, the shared-memory path at k = 8,
@@ -572,7 +597,7 @@ K1_EDGE_EDGES = (1, 255, 256, 257, 400_000)
 # pass K2_EDGE_ROWS_MAX floats or whose table passes K2_EDGE_CELLS_MAX
 # cells is left out (D = 11,664 with E = 100,000 or P = 10^6).
 K2_EDGE_WIDTHS = (1, 3, 4, 5, 64, 257, 11664)
-K2_EDGE_SEGMENTS = (1, 27, 1024, 10 ** 6)
+K2_EDGE_SEGMENTS = (1, 12, 27, 1024, 10 ** 6)
 K2_EDGE_EDGES = (1, 255, 256, 257, 100_000)
 K2_EDGE_ROWS_MAX = 2 ** 25
 K2_EDGE_CELLS_MAX = 2 ** 28
@@ -835,6 +860,22 @@ WHISPER_ARCH = "whisper-base"
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CTX, WHISPER_NEW = 16, 224, 448, 64
 WHISPER_F32_REL = 1e-4
 WHISPER_TRAIN_STEPS, WHISPER_LR = 6, 1e-3
+# (e) Whisper over MESH_TRAIN_RANKS ranks sharing the card (mesh (1, 2),
+# gloo): the reduced config in float32, WHISPER_MESH_PARITY_STEPS AdamW
+# steps (MESH_PARITY_OPT) of MESH_PARITY_BATCH x MESH_PARITY_SEQ tokens over
+# seeded frames, against one rank (MESH_LOSS_RTOL, MESH_PARAM_ATOL);
+# whisper-base at full size through the launcher, WHISPER_MESH_STEPS steps
+# of (d)'s batch, its first loss within MESH_FIRST_LOSS_RTOL of (d)'s;
+# (a)'s prefill into a WHISPER_CTX cache split over the ranks, then
+# WHISPER_MESH_NEW greedy steps from (a)'s first token, the first step's
+# logits within LM_DECODE_TOL of (a)'s over the largest; and the launcher
+# under torch.distributed.run, WHISPER_MESH_STEPS steps at its default
+# batch.  K6 is held to its plain version at every signature the ranks
+# launched it with, and timed at a rank's share of each attention.
+WHISPER_MESH_PARITY_STEPS, WHISPER_MESH_STEPS, WHISPER_MESH_NEW = 3, 2, 16
+# Phase 23: examples/discover_strategies_torch.py on UW at UW_SCALE, the
+# four strategies on the card against the same call on the host.
+STRATEGY_EXAMPLE = "examples/discover_strategies_torch.py"
 
 
 def log(msg: str) -> None:
@@ -3634,23 +3675,22 @@ def k1k4_edge_phase(ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     ops.reset_counts()
     n_k4 = 0
-    for b in K4_EDGE_B:
-        for q in K4_EDGE_Q:
-            for r in K4_EDGE_R:
-                nijk = torch.stack([k4_family((i + n_k4) % 4, q, r, gen)
-                                    for i in range(b)])
-                for ess in K4_EDGE_ESS:
-                    got, want = ops.bdeu(nijk, ess), bdeu_plain(nijk, ess)
-                    same = torch.equal(got.view(torch.int32),
-                                       want.view(torch.int32))
-                    log(f"k4 edge B={b} q={q} r={r} ess={ess}: "
-                        f"{'bit for bit' if same else 'DIFFERS'}, max_abs_err "
-                        f"{float((got - want).abs().max())}")
-                    if not same:
-                        fail(f"K4 differs from its plain version at B={b} "
-                             f"q={q} r={r} ess={ess}")
-                n_k4 += 1
-                del nijk
+    shapes = [(b, q, r) for b in K4_EDGE_B for q in K4_EDGE_Q
+              for r in K4_EDGE_R] + list(K4_EDGE_EXTRA)
+    for b, q, r in shapes:
+        nijk = torch.stack([k4_family((i + n_k4) % 4, q, r, gen)
+                            for i in range(b)])
+        for ess in K4_EDGE_ESS:
+            got, want = ops.bdeu(nijk, ess), bdeu_plain(nijk, ess)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            log(f"k4 edge B={b} q={q} r={r} ess={ess}: "
+                f"{'bit for bit' if same else 'DIFFERS'}, max_abs_err "
+                f"{float((got - want).abs().max())}")
+            if not same:
+                fail(f"K4 differs from its plain version at B={b} q={q} "
+                     f"r={r} ess={ess}")
+        n_k4 += 1
+        del nijk
     if ops.LAUNCHES["bdeu"] != n_k4 * len(K4_EDGE_ESS):
         fail(f"k4 edges: {ops.LAUNCHES['bdeu']} launches for "
              f"{n_k4 * len(K4_EDGE_ESS)} checks")
@@ -4850,7 +4890,9 @@ def mesh_train_rank(rank: int, world: int, work: str, steps,
             out = {k: v if k in MESH_RANK_READINGS else
                    {f: v[f] for f in ("peak_bytes", "staged", "k6",
                                       "losses", "step_seconds",
-                                      "profiled") if f in v}
+                                      "profiled", "k6_prefill",
+                                      "k6_decode", "finite",
+                                      "cache_shape") if f in v}
                    for k, v in out.items()}
         out["k6_shapes"] = sorted(seen)
         with open(os.path.join(work, f"rank{world}_{rank}.pkl"), "wb") as f:
@@ -6526,7 +6568,6 @@ def whisper_layer0_qkv(model, frames, tokens) -> dict:
     output)."""
     from repro_torch.models.attention import attend, out_project, qkv_project
     from repro_torch.models.layers import rms_norm
-    from repro_torch.models.transformer import cross_kv
     cfg = model.cfg
     with torch.no_grad():
         blk = model.enc[0]
@@ -6538,11 +6579,10 @@ def whisper_layer0_qkv(model, frames, tokens) -> dict:
         ao = attend(*own, cfg.n_heads, cfg.n_kv_heads, True)
         b, s = y.shape[:2]
         y = y + out_project(dec.attn.wo, ao.reshape(b, s, -1))
-        qx = (rms_norm(y, dec.norm_x) @ dec.xattn.wq.to(y.dtype)).reshape(
-            b, s, cfg.n_heads, cfg.hd)
-        xk, xv = cross_kv(dec, model.encode(frames), cfg)
+        cross = qkv_project(dec.xattn, rms_norm(y, dec.norm_x), cfg, None,
+                            kv_in=model.encode(frames))
     return {"encoder": (enc, False), "decoder_self": (own, True),
-            "cross": ((qx, xk, xv), False)}
+            "cross": (cross, False)}
 
 
 def whisper_k6_reading(ops, name: str, qkv, causal: bool,
@@ -6629,12 +6669,17 @@ def whisper_serving_reading(ops, smi: str) -> dict:
     t_prefill = time.perf_counter() - t0
     k6 = (ops.LAUNCHES["flash_attention"], ops.PLAIN_CALLS["flash_attention"])
     tok = logits.argmax(dim=-1)[:, None]
+    # (e)'s split-cache decode starts from the same token, and its first
+    # step's logits are held to this one's
+    first = dict(prefill=logits.float().cpu(), token=tok.cpu())
     out, steps = [tok], []
     ops.reset_counts()
     for i in range(n_new):
         t1 = time.perf_counter()
         logits, cache = model.decode_step(cache, {"token": tok,
                                                   "pos": s + i})
+        if i == 0:
+            first["step"] = logits.float().cpu()
         tok = logits.argmax(dim=-1)[:, None]
         out.append(tok)
         sync()
@@ -6720,7 +6765,7 @@ def whisper_serving_reading(ops, smi: str) -> dict:
                 decode_bound_ms=bound_decode,
                 decode_events_per_step=dec_prof["events"] / 4,
                 k6_prefill=k6[0], k6_decode_per_step=k6_decode // n_new,
-                peak_bytes=peak, k6=k6_sigs)
+                peak_bytes=peak, k6=k6_sigs, first=first)
 
 
 def whisper_reduced_f32_reading() -> dict:
@@ -6819,6 +6864,349 @@ def whisper_training_reading(ops, smi: str) -> dict:
                                         in reading["top"][:6]]))
 
 
+def whisper_mesh_parity_run(mesh, device: str) -> dict:
+    """22 (e) 1: ``WHISPER_MESH_PARITY_STEPS`` AdamW steps of the reduced
+    whisper-base in float32 (generator seed 0) over seeded frames on
+    ``device``, over ``mesh`` or one rank: the losses, the whole
+    parameters on the host and K6's (launches, plain calls)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train.sharding import (param_shardings, shard_batch,
+                                            unshard)
+    cfg = mesh_parity_config({}, 1, WHISPER_ARCH)
+    model = build_model(cfg, device, trainable=True).init(
+        torch.Generator(device=device).manual_seed(0))
+    if mesh is not None:
+        model.shard_(mesh, param_shardings(dict(model.named_parameters()),
+                                           mesh))
+    opt = adamw.make_optimizer(adamw.OptConfig(**MESH_PARITY_OPT))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    fn = tstep.make_train_step(model, opt)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=MESH_PARITY_SEQ,
+        global_batch=MESH_PARITY_BATCH, seed=MESH_PARITY_SEED))
+    frames = torch.randn((MESH_PARITY_BATCH, cfg.enc_frames, cfg.d_model),
+                         generator=torch.Generator(device=device)
+                         .manual_seed(22), device=device)
+    ops.reset_counts()
+    losses = []
+    for i in range(WHISPER_MESH_PARITY_STEPS):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in corpus.batch(i).items()}
+        batch["frames"] = frames
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        state, metrics = fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    return dict(losses=losses, params={
+        n: (p.detach() if mesh is None else
+            unshard(p.detach(), p.spec, mesh)).cpu()
+        for n, p in state["params"].items()},
+        k6=(ops.LAUNCHES["flash_attention"],
+            ops.PLAIN_CALLS["flash_attention"]))
+
+
+def mesh_rank_whisper_parity(rank, world, work, mesh, opts) -> dict:
+    return whisper_mesh_parity_run(mesh, opts["device"])
+
+
+def whisper_mesh_decode_run(mesh, opts) -> dict:
+    """22 (e) 3 on a rank: whisper-base (generator seed 0; the reduced
+    config with ``opts["full"]`` false) cut over ``mesh``, (a)'s frames and
+    prompts (``opts["whisper_decode"]``: batch, prompt, cache, steps)
+    prefilled into this rank's block of the cache, then greedy decode
+    steps from ``opts["whisper_token"]`` (one card's first token): the
+    prefill's and the first step's logits on the host, each step's
+    seconds and K6's launches."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train import step as tstep
+    from repro_torch.train.sharding import param_shardings, shard_batch
+    device = opts["device"]
+    b, s, ctx, new = opts["whisper_decode"]
+    cfg = (get_config if opts["full"] else get_reduced)(WHISPER_ARCH)
+    model = build_model(cfg, device).init(
+        torch.Generator(device=device).manual_seed(0))
+    model.shard_(mesh, param_shardings(dict(model.named_parameters()),
+                                       mesh))
+    frames, prompts = whisper_inputs(cfg, b, s, 22, device)
+    part = shard_batch({"frames": frames, "tokens": prompts}, mesh)
+    cache = model.init_cache(b, ctx)
+    ops.reset_counts()
+    sync_on(device)
+    t0 = time.perf_counter()
+    last, cache = tstep.make_prefill_step(model)(part, cache)
+    sync_on(device)
+    prefill_s = time.perf_counter() - t0
+    k6_prefill = (ops.LAUNCHES["flash_attention"],
+                  ops.PLAIN_CALLS["flash_attention"])
+    tok = opts["whisper_token"].to(device)
+    step = tstep.make_decode_step(model, mesh)
+    ops.reset_counts()
+    seconds, first = [], None
+    for i in range(new):
+        t0 = time.perf_counter()
+        logits, cache = step(cache, {"token": tok, "pos": s + i})
+        tok = logits.argmax(dim=-1)[:, None]
+        sync_on(device)
+        seconds.append(time.perf_counter() - t0)
+        if first is None:
+            first = logits.float().cpu()
+    out = dict(prefill_logits=last.float().cpu(), first_logits=first,
+               finite=bool(torch.isfinite(logits).all()),
+               step_seconds=seconds, prefill_s=prefill_s,
+               k6_prefill=k6_prefill,
+               k6_decode=(ops.LAUNCHES["flash_attention"],
+                          ops.PLAIN_CALLS["flash_attention"]),
+               cache_shape=tuple(cache["k"].shape),
+               xk_shape=tuple(cache["xk"].shape))
+    del model, cache
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_whisper_decode(rank, world, work, mesh, opts) -> dict:
+    return whisper_mesh_decode_run(mesh, opts)
+
+
+def whisper_mesh_argv(world: int = MESH_TRAIN_RANKS) -> list:
+    """22 (e) 2's launcher command line: (d)'s run over ``world`` ranks,
+    ``WHISPER_MESH_STEPS`` steps."""
+    return ["--arch", WHISPER_ARCH, "--steps", str(WHISPER_MESH_STEPS),
+            "--batch", str(WHISPER_BATCH), "--seq", str(WHISPER_CTX),
+            "--lr", str(WHISPER_LR), "--seed", "0", "--log-every", "1",
+            "--model-axis", str(world)]
+
+
+def mesh_rank_whisper_train(rank, world, work, mesh, opts) -> dict:
+    """22 (e) 2 on a rank: whisper-base through the launcher,
+    unprofiled."""
+    return mesh_rank_train(rank, world, work, mesh, dict(
+        opts, train_argv=opts["whisper_argv"], profile=False))
+
+
+MESH_RANK_STEPS.update(whisper_parity=mesh_rank_whisper_parity,
+                       whisper_decode=mesh_rank_whisper_decode,
+                       whisper_train=mesh_rank_whisper_train)
+
+
+def launcher_losses(stdout: str) -> list:
+    """The losses the training launcher printed, one a step."""
+    import re
+    return [float(m.group(1)) for m in
+            re.finditer(r"^step\s+\d+\s+loss\s+(\S+)", stdout, re.M)]
+
+
+def whisper_mesh_reading(ops, smi: str, first_loss: float, first: dict,
+                         opts: dict = None, k6_shapes: set = None) -> dict:
+    """22 (e) over ``MESH_TRAIN_RANKS`` ranks sharing the card (mesh (1,
+    2), gloo): 1. float32 parity of the reduced config against one rank in
+    this process; 2. whisper-base at full size through the launcher, its
+    first loss against ``first_loss`` ((d)'s); 3. the split-cache decode,
+    its first step against ``first`` ((a)'s prefill logits, token and
+    first step's logits); 4. the launcher under ``torch.distributed.run``.
+    ``opts`` as :func:`mesh_train_phase`'s (``whisper_argv``,
+    ``whisper_decode``, ``launch_argv``); the ranks' K6 signatures are
+    added to ``k6_shapes``."""
+    import gc
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    from repro_torch.configs import get_config, get_reduced
+    opts = opts or dict(
+        device="cuda", full=True, whisper_argv=whisper_mesh_argv(),
+        whisper_decode=(WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CTX,
+                        WHISPER_MESH_NEW),
+        launch_argv=["--arch", WHISPER_ARCH, "--steps",
+                     str(WHISPER_MESH_STEPS), "--seed", "0",
+                     "--log-every", "1"])
+    opts = dict(opts, whisper_token=first["token"])
+    device = opts["device"]
+    tp = MESH_TRAIN_RANKS
+    t_e = time.perf_counter()
+    one = whisper_mesh_parity_run(None, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="whisper_mesh_")
+    try:
+        t0 = time.perf_counter()
+        ranks = run_mesh_ranks(tp, work, ("whisper_parity", "whisper_decode",
+                                          "whisper_train"), opts)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in ranks:
+        if k6_shapes is not None:
+            k6_shapes.update(map(tuple, r["k6_shapes"]))
+
+    # 1. float32 parity
+    got = ranks[0]["whisper_parity"]
+    label = f"whisper (e) reduced float32 on (1, {tp})"
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   one["losses"]))
+    if rel > MESH_LOSS_RTOL:
+        fail(f"{label}: losses {got['losses']} against one rank's "
+             f"{one['losses']} (relative {rel})")
+    worst = same_params(label, got["params"], one["params"], MESH_PARAM_ATOL)
+    want_k6 = one["k6"] if device == "cuda" else (0, one["k6"][1])
+    if tuple(got["k6"]) != tuple(want_k6):
+        fail(f"{label}: K6 (launches, plain) {got['k6']} on rank 0, one rank "
+             f"{one['k6']}")
+    log(f"{label}, {WHISPER_MESH_PARITY_STEPS} AdamW steps of "
+        f"{MESH_PARITY_BATCH} x {MESH_PARITY_SEQ} over {MESH_PARITY_BATCH} x "
+        f"64 frames: losses {got['losses']} (one rank {one['losses']}; "
+        f"largest relative difference {rel:.3e}); parameters within "
+        f"{worst:.3e}; K6 (launches, plain) on rank 0 {got['k6']}")
+    parity = dict(losses=got["losses"], loss_rel=rel, param_max_diff=worst)
+
+    # 2. full-size training through the launcher
+    cfg = get_config(WHISPER_ARCH) if opts["full"] else get_reduced(
+        WHISPER_ARCH)
+    train = [r["whisper_train"] for r in ranks]
+    losses = train[0]["losses"]
+    steps = len(losses)
+    per_step = cfg.enc_layers + 2 * cfg.n_layers
+    want_k6 = (steps * per_step, steps * per_step, 0)
+    if device != "cuda":
+        want_k6 = (0, want_k6[1], want_k6[0])
+    for r, t in enumerate(train):
+        if tuple(t["k6"]) != want_k6 or t["losses"] != losses:
+            fail(f"whisper (e) training rank {r}: K6 (launches, backwards, "
+                 f"plain) {t['k6']}, not {want_k6}, or losses {t['losses']} "
+                 f"unlike rank 0's {losses}")
+    if not all(np.isfinite(losses)) or steps != WHISPER_MESH_STEPS or (
+            abs(losses[0] - first_loss) > MESH_FIRST_LOSS_RTOL
+            * abs(first_loss)):
+        fail(f"whisper (e) training: losses {losses}; the first not within "
+             f"{MESH_FIRST_LOSS_RTOL} of one card's {first_loss}")
+    steady = sorted(train[0]["step_seconds"][1:]
+                    or train[0]["step_seconds"])
+    step_s = steady[len(steady) // 2]
+    staged = [t["staged"] for t in train]
+    peaks = [t["peak_bytes"] for t in train]
+    tokens = WHISPER_BATCH * WHISPER_CTX
+    training = dict(
+        losses=losses, first_loss_one_card=first_loss, step_s=step_s,
+        step_seconds=train[0]["step_seconds"], tokens_per_s=tokens / step_s,
+        peak_bytes=peaks,
+        collectives_per_step=[st["calls"] / steps for st in staged],
+        to_host_bytes_per_step=[st["to_host"] / steps for st in staged],
+        to_card_bytes_per_step=[st["to_card"] / steps for st in staged],
+        collective_s_per_step=[st["seconds"] / steps for st in staged],
+        k6_per_step_per_rank=[want_k6[0] // steps, want_k6[1] // steps])
+    log(f"whisper (e) {WHISPER_ARCH} at full size over {tp} ranks (mesh (1, "
+        f"{tp}), gloo, sharing the card): {steps} steps of {WHISPER_BATCH} x "
+        f"{WHISPER_CTX} tokens over {WHISPER_BATCH} x {cfg.enc_frames} "
+        f"frames; losses {losses} (one card's first {first_loss}); step "
+        f"seconds {train[0]['step_seconds']} ({tokens / step_s:.1f} "
+        f"tokens/s); peak memory by rank {peaks} B; collectives a step by "
+        f"rank {training['collectives_per_step']}, bytes staged a step to "
+        f"the host {training['to_host_bytes_per_step']} and to the card "
+        f"{training['to_card_bytes_per_step']}, collective seconds a step "
+        f"{training['collective_s_per_step']}; K6 (launches, backwards) a "
+        f"step on each rank {training['k6_per_step_per_rank']}; on {smi}")
+
+    # 3. the split-cache decode
+    b, s, ctx, new = opts["whisper_decode"]
+    dec = [r["whisper_decode"] for r in ranks]
+    got = dec[0]
+    rel = {name: float((got[key] - first[ref]).abs().max())
+           / float(first[ref].abs().max())
+           for name, key, ref in (("prefill", "prefill_logits", "prefill"),
+                                  ("first step", "first_logits", "step"))}
+    want_pre = (cfg.enc_layers + 2 * cfg.n_layers, 0)
+    want_dec = (new * cfg.n_layers, 0)
+    if device != "cuda":
+        want_pre, want_dec = (0, want_pre[0]), (0, want_dec[0])
+    for r, d in enumerate(dec):
+        if tuple(d["k6_prefill"]) != want_pre or \
+                tuple(d["k6_decode"]) != want_dec or not d["finite"] or \
+                d["cache_shape"][2] != ctx // tp:
+            fail(f"whisper (e) decode rank {r}: K6 (launches, plain) prefill "
+                 f"{d['k6_prefill']} (not {want_pre}), decode "
+                 f"{d['k6_decode']} (not {want_dec}), finite {d['finite']}, "
+                 f"cache {d['cache_shape']}")
+    if rel["first step"] > LM_DECODE_TOL:
+        fail(f"whisper (e) decode: the first step's logits differ from one "
+             f"card's by {rel['first step']} of the largest (bar "
+             f"{LM_DECODE_TOL})")
+    ms = sorted(1e3 * t for t in got["step_seconds"])
+    decode = dict(prefill_s=got["prefill_s"], step_ms=[
+        1e3 * t for t in got["step_seconds"]], step_median_ms=ms[len(ms) // 2],
+        rel_to_one_card=rel, cache_shape=got["cache_shape"],
+        k6_prefill=got["k6_prefill"][0],
+        k6_decode_per_step=got["k6_decode"][0] // new)
+    log(f"whisper (e) split-cache decode over {tp} ranks: {b} x {s} prompt "
+        f"tokens over {b} x {cfg.enc_frames} frames prefilled in "
+        f"{got['prefill_s']:.4f} s into a {ctx} cache of {ctx // tp} a rank "
+        f"(k {got['cache_shape']}, xk {got['xk_shape']}), then {new} greedy "
+        f"steps from position {s} (rank 1's first row): median "
+        f"{decode['step_median_ms']:.3f} ms a step ({decode['step_ms']}); "
+        f"max abs difference from one card's over the largest logit {rel}; "
+        f"K6 {decode['k6_prefill']} launches a prefill and "
+        f"{decode['k6_decode_per_step']} a step on each rank; on {smi}")
+
+    # 4. the launcher under torch.distributed.run
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(tp), "-m", "repro_torch.launch.train",
+           *opts["launch_argv"], "--model-axis", str(tp)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(root / "src")))
+    wall_launch = time.perf_counter() - t0
+    got_losses = launcher_losses(res.stdout)
+    if res.returncode != 0 or len(got_losses) != WHISPER_MESH_STEPS or \
+            not all(np.isfinite(got_losses)):
+        fail(f"whisper (e) {' '.join(cmd[1:])}: rc {res.returncode}, losses "
+             f"{got_losses}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    log(f"whisper (e) {' '.join(cmd[1:])}: rc 0 in {wall_launch:.1f} s, "
+        f"losses {got_losses}")
+    log(f"whisper (e): ranks {wall:.1f} s, the reading "
+        f"{time.perf_counter() - t_e:.1f} s")
+    return dict(float32=parity, training=training, decode=decode,
+                launcher=dict(argv=cmd[3:], losses=got_losses,
+                              wall_s=wall_launch), ranks_wall_s=wall)
+
+
+def whisper_rank_k6_readings(ops, signatures, cfg) -> dict:
+    """22 (e): K6 at each bf16 signature the ranks launched at a rank's
+    share of whisper-base's heads, on random inputs: against its plain
+    version, timed beside SDPA and its bound (:func:`whisper_k6_reading`),
+    named by the attention it serves, with the launches each makes a
+    training step (or a decode step) on each rank."""
+    gen = torch.Generator(device="cuda").manual_seed(221)
+    heads = cfg.n_heads // MESH_TRAIN_RANKS
+    per = {"encoder": cfg.enc_layers, "decoder_self": cfg.n_layers,
+           "cross": cfg.n_layers, "decode_cross": cfg.n_layers}
+    out = {}
+    for qs, ks, dt, causal, _ in sorted(signatures):
+        if dt != "bfloat16" or qs[2] != heads or qs[3] != cfg.hd:
+            continue
+        sq, skv = qs[1], ks[1]
+        kind = ("decoder_self" if causal else "decode_cross" if sq == 1
+                else "encoder" if sq == skv == cfg.enc_frames else "cross")
+        q = torch.randn(qs, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(ks, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        out[f"{kind} Sq={sq} Skv={skv}"] = whisper_k6_reading(
+            ops, f"{kind}, a rank's {heads} heads", (q, k, v), causal,
+            per[kind])
+        del q, k, v
+    if not out:
+        fail("whisper (e): no K6 launch at a rank's share of the heads")
+    return out
+
+
 def whisper_phase(ops, smi: str) -> dict:
     """22. Whisper-base served and trained at full size (``WHISPER_*``;
     module docstring), K6 held to its plain version at every signature
@@ -6831,15 +7219,112 @@ def whisper_phase(ops, smi: str) -> dict:
         serving = whisper_serving_reading(ops, smi)
         reduced = whisper_reduced_f32_reading()
         training = whisper_training_reading(ops, smi)
+        mesh = whisper_mesh_reading(ops, smi, training["losses"][0],
+                                    serving.pop("first"), k6_shapes=seen)
     finally:
         ops.flash_attention_cuda = launch
     main_shapes = k6_path_reading(ops, seen)
+    from repro_torch.configs import get_config
+    mesh["k6"] = whisper_rank_k6_readings(ops, seen,
+                                          get_config(WHISPER_ARCH))
     k6 = serving.pop("k6")
-    errs = [r["max_abs_err"] for r in k6.values()]
+    errs = [r["max_abs_err"] for r in list(k6.values())
+            + list(mesh["k6"].values())]
     log(f"whisper phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(route=k6["encoder"]["route"], max_abs_err=max(errs),
                 signatures=k6, serving=serving, reduced_float32=reduced,
-                training=training, main_path_shapes=main_shapes)
+                training=training, mesh=mesh, main_path_shapes=main_shapes)
+
+
+# ---------------------------------------------------------------- phase 23 --
+
+def strategy_example():
+    """``examples/discover_strategies_torch.py`` as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / STRATEGY_EXAMPLE
+    spec = importlib.util.spec_from_file_location(
+        "discover_strategies_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def strategy_example_phase(ops, smi: str) -> dict:
+    """23. The strategy comparison's ``main`` on UW at ``UW_SCALE`` on the
+    card, through each executor (the default dense one, then the sparse
+    one, whose leaf hops are K1's), each strategy's K1-K4 launches counted
+    apart, then the same calls on the host: the card's four strategies
+    learn one model (the example's own check), each strategy's edges and
+    score those of the host's, every counting kernel launched, no plain
+    version.  Returns, by executor and strategy, the wall, Fig. 3 split,
+    joins, peak and launches."""
+    t_phase = time.perf_counter()
+    ex = strategy_example()
+    real = ex.discover_model
+    launches = {}
+
+    def counted(db, strategy, **kw):
+        before = dict(ops.LAUNCHES)
+        out = real(db, strategy, **kw)
+        sync()
+        launches[strategy.name] = {k: ops.LAUNCHES[k] - before[k]
+                                   for k in COUNTING_KERNELS}
+        return out
+    out, host_s, plain = {}, 0.0, {k: 0 for k in COUNTING_KERNELS}
+    for executor in ("dense", "sparse"):
+        argv = ["UW", str(UW_SCALE), "--executor", executor]
+        launches = {}
+        ex.discover_model = counted
+        ops.reset_counts()
+        try:
+            card = ex.main(argv)
+        except AssertionError as e:
+            fail(f"strategies (23) {executor}: the card's strategies learn "
+                 f"different models: {e}")
+        finally:
+            ex.discover_model = real
+        sync()
+        for k in COUNTING_KERNELS:     # the host's run below counts its own
+            plain[k] += ops.PLAIN_CALLS[k]
+        t0 = time.perf_counter()
+        host = ex.main(argv + ["--device", "cpu"])
+        host_s += time.perf_counter() - t0
+        out[executor] = {}
+        for name, res in card.items():
+            want = host[name]
+            if res["edges"] != want["edges"] or abs(
+                    res["score"] - want["score"]) > SCORE_RTOL * abs(
+                    want["score"]) + SCORE_ATOL:
+                fail(f"strategies (23) {name}/{executor}: the card's model "
+                     f"differs from the host's (score {res['score']} "
+                     f"against {want['score']})")
+            st = res["stats"]
+            out[executor][name] = dict(
+                wall_s=res["wall_s"], host_wall_s=want["wall_s"],
+                launches=launches[name], **{k: st[k] for k in (
+                    "time_metadata", "time_positive", "time_negative",
+                    "joins", "rows_scanned", "peak_bytes")})
+            log(f"strategies (23) UW at {UW_SCALE}, {name}/{executor} on the "
+                f"card: wall {res['wall_s']:.3f} s (metadata "
+                f"{st['time_metadata']:.3f}, positive "
+                f"{st['time_positive']:.3f}, negative "
+                f"{st['time_negative']:.3f} s), {st['joins']} joins, peak "
+                f"{st['peak_bytes']} B, score {res['score']:.3f}, launches "
+                f"{launches[name]}; the host's wall {want['wall_s']:.3f} s")
+    total = {k: sum(run["launches"][k] for runs in out.values()
+                    for run in runs.values()) for k in COUNTING_KERNELS}
+    if any(total[k] <= 0 for k in COUNTING_KERNELS) or any(plain.values()):
+        fail(f"strategies (23): launches {total}, plain calls {plain}")
+    edges = sum(map(len, card["HYBRID"]["edges"].values()))
+    tup = out["sparse"]["TUPLEID"]
+    log(f"strategies (23): the four strategies learn one model ({edges} "
+        f"edges) through either executor, the host's too ({host_s:.1f} s); "
+        f"K1-K4 launched {total}, no plain version; TUPLEID/sparse wall "
+        f"{tup['wall_s']:.3f} s, peak {tup['peak_bytes']} B, dense "
+        f"{out['dense']['TUPLEID']['wall_s']:.3f} s, peak "
+        f"{out['dense']['TUPLEID']['peak_bytes']} B; phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return out
 
 
 def main() -> None:
@@ -7217,6 +7702,15 @@ def main() -> None:
                                      whisper["max_abs_err"])
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
                                 whisper["max_abs_err"])
+
+    # -- 23. the strategy comparison: the four strategies on UW ---------------
+    compared = strategy_example_phase(ops, smi)
+    for row in rows:
+        if row["name"] in COUNTING_KERNELS:
+            row["uw_strategies"] = {
+                f"{name}/{executor}": run["launches"][row["name"]]
+                for executor, runs in compared.items()
+                for name, run in runs.items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -476,7 +476,9 @@ extern "C" int segsum_rows(const void* seg, const void* rows, void* out,
     if (tile % 4 || slots_log2 < 0 || slots_log2 > kMaxSlotsLog2
         || blocks > 65535 || smem > INT32_MAX)
       return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
+    // the staged ids are static shared memory beside the tables: past 48 KB
+    // in all (12 segments and more) the launch needs the opt-in
+    if (smem + kThreads * (int64_t)sizeof(int32_t) > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           rows_private_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);

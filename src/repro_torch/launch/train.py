@@ -47,7 +47,8 @@ from ..models.model import build_model
 from ..models.transformer import check_supported
 from ..optim.adamw import OptConfig, make_optimizer
 from ..optim.compress import make_compressor
-from ..train.sharding import batch_shardings, param_shardings
+from ..train.sharding import (batch_shardings, batch_spec, mesh_axes,
+                              param_shardings, shard)
 from ..train.step import init_train_state, make_train_step, state_specs
 from .mesh import make_local_mesh, make_train_mesh
 
@@ -179,7 +180,7 @@ def _train(args: argparse.Namespace) -> TrainRun:
                 raise RuntimeError(f"prefetcher gave step {step_idx}, "
                                    f"expected {i}")
             t1 = time.perf_counter()
-            batch = make_model_batch(cfg, host_batch, device)
+            batch = make_model_batch(cfg, host_batch, device, mesh)
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             seconds.append(time.perf_counter() - t1)
@@ -220,12 +221,16 @@ def _load_into(state: Any, restored: Any) -> None:
 
 
 def make_model_batch(cfg: ModelConfig, host_batch: Dict[str, np.ndarray],
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """The pipeline's numpy batch (this rank's part over a mesh) as tensors
-    on ``device``, in each family's input layout, with the reference's
-    stub frontends: for the encoder-decoder, ``frames`` ``[B, enc_frames,
-    D]`` bf16 N(0, 1) from a ``torch.Generator`` seeded 7 (the same frames
-    every step, as the reference folds the same key); for a model fed
+                     device: torch.device, mesh=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The pipeline's numpy batch (this rank's part over ``mesh``) as
+    tensors on ``device``, in each family's input layout, with the
+    reference's stub frontends: for the encoder-decoder, ``frames`` ``[B,
+    enc_frames, D]`` bf16 N(0, 1) from a ``torch.Generator`` seeded 7 (the
+    same frames every step, as the reference folds the same key), drawn
+    for the global batch and cut to this rank's rows as ``batch_spec``
+    cuts ``frames``, so a data rank reads the rows a one-rank run gives
+    it; for a model fed
     embeddings, ``embeds`` = the tokens' rows of a ``[vocab, D]`` bf16
     N(0, 1) table from a generator seeded 11, and with M-RoPE the ids
     ``0 .. S-1`` on all three streams.  The generators are torch's on
@@ -237,10 +242,14 @@ def make_model_batch(cfg: ModelConfig, host_batch: Dict[str, np.ndarray],
                       for k in ("tokens", "labels"))
     b, s = tokens.shape
     if cfg.enc_dec:
+        n = 1 if mesh is None else mesh.axis_size(mesh_axes(mesh)[0])
         gen = torch.Generator(device=device).manual_seed(7)
-        frames = torch.randn((b, cfg.enc_frames, cfg.d_model),
+        frames = torch.randn((b * n, cfg.enc_frames, cfg.d_model),
                              generator=gen, device=device,
                              dtype=torch.bfloat16)
+        if mesh is not None:
+            frames = shard(frames, batch_spec("frames", tuple(frames.shape),
+                                              mesh), mesh)
         return {"frames": frames, "tokens": tokens, "labels": labels}
     if cfg.embeds_input:
         gen = torch.Generator(device=device).manual_seed(11)

@@ -94,34 +94,39 @@ def _tp(mesh) -> int:
 
 
 def qkv_project(p: AttnParams, x: torch.Tensor, cfg: ModelConfig,
-                positions: Optional[torch.Tensor], mesh=None
+                positions: Optional[torch.Tensor], mesh=None,
+                kv_in: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``x [B, S, D]`` -> q ``[B, S, Hq, hd]``, k, v ``[B, S, Hkv, hd]``,
     with RoPE (``positions [B, S]``) or M-RoPE (``[3, B, S]``) on q and
-    k.
+    k.  With ``kv_in [B, Skv, D]`` (a cross-attention's other sequence)
+    k and v are its projections, ``[B, Skv, Hkv, hd]``.
 
     Over a mesh the weights are gathered over the FSDP axes and the
     products whose weight ``model`` splits are column-parallel.  Then q
-    holds this rank's query heads on the ``"heads"`` route and all of
-    them on the others; k and v hold this rank's KV heads where the
-    heads route splits them exactly (``Hkv % tp == 0``), all of them
-    otherwise (gathered over ``model``; their gradient summed there when
-    the ranks use them apart)."""
+    holds this rank's query heads on the ``"heads"`` route (of the ``S``
+    query rows) and all of them on the others; k and v hold this rank's
+    KV heads where the heads route splits them exactly (``Hkv % tp ==
+    0``), all of them otherwise (gathered over ``model``; their gradient
+    summed there when the ranks use them apart)."""
     b, s, _ = x.shape
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     tp = _tp(mesh)
     grp = mesh.group("model") if tp > 1 else None
     xs = copy_to(x, grp) if tp > 1 else x
+    kin = x if kv_in is None else kv_in
+    ks = xs if kv_in is None or tp == 1 else copy_to(kv_in, grp)
 
-    def proj(w, bias):
+    def proj(w, bias, inp, inp_s):
         sharded = tp > 1 and is_tp(w)
-        y = (xs if sharded else x) @ weight(w, mesh, x.dtype)
+        y = (inp_s if sharded else inp) @ weight(w, mesh, x.dtype)
         if bias is not None:
             y = y + weight(bias, mesh, x.dtype)
         return y, sharded
 
-    (q, q_sh), (k, k_sh), (v, v_sh) = (proj(p.wq, p.bq), proj(p.wk, p.bk),
-                                       proj(p.wv, p.bv))
+    (q, q_sh), (k, k_sh), (v, v_sh) = (proj(p.wq, p.bq, x, xs),
+                                       proj(p.wk, p.bk, kin, ks),
+                                       proj(p.wv, p.bv, kin, ks))
     if tp > 1:
         route = attention_route(hq, s, tp)
         shared = route != "replicated"     # the ranks use k, v apart
@@ -137,13 +142,31 @@ def qkv_project(p: AttnParams, x: torch.Tensor, cfg: ModelConfig,
 
         k, v = whole(k, k_sh), whole(v, v_sh)
     q = q.reshape(b, s, -1, hd)
-    k = k.reshape(b, s, -1, hd)
-    v = v.reshape(b, s, -1, hd)
+    k = k.reshape(b, kin.shape[1], -1, hd)
+    v = v.reshape(b, kin.shape[1], -1, hd)
     if positions is not None and cfg.rope in ("rope", "mrope"):
         rope = apply_rope if cfg.rope == "rope" else apply_mrope
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def query_project(p: AttnParams, x: torch.Tensor, cfg: ModelConfig,
+                  mesh=None) -> torch.Tensor:
+    """``x [B, S, D]`` -> q ``[B, S, Hq, hd]`` alone (no rotary: the
+    cross-attention's query over keys and values cached whole), laid out
+    as :func:`qkv_project` lays it out: over a mesh this rank's query
+    heads on the ``"heads"`` route, all of them on the others."""
+    b, s, _ = x.shape
+    tp = _tp(mesh)
+    grp = mesh.group("model") if tp > 1 else None
+    sharded = tp > 1 and is_tp(p.wq)
+    q = (copy_to(x, grp) if sharded else x) @ weight(p.wq, mesh, x.dtype)
+    if p.bq is not None:
+        q = q + weight(p.bq, mesh, x.dtype)
+    if sharded and attention_route(cfg.n_heads, s, tp) != "heads":
+        q = gather(q, 2, grp, "split")
+    return q.reshape(b, s, -1, cfg.hd)
 
 
 def _pick_chunk(s: int, want: int) -> int:

@@ -50,8 +50,12 @@ the heads divide ``model`` (``cache_spec``).
 ``EncDecLM``): ``batch["frames"]`` ``[B, F, D]`` (the audio frontend is a
 stub: precomputed frame embeddings) go through the encoder, and the
 decoder reads ``tokens`` with a cross-attention over the encoder's output
-in each layer; both add the fixed sinusoidal table.  It runs on one
-device (ROADMAP item 14.9 holds it over a mesh).
+in each layer; both add the fixed sinusoidal table.  :meth:`LM.shard_`
+cuts it as it cuts the decoder (the encoder's blocks, the decoder's
+self-attention and cross-attention tensor-parallel over ``model`` and
+FSDP over ``data``; ``batch["frames"]`` split along the batch as
+``tokens`` is), and its decode cache's ``k``/``v`` are split along the
+sequence over ``model`` while ``xk``/``xv`` stay whole on every rank.
 
     lm = build_model(get_config("whisper-base")).init(generator)
     logits = lm.forward({"frames": frames, "tokens": tokens})
@@ -76,9 +80,8 @@ from .config import ModelConfig
 from .layers import (embed_init, embed_lookup, is_tp, parameter, rms_norm,
                      sinusoidal_positions, tied_logits)
 from .transformer import (Block, CrossBlock, block_apply, block_attend,
-                          block_decode, check_mesh, check_supported,
-                          cross_block_attend, cross_block_decode, cross_kv,
-                          init_cache)
+                          block_decode, check_supported, cross_block_attend,
+                          cross_block_decode, init_cache)
 
 AUX_COEF = 0.01
 
@@ -140,7 +143,6 @@ class LM(nn.Module):
         mesh."""
         if self.mesh is not None:
             raise ValueError("the model is already sharded")
-        check_mesh(self.cfg, mesh)
         for name, p in self.named_parameters():
             p.global_shape = tuple(p.shape)
             p.data = shard(p.data, specs[name], mesh).clone()
@@ -281,34 +283,15 @@ class LM(nn.Module):
         cfg, mesh = self.cfg, self.mesh
         x = self._embed_in(batch)
         b, s, _ = x.shape
-        tp = 1 if mesh is None else mesh.shape["model"]
         if cache is None:
-            if s % tp and cfg.block != "rwkv":     # a KV cache to split
-                raise ValueError(f"a prompt of {s} does not split over "
-                                 f"{tp} ranks; pass a cache")
-            # this rank's block: its part of the batch (b rows of b times
-            # the FSDP axes' size: cache_spec splits them back to b), its
-            # slice of S, the recurrent states' heads where they split
-            n_fsdp = 1 if mesh is None else mesh.axis_size(
-                mesh_axes(mesh)[0])
-            cache = init_cache(cfg, b * n_fsdp, s, x.device, mesh)
-        some = next(iter(cache.values()))
-        if some.shape[1] != b or ("k" in cache
-                                  and cache["k"].shape[2] * tp < s):
-            raise ValueError(f"cache {tuple(some.shape)} does not hold "
-                             f"{b} prompts of {s} tokens")
-        s_local = cache["k"].shape[2] if "k" in cache else s
-        off = 0 if mesh is None else mesh.coords["model"] * s_local
-        n = max(0, min(s - off, s_local))
+            cache = self._prompt_cache(cfg, b, s, x.device)
+        off, n = self._prompt_span(cache, b, s)
         positions = _positions_for(cfg, batch, x)
         for i, blk in enumerate(self.blocks):
             out = block_attend(blk, x, cfg, positions, True, mesh)
             x = out.x
             if out.k is not None:
-                for name, t in (("k", out.k), ("v", out.v)):
-                    if t.shape[2] != cfg.n_kv_heads:   # this rank's heads
-                        t = all_gather(t, 2, mesh.group("model"))
-                    cache[name][i, :, :n] = t[:, off:off + n]
+                self._keep_kv(cache, i, dict(k=out.k, v=out.v), off, n)
             for name, t in (out.state or {}).items():
                 cache[name][i] = t
         x = rms_norm(x[:, -1:], self.final_norm)
@@ -328,10 +311,7 @@ class LM(nn.Module):
         in place.  Over a mesh the cache's sequence axis is split over
         ``seq_axis`` (``"model"``: the ``cache_spec`` layout)."""
         cfg, mesh = self.cfg, self.mesh
-        if mesh is not None and seq_axis != "model":
-            raise ValueError("over a mesh the decode cache is split along "
-                             "its sequence axis over 'model' (cache_spec): "
-                             "pass seq_axis='model'")
+        self._check_seq_axis(seq_axis)
         pos = int(batch["pos"])
         if cfg.embeds_input and "embed1" in batch:
             x1 = batch["embed1"][:, 0].to(cfg.act_dtype())
@@ -351,6 +331,58 @@ class LM(nn.Module):
         logits = tied_logits(self.embed, x1, fp32=cfg.logits_fp32, mesh=mesh)
         return self._whole_vocab(logits), cache
 
+    def _check_seq_axis(self, seq_axis: Optional[str]) -> None:
+        if self.mesh is not None and seq_axis != "model":
+            raise ValueError("over a mesh the decode cache is split along "
+                             "its sequence axis over 'model' (cache_spec): "
+                             "pass seq_axis='model'")
+
+    def _prompt_cache(self, cfg: ModelConfig, b: int, s: int,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+        """The cache a prefill of ``b`` prompts of ``s`` tokens makes when
+        given none: exactly the prompts' length; over a mesh this rank's
+        block (its part of the batch: ``b`` rows of ``b`` times the FSDP
+        axes' size, which ``cache_spec`` splits back to ``b``; its slice
+        of S; the recurrent states' heads where they split)."""
+        mesh = self.mesh
+        tp = 1 if mesh is None else mesh.shape["model"]
+        if s % tp and cfg.block != "rwkv":     # a KV cache to split
+            raise ValueError(f"a prompt of {s} does not split over {tp} "
+                             f"ranks; pass a cache")
+        n_fsdp = 1 if mesh is None else mesh.axis_size(mesh_axes(mesh)[0])
+        return init_cache(cfg, b * n_fsdp, s, device, mesh)
+
+    def _prompt_span(self, cache: Dict[str, torch.Tensor], b: int, s: int
+                     ) -> Tuple[int, int]:
+        """``(off, n)``: this rank's slice of a prompt of ``s`` positions
+        in ``cache`` (positions ``off .. off + n - 1``, at ``0 .. n - 1``
+        of its block); raises if ``cache`` does not hold ``b`` prompts of
+        ``s`` tokens."""
+        tp = 1 if self.mesh is None else self.mesh.shape["model"]
+        some = next(iter(cache.values()))
+        if some.shape[1] != b or ("k" in cache
+                                  and cache["k"].shape[2] * tp < s):
+            raise ValueError(f"cache {tuple(some.shape)} does not hold "
+                             f"{b} prompts of {s} tokens")
+        s_local = cache["k"].shape[2] if "k" in cache else s
+        off = 0 if self.mesh is None else self.mesh.coords["model"] * s_local
+        return off, max(0, min(s - off, s_local))
+
+    def _keep_kv(self, cache: Dict[str, torch.Tensor], i: int,
+                 kv: Dict[str, torch.Tensor], off: int, n: int) -> None:
+        """Write layer ``i``'s keys and values ``kv`` (``k``/``v`` over the
+        prompt, ``xk``/``xv`` over the frames; over a mesh this rank's
+        heads where the heads route split them, gathered whole here) into
+        this rank's block of ``cache``: ``k``/``v`` at its slice ``off ..
+        off + n - 1`` of the positions, ``xk``/``xv`` whole."""
+        for name, t in kv.items():
+            if t.shape[2] != self.cfg.n_kv_heads:   # this rank's heads
+                t = all_gather(t, 2, self.mesh.group("model"))
+            if name in ("k", "v"):
+                cache[name][i, :, :n] = t[:, off:off + n]
+            else:
+                cache[name][i] = t
+
     def init_cache(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
         """A zeroed cache for ``batch`` prompts of up to ``seq`` tokens
         (over a mesh, the global sizes; this rank's block returned)."""
@@ -365,7 +397,16 @@ class EncDecLM(LM):
     Layers run one after another, none under ``checkpoint`` (the
     reference unrolls them without ``jax.checkpoint``); every attention
     is K6 on the card: the encoder's non-causal, the decoder's causal
-    self-attention and its cross-attention at ``Sq != Skv``."""
+    self-attention and its cross-attention at ``Sq != Skv``.
+
+    Over a training mesh (:meth:`LM.shard_`) it runs SPMD as :class:`LM`
+    does: every attention on the route of its query rows
+    (:func:`repro_torch.models.attention.attention_route`), the tied head
+    vocab-parallel where the vocab divides ``model`` (else replicated),
+    ``frames`` and ``tokens`` this rank's part of the batch, the cache
+    this rank's block of ``cache_spec`` (``k``/``v`` its slice of the
+    positions, ``xk``/``xv`` whole) and ``decode_step`` with
+    ``seq_axis="model"``."""
 
     def _build_layers(self, cfg: ModelConfig, dev: torch.device,
                       trainable: bool) -> None:
@@ -397,25 +438,30 @@ class EncDecLM(LM):
         encoder blocks (non-causal), ``enc_norm``."""
         x = self._positioned(frames.to(self.cfg.act_dtype()))
         for blk in self.enc:
-            x, _ = block_apply(blk, x, self.cfg, None, False)
+            x, _ = block_apply(blk, x, self.cfg, None, False, self.mesh)
         return rms_norm(x, self.enc_norm)
 
     def _decoder_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(self.embed, tokens).to(self.cfg.act_dtype())
+        x = embed_lookup(self.embed, tokens, self.mesh).to(
+            self.cfg.act_dtype())
         return self._positioned(x)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The tied head's logits of ``x`` after ``final_norm`` (over a
+        vocab-parallel mesh, this rank's ``V / tp``)."""
+        return tied_logits(self.embed, rms_norm(x, self.final_norm),
+                           fp32=self.cfg.logits_fp32, mesh=self.mesh)
 
     def _logits(self, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(logits [B, S, V], None)`` of ``batch["frames"]`` and
-        ``batch["tokens"]``."""
-        cfg = self.cfg
+        ``batch["tokens"]`` (over a vocab-parallel mesh, this rank's ``V /
+        tp``)."""
         enc_out = self.encode(batch["frames"])
         x = self._decoder_in(batch["tokens"])
         for blk in self.dec:
-            x = cross_block_attend(blk, x, cross_kv(blk, enc_out, cfg),
-                                   cfg).x
-        x = rms_norm(x, self.final_norm)
-        return tied_logits(self.embed, x, fp32=cfg.logits_fp32), None
+            x = cross_block_attend(blk, x, enc_out, self.cfg, self.mesh).x
+        return self._head(x), None
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any],
@@ -428,31 +474,27 @@ class EncDecLM(LM):
         with ``F`` encoder positions) in place at ``0 .. S-1``, and each
         layer's cross-attention keys and values of the encoder's output
         into ``xk``/``xv``; without one, a cache of exactly the prompt's
-        length is returned."""
+        length is returned.  Over a mesh ``cache`` is this rank's block:
+        each rank writes the positions it holds, and ``xk``/``xv``
+        whole."""
         cfg = self.cfg
         frames, tokens = batch["frames"], batch["tokens"]
         b, s = tokens.shape
         if cache is None:
-            cache = init_cache(cfg.replace(enc_frames=frames.shape[1]), b,
-                               s, self.device)
-        if cache["k"].shape[1] != b or cache["k"].shape[2] < s \
-                or cache["xk"].shape[2] != frames.shape[1]:
-            raise ValueError(f"cache {tuple(cache['k'].shape)}, xk "
-                             f"{tuple(cache['xk'].shape)} does not hold "
-                             f"{b} prompts of {s} tokens over "
-                             f"{frames.shape[1]} frames")
+            cache = self._prompt_cache(cfg.replace(enc_frames=frames.shape[1]),
+                                       b, s, self.device)
+        off, n = self._prompt_span(cache, b, s)
+        if cache["xk"].shape[2] != frames.shape[1]:
+            raise ValueError(f"cache xk {tuple(cache['xk'].shape)} does not "
+                             f"hold {frames.shape[1]} frames")
         enc_out = self.encode(frames)
         x = self._decoder_in(tokens)
         for i, blk in enumerate(self.dec):
-            xk, xv = cross_kv(blk, enc_out, cfg)
-            out = cross_block_attend(blk, x, (xk, xv), cfg)
+            out = cross_block_attend(blk, x, enc_out, cfg, self.mesh)
             x = out.x
-            cache["k"][i, :, :s] = out.k
-            cache["v"][i, :, :s] = out.v
-            cache["xk"][i] = xk
-            cache["xv"][i] = xv
-        x = rms_norm(x[:, -1:], self.final_norm)
-        return tied_logits(self.embed, x, fp32=cfg.logits_fp32)[:, 0], cache
+            self._keep_kv(cache, i, dict(k=out.k, v=out.v, **out.state),
+                          off, n)
+        return self._whole_vocab(self._head(x[:, -1:]))[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor],
@@ -462,20 +504,21 @@ class EncDecLM(LM):
         "pos": the position written}; the token's embedding plus the
         sinusoidal table's row ``pos``, then each decoder layer against
         its cache (:func:`cross_block_decode`).  Returns (logits [B, V],
-        cache), the cache updated in place."""
-        if seq_axis is not None:
-            raise ValueError("the encoder-decoder decodes on one device")
-        cfg = self.cfg
+        cache), the cache updated in place.  Over a mesh the cache's
+        sequence axis is split over ``seq_axis`` (``"model"``: the
+        ``cache_spec`` layout)."""
+        cfg, mesh = self.cfg, self.mesh
+        self._check_seq_axis(seq_axis)
         pos = int(batch["pos"])
-        x1 = embed_lookup(self.embed, batch["token"][:, 0]).to(
+        x1 = embed_lookup(self.embed, batch["token"][:, 0], mesh).to(
             cfg.act_dtype())
         x1 = x1 + sinusoidal_positions(pos + 1, cfg.d_model,
                                        x1.device)[pos].to(x1.dtype)
         for i, blk in enumerate(self.dec):
             x1, _ = cross_block_decode(
-                blk, x1, {name: t[i] for name, t in cache.items()}, cfg, pos)
-        x1 = rms_norm(x1, self.final_norm)
-        return tied_logits(self.embed, x1, fp32=cfg.logits_fp32), cache
+                blk, x1, {name: t[i] for name, t in cache.items()}, cfg, pos,
+                mesh, seq_axis)
+        return self._whole_vocab(self._head(x1)), cache
 
 
 def build_model(cfg: ModelConfig, device=None,

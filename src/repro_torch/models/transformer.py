@@ -31,11 +31,17 @@ are split over heads where the heads divide ``model``.
 Whisper's encoder is a stack of ``"attn"`` blocks run non-causally
 (:func:`block_attend` with ``causal=False``); its decoder's
 :class:`CrossBlock` adds a cross-attention over the encoder's keys and
-values (:func:`cross_kv`) between the causal self-attention and the MLP.
-Both attentions are K6, the cross-attention at ``Sq != Skv``; the decode
-step's cross-attention is K6 at one query row over the ``xk``/``xv`` the
-prefill cached.  The encoder-decoder runs on one device only
-(:func:`check_mesh`).
+values between the causal self-attention and the MLP.  Both attentions
+are K6, the cross-attention at ``Sq != Skv``; the decode step's
+cross-attention is K6 at one query row over the ``xk``/``xv`` the prefill
+cached.  Over a training mesh every attention of the encoder-decoder takes
+:func:`repro_torch.models.attention.attention_route`'s route for its query
+rows: the cross-attention's ``wq`` (over the decoder's stream) and
+``wk``/``wv`` (over the encoder's output) are column-parallel over
+``model`` and its ``wo`` row-parallel, as the self-attention's are; the
+cache keeps ``xk``/``xv`` whole (all ``F`` frames, all KV heads), and the
+decode step's cross-attention reads this rank's query heads' share of
+them.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from torch import nn
 
 from .attention import (AttnParams, attend, combine_partials,
                         decode_partial, out_project, qkv_project,
-                        whole_heads)
+                        query_project, whole_heads)
 from .config import ModelConfig
 from .layers import parameter, rms_norm
 from .mlp import MlpParams, mlp_apply
@@ -74,17 +80,8 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {why} not ported; the port builds decoders of "
             f"attention (dense or MoE, with RoPE or M-RoPE, from tokens or "
             f"embeddings), RWKV and Hymba blocks, and encoder-decoders of "
-            f"attention blocks (Whisper)")
-
-
-def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for an encoder-decoder over a training mesh, which the port
-    does not run (ROADMAP item 14.9)."""
-    if cfg.enc_dec and mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder-decoder over a training mesh (mesh "
-            f"{dict(mesh.shape)}) is not ported (ROADMAP item 14.9); it "
-            f"runs on one device")
+            f"attention blocks (Whisper), each on one device or over a "
+            f"training mesh")
 
 
 class Block(nn.Module):
@@ -285,7 +282,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     this rank's block of it
     as ``cache_spec`` lays it out: S split over ``model``, the recurrent
     states' heads over ``model`` where they divide it (the ``"heads"``
-    route of the mixes), B over the FSDP axes where they divide it."""
+    route of the mixes), B over the FSDP axes where they divide it;
+    ``xk``/``xv`` keep every frame and every KV head."""
     check_supported(cfg)
     l, act, f32 = cfg.n_layers, cfg.act_dtype(), torch.float32
     if cfg.block == "rwkv":
@@ -300,7 +298,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
             shapes["ssm"] = ((l, batch, cfg.ssm_heads, cfg.ssm_state,
                               cfg.hd), f32)
     if cfg.enc_dec:
-        check_mesh(cfg, mesh)
         shape = (l, batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
         shapes.update(xk=(shape, act), xv=(shape, act))
     if mesh is not None:                # train.sharding.cache_spec's layout
@@ -339,64 +336,69 @@ class CrossBlock(Block):
         return self
 
 
-def cross_kv(p: CrossBlock, enc_out: torch.Tensor, cfg: ModelConfig
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cross-attention's keys and values of the encoder's output
-    ``enc_out [B, F, D]``: ``enc_out @ wk`` and ``enc_out @ wv``, each
-    ``[B, F, Hkv, hd]`` and contiguous (as K6 reads them)."""
-    b, f, _ = enc_out.shape
-    return tuple((enc_out @ w.to(enc_out.dtype))
-                 .reshape(b, f, cfg.n_kv_heads, cfg.hd).contiguous()
-                 for w in (p.xattn.wk, p.xattn.wv))
-
-
-def _cross_attend(p: CrossBlock, x: torch.Tensor,
-                  enc_kv: Tuple[torch.Tensor, torch.Tensor],
-                  cfg: ModelConfig) -> torch.Tensor:
-    """``x`` plus the cross-attention of ``rms_norm(x, norm_x) @ wq``
-    (``x [B, S, D]``) over the encoder's keys and values, non-causal (K6
-    at ``Sq = S``, ``Skv = F``)."""
+def _cross_attend(p: CrossBlock, x: torch.Tensor, enc_out: torch.Tensor,
+                  cfg: ModelConfig, mesh=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(x + the cross-attention, xk, xv)``: the cross-attention of
+    ``rms_norm(x, norm_x) @ wq`` (``x [B, S, D]``) over the keys and values
+    ``enc_out @ wk``, ``enc_out @ wv`` (``enc_out [B, F, D]``), non-causal
+    (K6 at ``Sq = S``, ``Skv = F``).  Over a mesh the projections are
+    column-parallel and ``wo`` row-parallel, on the route of the ``S``
+    query rows (:func:`repro_torch.models.attention.qkv_project`); ``xk``
+    and ``xv`` are as the attention read them: this rank's KV heads where
+    the heads route splits them, all of them otherwise."""
     b, s = x.shape[:2]
     nx = rms_norm(x, p.norm_x)
-    qx = (nx @ p.xattn.wq.to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
-    xo = attend(qx, enc_kv[0], enc_kv[1], cfg.n_heads, cfg.n_kv_heads,
-                False, None, cfg.attn_chunk)
-    return x + out_project(p.xattn.wo, xo.reshape(b, s, -1))
+    qx, xk, xv = qkv_project(p.xattn, nx, cfg, None, mesh, kv_in=enc_out)
+    xo = attend(qx, xk, xv, cfg.n_heads, cfg.n_kv_heads, False, mesh,
+                cfg.attn_chunk)
+    return x + out_project(p.xattn.wo, xo.reshape(b, s, -1), mesh), xk, xv
 
 
 def cross_block_attend(p: CrossBlock, x: torch.Tensor,
-                       enc_kv: Tuple[torch.Tensor, torch.Tensor],
-                       cfg: ModelConfig) -> BlockOut:
+                       enc_out: torch.Tensor, cfg: ModelConfig,
+                       mesh=None) -> BlockOut:
     """Full-sequence decoder block: causal self-attention, the
-    cross-attention over ``enc_kv`` (:func:`cross_kv`), the MLP; with the
-    self-attention's keys and values, which the prefill keeps."""
+    cross-attention over the encoder's output ``enc_out``, the MLP; with
+    what the prefill keeps: the self-attention's keys and values, and the
+    cross-attention's as ``state`` ``{"xk", "xv"}`` (over a mesh, in the
+    layout each attention read them: :func:`_cross_attend`)."""
     n1 = rms_norm(x, p.norm1)
-    q, k, v = qkv_project(p.attn, n1, cfg, None)
-    ao = attend(q, k, v, cfg.n_heads, cfg.n_kv_heads, True, None,
+    q, k, v = qkv_project(p.attn, n1, cfg, None, mesh)
+    ao = attend(q, k, v, cfg.n_heads, cfg.n_kv_heads, True, mesh,
                 cfg.attn_chunk)
     b, s = ao.shape[:2]
-    x = x + out_project(p.attn.wo, ao.reshape(b, s, -1))
-    x = _cross_attend(p, x, enc_kv, cfg)
-    x = x + mlp_apply(p.mlp, rms_norm(x, p.norm2), cfg.mlp)
-    return BlockOut(x, k, v, None, None)
+    x = x + out_project(p.attn.wo, ao.reshape(b, s, -1), mesh)
+    x, xk, xv = _cross_attend(p, x, enc_out, cfg, mesh)
+    x = x + mlp_apply(p.mlp, rms_norm(x, p.norm2), cfg.mlp, mesh)
+    return BlockOut(x, k, v, None, None, dict(xk=xk, xv=xv))
 
 
 def cross_block_decode(p: CrossBlock, x1: torch.Tensor,
                        cache: Dict[str, torch.Tensor], cfg: ModelConfig,
-                       pos: int
+                       pos: int, mesh=None, seq_axis: Optional[str] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decoder step.  ``x1 [B, D]``; ``cache`` holds this
     layer's ``k``/``v`` [B, S, Hkv, hd] (the new token's written at
-    ``pos`` in place) and ``xk``/``xv`` [B, F, Hkv, hd].  The
-    cross-attention is K6 at one query row over all ``F`` encoder keys,
-    non-causal.  Returns (x1, cache)."""
+    ``pos`` in place; over a mesh this rank's slice of S along
+    ``seq_axis``, as :func:`block_decode` reads it) and ``xk``/``xv``
+    [B, F, Hkv, hd], whole.  The cross-attention is K6 at one query row
+    over all ``F`` encoder keys, non-causal: over a mesh on the route of
+    one row, this rank's query heads over the KV heads they read where the
+    heads divide ``model``, else every head on every rank.  Returns (x1,
+    cache)."""
     b = x1.shape[0]
     n1 = rms_norm(x1, p.norm1)
-    q, k, v = qkv_project(p.attn, n1[:, None], cfg, None)
-    o, _, _ = decode_attention(q[:, 0], cache["k"], cache["v"], k[:, 0],
-                               v[:, 0], pos)
-    x1 = x1 + out_project(p.attn.wo, o.reshape(b, -1))
-    x1 = _cross_attend(p, x1[:, None], (cache["xk"], cache["xv"]),
-                       cfg)[:, 0]
+    q, k, v = qkv_project(p.attn, n1[:, None], cfg, None, mesh)
+    q, k, v = (whole_heads(t[:, 0], n, mesh) for t, n in (
+        (q, cfg.n_heads), (k, cfg.n_kv_heads), (v, cfg.n_kv_heads)))
+    o, _, _ = decode_attention(q, cache["k"], cache["v"], k, v, pos,
+                               seq_axis=seq_axis, mesh=mesh)
+    x1 = x1 + out_project(p.attn.wo, o.reshape(b, -1), mesh)
+    y = x1[:, None]
+    qx = query_project(p.xattn, rms_norm(y, p.norm_x), cfg, mesh)
+    xo = attend(qx, cache["xk"], cache["xv"], cfg.n_heads, cfg.n_kv_heads,
+                False, mesh, cfg.attn_chunk)
+    x1 = (y + out_project(p.xattn.wo, xo.reshape(b, 1, -1), mesh))[:, 0]
     n2 = rms_norm(x1, p.norm2)
-    return x1 + mlp_apply(p.mlp, n2[:, None], cfg.mlp)[:, 0], cache
+    return x1 + mlp_apply(p.mlp, n2[:, None], cfg.mlp, mesh)[:, 0], cache

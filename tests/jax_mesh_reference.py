@@ -33,6 +33,12 @@ itself is not edited.
   ``cache_shardings`` (its sequence axis over ``model``; RWKV's and
   Hymba's recurrent states over heads where they divide it), from the
   case's ``params`` where it names them.
+* ``encdec/<name>``: an encoder-decoder's (Whisper's) prefill of the
+  case's ``frames`` and first ``prompt`` tokens on the mesh, its cache
+  padded to ``max_len`` and placed by ``cache_shardings``, then
+  ``make_decode_step(model, mesh)`` at each later position: the
+  prefill's last logits and each step's.  A ``train`` case of an
+  encoder-decoder adds ``frames/<name>`` to every batch.
 * ``moe/<name>/*``: ``moe_apply`` on the case's input under the mesh
   (the expert-parallel ``ep`` body where ``model`` divides the experts),
   layer 0's MoE weights of the case's config: the output, the auxiliary
@@ -125,6 +131,32 @@ def train(mesh_shape, cfg_kw, opt_kw, batches, arrays=None, params=None):
         k: np.asarray(v) for k, v in leaf_paths(state["params"]).items()}
 
 
+def encdec_decode(mesh_shape, cfg_kw, frames, tokens, prompt, max_len):
+    cfg = config(cfg_kw)
+    model = build_model(cfg)
+    mesh = make_mesh(mesh_shape)
+    with jax.sharding.set_mesh(mesh):
+        params = model.init(jax.random.PRNGKey(0))
+        params = jax.device_put(params, param_shardings(params, mesh))
+        last, cache = jax.jit(model.prefill)(params, {
+            "frames": jnp.asarray(frames),
+            "tokens": jnp.asarray(tokens[:, :prompt])})
+        cache = {k: np.pad(np.asarray(v), [(0, 0), (0, 0), (0, max_len
+                                                            - v.shape[2]),
+                                           (0, 0), (0, 0)])
+                 if k in ("k", "v") else np.asarray(v)
+                 for k, v in cache.items()}
+        cache = jax.device_put(cache, cache_shardings(cache, mesh))
+        step = jax.jit(jstep.make_decode_step(model, mesh=mesh))
+        out = [np.asarray(last)]
+        for pos in range(prompt, tokens.shape[1]):
+            logits, cache = step(params, cache, {
+                "token": jnp.asarray(tokens[:, pos:pos + 1]),
+                "pos": jnp.int32(pos)})
+            out.append(np.asarray(logits))
+    return np.stack(out, axis=1)
+
+
 def attention(mesh_shape, q, k, v, causal, chunk):
     mesh = make_mesh(mesh_shape)
     with jax.sharding.set_mesh(mesh):
@@ -182,6 +214,9 @@ def main(cases_path, out_path):
             vocab=config(c["cfg"]).vocab, seq_len=c["seq"],
             global_batch=c["batch"], seed=c["seed"])).batch(i)
             for i in range(c["steps"])]
+        if f"frames/{name}" in cases:
+            batches = [dict(b, frames=cases[f"frames/{name}"])
+                       for b in batches]
         out[f"train/{name}"], kept = train(c["mesh"], c["cfg"], c["opt"],
                                            batches, cases, c.get("params"))
         out.update({f"train/{name}/param/{k}": v for k, v in kept.items()})
@@ -193,7 +228,11 @@ def main(cases_path, out_path):
         for key, a in moe(c["mesh"], c["cfg"], cases[f"moe/{name}/x"]
                           ).items():
             out[f"moe/{name}/{key}"] = a
-    for name, c in spec["decode"].items():
+    for name, c in spec.get("encdec", {}).items():
+        out[f"encdec/{name}"] = encdec_decode(
+            c["mesh"], c["cfg"], cases[f"encdec/{name}/frames"],
+            cases[f"encdec/{name}/tokens"], c["prompt"], c["max_len"])
+    for name, c in spec.get("decode", {}).items():
         out[f"decode/{name}"] = decode(c["mesh"], c["cfg"],
                                        cases[f"decode/{name}/tokens"],
                                        c["max_len"], cases, c.get("params"))

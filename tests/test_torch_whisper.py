@@ -41,7 +41,6 @@ from repro_torch import configs
 from repro_torch.models import layers
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import EncDecLM, build_model
-from repro_torch.train import sharding as tsh
 
 ARCH = "whisper-base"
 F32_REL = 1e-4              # of the reference output's largest magnitude
@@ -227,15 +226,3 @@ def test_bf16_forward_tracks_jax(frames):
     np.testing.assert_allclose(port, jax16, **BF16)
     np.testing.assert_allclose(port, truth, **BF16)
 
-
-def test_encoder_decoder_over_a_mesh_is_refused():
-    """ROADMAP item 14.9: the port runs the encoder-decoder on one device;
-    a mesh (any axes) is refused before any collective."""
-    _, _, lm = _pair("float32", 64)
-    for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
-        mesh = tsh.abstract_mesh(shape)
-        with pytest.raises(NotImplementedError, match="item 14.9"):
-            lm.shard_(mesh, {})
-        with pytest.raises(NotImplementedError, match="item 14.9"):
-            from repro_torch.models.transformer import init_cache
-            init_cache(lm.cfg, 2, 8, torch.device("meta"), mesh)

@@ -17,7 +17,12 @@ the MoE cases (``MOE_*``) on the reduced ``qwen3-moe-30b-a3b`` and
 ``(2, 2)`` and ``(1, 4)``, and the launcher),
 ``tests/test_torch_subquadratic_mesh_hymba.py`` (Hymba trained over them)
 and ``tests/test_torch_subquadratic_mesh_decode.py`` (their decode): the
-``SUBQ_*`` cases.
+``SUBQ_*`` cases.  :func:`whisper_main` is the ranks' body of
+``tests/test_torch_whisper_mesh.py``: the reduced ``whisper-base`` and
+its variants trained over meshes ``(2, 2)`` and ``(1, 4)``, its prefill
+and sequence-split decode over ``(1, 2)`` and ``(1, 4)``, a checkpoint
+saved over ``(1, 2)`` and the launcher over 2 ranks: the ``WHISPER_*``
+cases.
 """
 
 import os
@@ -584,6 +589,180 @@ def subq_main(rank, world, workdir, part):
                 pickle.dump(out, f)
     except BaseException:
         with open(os.path.join(workdir, f"error_subq{world}_{rank}.txt"),
+                  "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# ------------------------------------------------------------- Whisper ---
+
+# variant -> config changes of the reduced whisper-base (2 + 2 layers,
+# d_model 64, 4 heads of 16, 64 frames, vocab 384), float32: 6 heads of
+# 16, which divide no model axis above 3 (every attention takes the
+# "sequence" route at (1, 4)), and a vocab of 385, which divides no model
+# axis (the tied head replicated, as whisper-base's 51,865 is)
+WHISPER_VARIANTS = {"whisper": {}, "whisper_h6": dict(n_heads=6,
+                                                      n_kv_heads=6),
+                    "whisper_v385": dict(vocab=385)}
+# name -> (model axis, variant, microbatch): WHISPER_STEPS AdamW steps
+# (ADAMW) of the SyntheticCorpus batches (seq SEQ, global batch BATCH,
+# seed SEED) over whisper_frames(), on a 4-rank mesh (4 / tp, tp)
+WHISPER_TRAIN = {"whisper_22": (2, "whisper", 2),
+                 "whisper_14": (4, "whisper", 1),
+                 "whisper_h6_14": (4, "whisper_h6", 1),
+                 "whisper_v385_22": (2, "whisper_v385", 1)}
+WHISPER_STEPS = 3
+# the same steps over (1, 2) on 2 ranks, whose state is saved
+WHISPER_CKPT = (2, "whisper", 1)
+# name -> (model axis, variant, prompt): a prefill of ``prompt`` tokens of
+# WHISPER_DECODE_TOKENS into a cache of WHISPER_DECODE_MAX, then decode
+# steps for the rest: position 8, the first of rank 1's half at (1, 2) and
+# of rank 2's quarter at (1, 4), is the third decode step
+WHISPER_DECODE = {2: {"wdecode_12": (2, "whisper", 6)},
+                  4: {"wdecode_14": (4, "whisper", 6),
+                      "wdecode_h6_14": (4, "whisper_h6", 6)}}
+WHISPER_DECODE_TOKENS, WHISPER_DECODE_MAX = (2, 12), 16
+# the launcher over 2 ranks at model axes 2 and 1 (meshes (1, 2) and
+# (2, 1): the second cuts the stub frames over 2 data ranks), float32
+WHISPER_LAUNCH_ARGV = ["--arch", "whisper-base", "--reduced", "--steps",
+                       "3", "--batch", "4", "--seq", "16", "--microbatch",
+                       "2", "--lr", "1e-3", "--dtype", "float32",
+                       "--adam-eps", "1e-6", "--device", "cpu",
+                       "--log-every", "1"]
+
+
+def whisper_config(variant, microbatch=1):
+    return configs.get_reduced("whisper-base").replace(
+        dtype="float32", param_dtype="float32", microbatch=microbatch,
+        **WHISPER_VARIANTS[variant])
+
+
+def whisper_frames(cfg, b=BATCH, seed=3):
+    """The stub frames ``[b, enc_frames, D]`` of every step, float32."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, cfg.enc_frames, cfg.d_model)).astype(
+        np.float32)
+
+
+def whisper_batches(cfg, steps=WHISPER_STEPS):
+    frames = whisper_frames(cfg)
+    return [dict(b, frames=frames) for b in batches(cfg, steps)]
+
+
+def whisper_tokens(name, vocab):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return rng.integers(0, vocab, WHISPER_DECODE_TOKENS).astype(np.int32)
+
+
+def whisper_model(workdir, variant, mesh=None, trainable=False,
+                  microbatch=1):
+    """The test process's (JAX ``EncDecLM.init``) weights of ``variant``
+    in a model on the host: whole, or this rank's shards of ``mesh``."""
+    model = build_model(whisper_config(variant, microbatch), "cpu",
+                        trainable=trainable)
+    if mesh is not None:
+        model.shard_(mesh, param_shardings(dict(model.named_parameters()),
+                                           mesh))
+    with np.load(os.path.join(workdir, f"params_{variant}.npz")) as z:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                t = torch.from_numpy(z[name])
+                p.copy_(t if mesh is None else shard(t, p.spec, mesh))
+    return model
+
+
+def run_whisper_train(mesh, name, spec, workdir):
+    _, variant, micro = spec
+    model = whisper_model(workdir, variant, mesh, True, micro)
+    opt = adamw.make_optimizer(adamw.OptConfig(**ADAMW))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    fn = tstep.make_train_step(model, opt)
+    losses = []
+    for b in whisper_batches(model.cfg):
+        b = shard_batch({k: torch.from_numpy(v) for k, v in b.items()}, mesh)
+        state, metrics = fn(state, b)
+        losses.append(float(metrics["loss"]))
+    params = {n: unshard(p.detach(), p.spec, mesh).numpy()
+              for n, p in state["params"].items()}
+    return dict(losses=losses, params=params), state
+
+
+def whisper_decode_logits(model, frames, toks, prompt, step):
+    """``[B, T - prompt + 1, V]``: the prefill's last logits, then each
+    decode step's, teacher-forced, into a cache of WHISPER_DECODE_MAX."""
+    cache = model.init_cache(WHISPER_DECODE_TOKENS[0], WHISPER_DECODE_MAX)
+    last, cache = tstep.make_prefill_step(model)(
+        {"frames": frames, "tokens": toks[:, :prompt]}, cache)
+    out = [last]
+    for pos in range(prompt, toks.shape[1]):
+        logits, cache = step(cache, {"token": toks[:, pos:pos + 1],
+                                     "pos": pos})
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def run_whisper_decode(mesh, name, spec, workdir):
+    _, variant, prompt = spec
+    model = whisper_model(workdir, variant, mesh)
+    cfg = model.cfg
+    part = shard_batch({
+        "tokens": torch.from_numpy(whisper_tokens(name, cfg.vocab)),
+        "frames": torch.from_numpy(whisper_frames(
+            cfg, WHISPER_DECODE_TOKENS[0]))}, mesh)
+    logits = whisper_decode_logits(model, part["frames"], part["tokens"],
+                                   prompt, tstep.make_decode_step(model,
+                                                                  mesh))
+    return dict(logits=all_gather(logits, 0, mesh.group("data")).numpy())
+
+
+def whisper_main(rank, world, workdir):
+    """A rank's body for the Whisper cases: join the group; on 4 ranks
+    run ``WHISPER_TRAIN`` and the 4-rank ``WHISPER_DECODE`` cases, on 2
+    ranks the 2-rank decode, the reduced whisper's steps over (1, 2)
+    (``WHISPER_CKPT``), its state saved to ``workdir/ckpt``, and the launcher
+    at model axes 2 and 1; rank 0 pickles the results to
+    ``whisper<world>.pkl``.  At ``nice`` 10, as :func:`moe_main`."""
+    os.nice(10)
+    torch.set_num_threads(1)
+    try:
+        init_group(rank, world, os.path.join(workdir,
+                                             f"whisper_store{world}"),
+                   timeout_s=TIMEOUT_S)
+        try:
+            meshes, out = {}, {}
+
+            def mesh_of(tp):
+                if tp not in meshes:
+                    meshes[tp] = make_train_mesh(tp, "cpu")
+                return meshes[tp]
+            if world == 4:
+                for name, spec in WHISPER_TRAIN.items():
+                    out[name] = run_whisper_train(mesh_of(spec[0]), name,
+                                                  spec, workdir)[0]
+            for name, spec in WHISPER_DECODE[world].items():
+                out[name] = run_whisper_decode(mesh_of(spec[0]), name, spec,
+                                               workdir)
+            if world == 2:
+                mesh = mesh_of(2)
+                out["whisper_12"], state = run_whisper_train(
+                    mesh, "whisper_12", WHISPER_CKPT, workdir)
+                store.save_checkpoint(
+                    os.path.join(workdir, "ckpt"), WHISPER_STEPS, state,
+                    mesh=mesh, specs=tstep.state_specs(state,
+                                                       state["params"]))
+                for tp in (2, 1):
+                    out[f"launch_{tp}"] = launcher.train(launcher.parse_args(
+                        WHISPER_LAUNCH_ARGV + ["--model-axis", str(tp)])
+                    ).losses
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            with open(os.path.join(workdir, f"whisper{world}.pkl"),
+                      "wb") as f:
+                pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(workdir, f"error_whisper{world}_{rank}.txt"),
                   "w") as f:
             f.write(traceback.format_exc())
         raise
