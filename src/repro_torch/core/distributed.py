@@ -75,7 +75,6 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops
-from ..obs.profile import annotate
 from ..parallel.collectives import buffer, stage_device, staged
 from .contract import CostStats
 from .ct import CtTable
@@ -632,7 +631,7 @@ class ShardedSparseExecutor(SparseExecutor):
             return super()._batched(dbs, plans, stats, span)
         out = []
         for db, plan, st in zip(dbs, plans, stats):
-            with self.tracer.span(span, plans=1), annotate(span):
+            with self.tracer.span(span, plans=1):
                 out.append(self._evaluate([db], [plan], [st])[0])
         return out
 

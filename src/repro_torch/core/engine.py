@@ -569,7 +569,10 @@ class CachedFullPositives(_Policy):
         key = self._full_key(point)
         hit = eng.cache.get(key)
         if hit is None:
-            with eng.stats.timer("positive"):
+            with eng.tracer.span("precount.point") as sp, \
+                    eng.stats.timer("positive"):
+                if eng.tracer.enabled:
+                    sp.set(point=str(point))
                 hit = eng.contract(point, None)
             self._count_rows_once(key, hit)
             eng.cache.put(key, hit)

@@ -61,7 +61,6 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..obs.profile import annotate
 from ..obs.trace import NULL_TRACER
 from .contract import CostStats, _khatri_rao_reduce, _onehot
 from .ct import CtTable, sum_partials
@@ -122,6 +121,14 @@ class Executor:
         # request tracer for dispatch spans (NULL_TRACER is free)
         self.tracer = NULL_TRACER
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """:func:`_host_to` this executor's device, as an ``exec.upload``
+        span (``bytes``)."""
+        with self.tracer.span("exec.upload") as sp:
+            if self.tracer.enabled:
+                sp.set(bytes=4 * int(np.size(arr)))
+            return _host_to(arr, self.device)
+
     # -- negative phase -----------------------------------------------------
     def mobius(self, stack: torch.Tensor, k: int) -> torch.Tensor:
         """Superset Möbius transform over the leading ``k`` binary axes —
@@ -159,8 +166,7 @@ class Executor:
         shape = tuple(stacks[0].shape)
         b = len(stacks)
         d = int(np.prod(shape[k:], dtype=np.int64))
-        with self.tracer.span("exec.mobius_batch", stacks=b, k=k), \
-                annotate("exec.mobius_batch"):
+        with self.tracer.span("exec.mobius_batch", stacks=b, k=k):
             out = ops.mobius(torch.stack(stacks).reshape(b, 1 << k, d))
         return list(out.reshape((b,) + shape).unbind(0))
 
@@ -200,8 +206,7 @@ class Executor:
         b = len(block_lists)
         d = int(np.prod(attr_shape, dtype=np.int64))
         flat = [blk for bs in block_lists for blk in bs]
-        with self.tracer.span("exec.mobius_batch_fused", stacks=b, k=k), \
-                annotate("exec.mobius_batch_fused"):
+        with self.tracer.span("exec.mobius_batch_fused", stacks=b, k=k):
             x = torch.stack(flat).reshape(b, 1 << k, d)
             if self._mobius_fn is not None:
                 y = torch.stack([self._mobius_fn(
@@ -279,8 +284,7 @@ class Executor:
                       // self._stack_space(dbs[idxs[0]], plans[idxs[0]]))
             for lo in range(0, len(idxs), per):
                 part = idxs[lo:lo + per]
-                with self.tracer.span(span, plans=len(part)), \
-                        annotate(span):
+                with self.tracer.span(span, plans=len(part)):
                     tabs = self._evaluate([dbs[i] for i in part],
                                           [plans[i] for i in part],
                                           [stats[i] for i in part])
@@ -612,7 +616,7 @@ class DenseExecutor(Executor):
         for k, cv in enumerate(fss[0].attrs):
             col = _end_to_end([np.asarray(db.entities[fs.var.etype].attrs[
                 fs.attrs[k].owner[1]]) for db, fs in zip(dbs, fss)])
-            hot = _onehot(_host_to(col, self.device), cv.card, self.dtype)
+            hot = _onehot(self._upload(col), cv.card, self.dtype)
             nn, d = msg.shape
             msg = (msg[:, :, None] * hot[:, None, :]).reshape(nn, d * cv.card)
         return msg, [tuple(fs.attrs) for fs in fss]
@@ -622,23 +626,36 @@ class DenseExecutor(Executor):
              child_vars: Sequence[Tuple[CtVar, ...]],
              stats: Sequence[Optional[CostStats]]
              ) -> Tuple[torch.Tensor, List[Tuple[CtVar, ...]]]:
-        idx = [_hop_indices(db, h.atom, h.child, h.parent)
-               for db, h in zip(dbs, hops)]
-        n_parent = idx[0][3]
-        for st, (_, g, _, _) in zip(stats, idx):
-            if st is not None:
-                st.joins += 1
-                st.rows_scanned += int(np.asarray(g).shape[0])
-        # plan i reads the i-th child table and writes the i-th parent one
-        gathers = _end_to_end([g for _, g, _, _ in idx],
-                              dbs[0].entities[hops[0].child.etype].size)
-        cols = [_end_to_end([np.asarray(rt.attrs[h.edge_attrs[k].owner[1]])
-                             for h, (rt, _, _, _) in zip(hops, idx)])
-                for k in range(len(hops[0].edge_attrs))]
-        scatters = _end_to_end([s for _, _, s, _ in idx], n_parent)
-        out = self._hop_sum(gathers, scatters, cols,
-                            [cv.card for cv in hops[0].edge_attrs],
-                            child_msg, len(hops) * n_parent).to(self.dtype)
+        tracer = self.tracer
+        with tracer.span("exec.hop") as span:
+            with tracer.span("exec.host_ids") as ids:
+                idx = [_hop_indices(db, h.atom, h.child, h.parent)
+                       for db, h in zip(dbs, hops)]
+                n_parent = idx[0][3]
+                for st, (_, g, _, _) in zip(stats, idx):
+                    if st is not None:
+                        st.joins += 1
+                        st.rows_scanned += int(np.asarray(g).shape[0])
+                # plan i reads the i-th child table and writes the i-th
+                # parent one
+                gathers = _end_to_end([g for _, g, _, _ in idx],
+                                      dbs[0].entities[
+                                          hops[0].child.etype].size)
+                cols = [_end_to_end([np.asarray(rt.attrs[
+                    h.edge_attrs[k].owner[1]])
+                    for h, (rt, _, _, _) in zip(hops, idx)])
+                    for k in range(len(hops[0].edge_attrs))]
+                scatters = _end_to_end([s for _, _, s, _ in idx], n_parent)
+                if tracer.enabled:
+                    ids.set(edges=len(gathers))
+            cards = [cv.card for cv in hops[0].edge_attrs]
+            if tracer.enabled:
+                span.set(kernel="K2", edges=len(gathers),
+                         segments=len(hops) * n_parent,
+                         width=int(child_msg.shape[1] * np.prod(
+                             cards, dtype=np.int64)))
+            out = self._hop_sum(gathers, scatters, cols, cards, child_msg,
+                                len(hops) * n_parent).to(self.dtype)
         return out, [tuple(vs) + tuple(h.edge_attrs)
                      for vs, h in zip(child_vars, hops)]
 
@@ -647,10 +664,9 @@ class DenseExecutor(Executor):
                  child_msg: torch.Tensor, total: int) -> torch.Tensor:
         """The hop's device step (K2): host edge arrays in, the
         ``(total, D)`` parent message out."""
-        dev = self.device
-        return gather_hop(child_msg, _host_to(gathers, dev),
-                          _host_to(scatters, dev),
-                          [_host_to(c, dev) for c in cols], cards, total)
+        return gather_hop(child_msg, self._upload(gathers),
+                          self._upload(scatters),
+                          [self._upload(c) for c in cols], cards, total)
 
     def _node_message(self, dbs: Sequence[RelationalDB],
                       nodes: Sequence[NodeSpec],
@@ -688,11 +704,14 @@ class DenseExecutor(Executor):
               keeps: Sequence[Sequence[CtVar]],
               stats: Sequence[Optional[CostStats]]) -> List[CtTable]:
         b = len(owns)
-        fs = [self._entity_factor(dbs, owns)] + list(factors)
-        # each axis carries its var in every plan, so that the reduce's
-        # widest-last reorder applies to all plans at once
-        flat, axes = _khatri_rao_reduce(
-            [(m, list(zip(*vs))) for m, vs in fs], batch=b)
+        with self.tracer.span("exec.root") as sp:
+            fs = [self._entity_factor(dbs, owns)] + list(factors)
+            if self.tracer.enabled:
+                sp.set(kernel="matmul", rows=int(fs[0][0].shape[0]))
+            # each axis carries its var in every plan, so that the reduce's
+            # widest-last reorder applies to all plans at once
+            flat, axes = _khatri_rao_reduce(
+                [(m, list(zip(*vs))) for m, vs in fs], batch=b)
         return [_finalise(row, tuple(ax[i] for ax in axes), keep, st)
                 for i, (row, keep, st) in enumerate(
                     zip(_rows(flat, b), keeps, stats))]
@@ -775,6 +794,32 @@ class SparseExecutor(Executor):
         carried as row vectors.  Plan ``i`` (over ``dbs[i]``) scatters into
         the ``i``-th of ``b`` segment spaces laid end to end: one launch for
         the group."""
+        tracer = self.tracer
+        with tracer.span("exec.hop") as span:
+            with tracer.span("exec.host_ids") as ids:
+                seg_np, gathers, n_parent, ds, total, out_vars = \
+                    self._hop_ids(dbs, hops, msg, stats)
+                if tracer.enabled:
+                    ids.set(edges=int(seg_np.shape[0]))
+            b = len(hops)
+            if tracer.enabled:
+                span.set(kernel="K1" if msg.dense is None else "K2",
+                         edges=int(seg_np.shape[0]), segments=b * total,
+                         width=1 if msg.dense is None
+                         else int(msg.dense.shape[1]))
+            if msg.dense is None:
+                flat = self._edge_segment_sum(seg_np, None, b * total)
+                return flat.reshape(b * n_parent, ds), out_vars
+            rows = msg.dense[self._upload(gathers).long()]
+            agg = self._edge_segment_sum(seg_np, rows, b * total)
+        return agg.reshape(b * n_parent, ds * msg.dense.shape[1]), out_vars
+
+    def _hop_ids(self, dbs: Sequence[RelationalDB], hops: Sequence[HopSpec],
+                 msg: _SparseMsg, stats: Sequence[Optional[CostStats]]):
+        """The host's side of :meth:`_hop`: the group's segment ids (one
+        int32 array), the dense rows' gather indices (``None`` for a leaf
+        hop), the parent count, the per-parent code space and the segment
+        space of one plan, and each plan's output vars."""
         idx = [_hop_indices(db, h.atom, h.child, h.parent)
                for db, h in zip(dbs, hops)]
         n_parent = idx[0][3]
@@ -815,15 +860,10 @@ class SparseExecutor(Executor):
             if stats[i] is not None:
                 stats[i].joins += 1
                 stats[i].rows_scanned += n
-        b = len(hops)
-        if msg.dense is None:
-            flat = self._edge_segment_sum(seg_np, None, b * total)
-            return flat.reshape(b * n_parent, ds), out_vars
-        gathers = _end_to_end([g for _, g, _, _ in idx],
-                              dbs[0].entities[hops[0].child.etype].size)
-        rows = msg.dense[_host_to(gathers, self.device).long()]
-        agg = self._edge_segment_sum(seg_np, rows, b * total)
-        return agg.reshape(b * n_parent, ds * msg.dense.shape[1]), out_vars
+        gathers = None if msg.dense is None else _end_to_end(
+            [g for _, g, _, _ in idx],
+            dbs[0].entities[hops[0].child.etype].size)
+        return seg_np, gathers, n_parent, ds, total, out_vars
 
     def _edge_segment_sum(self, seg_np: np.ndarray,
                           rows: Optional[torch.Tensor],
@@ -832,7 +872,7 @@ class SparseExecutor(Executor):
         into the flattened ``(parent, code)`` segment space.  ``rows`` is
         ``None`` for a leaf hop (each edge contributes 1, K1) or the
         gathered dense block ``(edges, Dd)`` (K2)."""
-        seg = _host_to(seg_np, self.device)
+        seg = self._upload(seg_np)
         if rows is None:
             ones = torch.ones(seg.shape[0], dtype=torch.float32,
                               device=self.device)
@@ -876,19 +916,24 @@ class SparseExecutor(Executor):
         """A host entity code (``None``: no kept attributes, all 0) as an
         ``int32`` tensor on the device."""
         return (torch.zeros(n, dtype=torch.int32, device=self.device)
-                if code is None else _host_to(code, self.device))
+                if code is None else self._upload(code))
 
     def _reduce_by_code(self, code_t: torch.Tensor, ds: int,
                         factors: Sequence[torch.Tensor]) -> torch.Tensor:
         """``out[c, :] = sum_{i: code[i]=c} ⊗_f factors[f][i, :]`` —
         the root combine as one segment-sum (chunked when the Khatri-Rao
-        expansion would not fit)."""
-        if not factors:
-            return self._ones_segment_sum(code_t, ds)
-        if len(factors) == 1:
-            return ops.segsum_rows(code_t, factors[0].contiguous(),
-                                   ds).to(self.dtype).reshape(-1)
-        return _kr_segment_sum(code_t, factors, ds, self.dtype).reshape(-1)
+        expansion would not fit), as an ``exec.root`` span."""
+        with self.tracer.span("exec.root") as sp:
+            if self.tracer.enabled:
+                sp.set(kernel="K2" if factors else "K1",
+                       rows=int(code_t.shape[0]))
+            if not factors:
+                return self._ones_segment_sum(code_t, ds)
+            if len(factors) == 1:
+                return ops.segsum_rows(code_t, factors[0].contiguous(),
+                                       ds).to(self.dtype).reshape(-1)
+            return _kr_segment_sum(code_t, factors, ds,
+                                   self.dtype).reshape(-1)
 
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
              stats: Optional[CostStats] = None) -> CtTable:
@@ -912,9 +957,9 @@ class SparseExecutor(Executor):
         if b == 1:
             code_t = self._code_tensor(codes[0][0], n)
         else:   # plan i's root codes index the i-th of b code spaces
-            code_t = _host_to(_end_to_end(
+            code_t = self._upload(_end_to_end(
                 [np.zeros(n, dtype=np.int32) if c is None else c
-                 for c, _ in codes], ds), self.device)
+                 for c, _ in codes], ds))
         flat = self._reduce_by_code(code_t, b * ds, [m for m, _ in factors])
         mvars = [tuple(own.attrs) for own in owns]
         for _, vs in factors:

@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Protocol, Sequence, Set, Tupl
 
 import torch
 
+from ..obs.trace import NULL_TRACER, NullTracer
 from .contract import CostStats
 from .ct import CtTable
 from .variables import CtVar, LatticePoint, Var, connected_components, rind_var
@@ -407,7 +408,8 @@ def complete_ct_many(queries: Sequence[Tuple[LatticePoint,
                      mobius_fused_fn: Optional[Callable[
                          [Sequence[Sequence[torch.Tensor]], int,
                           Tuple[int, ...]],
-                         List[torch.Tensor]]] = None) -> List[CtTable]:
+                         List[torch.Tensor]]] = None,
+                     tracer: NullTracer = NULL_TRACER) -> List[CtTable]:
     """Complete ct-tables for many ``(point, keep)`` queries, with the
     Möbius negative phase batched across same-shape butterfly stacks.
 
@@ -437,6 +439,9 @@ def complete_ct_many(queries: Sequence[Tuple[LatticePoint,
         mobius_fused_fn: fused batched transform ``(block_lists, k, perm)
             -> [table tensor]``; preferred over ``mobius_batch_fn`` when
             given.
+        tracer: records the positive blocks' assembly as a
+            ``mobius.blocks`` span (``blocks``) and gives the caller's open
+            span the count of transform ``groups``.
 
     Returns:
         One :class:`~repro_torch.core.ct.CtTable` per query, positionally
@@ -455,21 +460,26 @@ def complete_ct_many(queries: Sequence[Tuple[LatticePoint,
     results: List[Optional[CtTable]] = [None] * len(queries)
     eligible: List[Tuple[int, _ButterflyPlan, List[torch.Tensor]]] = []
     memo: Dict = {}          # cross-query block reuse within this batch
-    for i, (point, keep) in enumerate(queries):
-        bp = _butterfly_plan(point, keep) if use_butterfly else None
-        if bp is None:
-            results[i] = complete_ct(point, keep, provider, stats,
-                                     use_butterfly=use_butterfly,
-                                     mobius_fn=mobius_fn)
-        else:
-            eligible.append((i, bp,
-                             _butterfly_blocks(point, bp, provider, memo)))
+    with tracer.span("mobius.blocks") as sp:
+        for i, (point, keep) in enumerate(queries):
+            bp = _butterfly_plan(point, keep) if use_butterfly else None
+            if bp is None:
+                results[i] = complete_ct(point, keep, provider, stats,
+                                         use_butterfly=use_butterfly,
+                                         mobius_fn=mobius_fn)
+            else:
+                eligible.append((i, bp, _butterfly_blocks(point, bp,
+                                                          provider, memo)))
+        if tracer.enabled:
+            sp.set(blocks=sum(len(blks) for _, _, blks in eligible))
     if mobius_fused_fn is not None:
         groups: Dict[Tuple, List] = {}
         for item in eligible:
             _, bp, _ = item
             attr_shape = tuple(v.card for v in bp.kept_attrs)
             groups.setdefault((attr_shape, bp.k, bp.perm), []).append(item)
+        if tracer.enabled:
+            tracer.current().set(groups=len(groups))
         for (_, k, perm), members in groups.items():
             outs = mobius_fused_fn([blks for _, _, blks in members], k,
                                    perm)
@@ -485,6 +495,8 @@ def complete_ct_many(queries: Sequence[Tuple[LatticePoint,
         stack = torch.stack(blks).reshape((2,) * bp.k + attr_shape)
         groups2.setdefault((tuple(stack.shape), bp.k), []).append(
             (i, bp, stack))
+    if tracer.enabled:
+        tracer.current().set(groups=len(groups2))
     for (_, k), members in groups2.items():
         outs = mobius_batch_fn([s for _, _, s in members], k)
         for (i, bp, _), out in zip(members, outs):

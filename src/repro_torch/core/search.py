@@ -38,6 +38,8 @@ from typing import (Callable, Dict, FrozenSet, Iterable, List, MutableMapping,
 
 import torch
 
+from ..obs.profile import gc_spans, profiled_tracer, profiling
+from ..obs.trace import NULL_TRACER, NullTracer
 from .bdeu import bdeu_score_batch, family_nijk, family_score
 from .database import RelationalDB
 from .device import resolve_device
@@ -83,7 +85,12 @@ class StructureSearch:
             mutations; by default each search owns a private dict.
         round_cb: optional per-climbing-round hook
             ``(point, n_moves, n_scored, t0, t1)`` — the discovery
-            service's search-round spans and histograms attach here.
+            service's round counters and histograms attach here.
+        tracer: records a ``discover.point`` span per lattice point, a
+            ``discover.round`` span per climbing round (``moves``,
+            ``scored``; a point's first round also holds its first
+            scoring pass) and a ``search.score`` span per batched BDeu
+            pass (:data:`~repro_torch.obs.trace.NULL_TRACER`: none).
     """
 
     def __init__(self, db: Optional[RelationalDB],
@@ -93,7 +100,8 @@ class StructureSearch:
                  counts: Optional[object] = None,
                  schema: Optional[object] = None,
                  score_cache: Optional[MutableMapping] = None,
-                 round_cb: Optional[RoundCallback] = None):
+                 round_cb: Optional[RoundCallback] = None,
+                 tracer: NullTracer = NULL_TRACER):
         self.db = db
         self.strategy = strategy
         self.counts = counts if counts is not None else strategy
@@ -111,6 +119,7 @@ class StructureSearch:
         self.max_moves = max_moves
         self.batch_scoring = batch_scoring
         self.round_cb = round_cb
+        self.tracer = tracer
         self._score_cache: MutableMapping[Family, float] = (
             score_cache if score_cache is not None else {})
         # which relations each scored family's table depended on (the
@@ -158,13 +167,16 @@ class StructureSearch:
             nijk = family_nijk(tab, child)
             groups.setdefault(tuple(nijk.shape), []).append(
                 ((child, parents), nijk))
-        for shape, members in groups.items():
-            stack = torch.stack([nijk for _, nijk in members])
-            scores = bdeu_score_batch(stack, ess=self.ess).cpu().numpy()
-            self.batch_calls += 1
-            for (fam, _), s in zip(members, scores):
-                self._score_cache[fam] = float(s)
-                self.family_deps[fam] = point.rels
+        with self.tracer.span("search.score") as sp:
+            if self.tracer.enabled:
+                sp.set(groups=len(groups), families=len(todo))
+            for shape, members in groups.items():
+                stack = torch.stack([nijk for _, nijk in members])
+                scores = bdeu_score_batch(stack, ess=self.ess).cpu().numpy()
+                self.batch_calls += 1
+                for (fam, _), s in zip(members, scores):
+                    self._score_cache[fam] = float(s)
+                    self.family_deps[fam] = point.rels
         self.families_scored += len(todo)
 
     # -- acyclicity ----------------------------------------------------------
@@ -210,6 +222,13 @@ class StructureSearch:
     def climb_point(self, point: LatticePoint,
                     init_parents: Optional[Dict[CtVar, Set[CtVar]]] = None
                     ) -> BNModel:
+        with self.tracer.span("discover.point") as sp:
+            if self.tracer.enabled:
+                sp.set(point=str(point))
+            return self._climb(point, init_parents)
+
+    def _climb(self, point: LatticePoint,
+               init_parents: Optional[Dict[CtVar, Set[CtVar]]]) -> BNModel:
         nodes = list(point.all_ct_vars(self.schema, include_rind=True))
         parents: Dict[CtVar, Set[CtVar]] = {n: set() for n in nodes}
         if init_parents:
@@ -220,30 +239,42 @@ class StructureSearch:
         def sc(child: CtVar) -> float:
             return self.local_score(point, child, frozenset(parents[child]))
 
-        if self.batch_scoring:
-            self.batch_scores(point, ((n, frozenset(parents[n]))
-                                      for n in nodes))
-        total = sum(sc(n) for n in nodes)
-        for _ in range(self.max_moves):
-            t0 = time.perf_counter()
-            scored_before = self.families_scored
-            moves = self._candidate_moves(nodes, parents)
-            if self.batch_scoring:
-                # one batched scoring pass over the whole round's frontier
-                self.batch_scores(point, ((dst, ps)
-                                          for _, _, dst, ps in moves))
-            best_delta, best_apply = 0.0, None
-            for op, src, dst, new_ps in moves:
-                delta = (self.local_score(point, dst, new_ps) - sc(dst))
-                if delta > best_delta:
-                    best_delta = delta
-                    best_apply = (op, src, dst)
-            if self.round_cb is not None:
-                # the scores came back to the host, so the round's device
-                # work is done by now: t1 is the card's time, too
-                self.round_cb(point, len(moves),
-                              self.families_scored - scored_before,
-                              t0, time.perf_counter())
+        tracer = self.tracer
+        total: Optional[float] = None
+        for _ in range(max(self.max_moves, 1)):
+            with tracer.span("discover.round") as rnd:
+                scored_in_span = self.families_scored
+                if total is None:
+                    # a point's first round span holds its first scoring
+                    # pass (round_cb's counts leave it out)
+                    if self.batch_scoring:
+                        self.batch_scores(point, ((n, frozenset(parents[n]))
+                                                  for n in nodes))
+                    total = sum(sc(n) for n in nodes)
+                    if not self.max_moves:
+                        break
+                t0 = time.perf_counter()
+                scored_before = self.families_scored
+                moves = self._candidate_moves(nodes, parents)
+                if self.batch_scoring:
+                    # one batched scoring pass over the whole round's frontier
+                    self.batch_scores(point, ((dst, ps)
+                                              for _, _, dst, ps in moves))
+                best_delta, best_apply = 0.0, None
+                for op, src, dst, new_ps in moves:
+                    delta = (self.local_score(point, dst, new_ps) - sc(dst))
+                    if delta > best_delta:
+                        best_delta = delta
+                        best_apply = (op, src, dst)
+                if tracer.enabled:
+                    rnd.set(moves=len(moves),
+                            scored=self.families_scored - scored_in_span)
+                if self.round_cb is not None:
+                    # the scores came back to the host, so the round's
+                    # device work is done by now: t1 is the card's time, too
+                    self.round_cb(point, len(moves),
+                                  self.families_scored - scored_before,
+                                  t0, time.perf_counter())
             if best_apply is None:
                 break
             op, src, dst = best_apply
@@ -297,6 +328,11 @@ def discover_model(db: RelationalDB, strategy: Strategy,
     ``device`` (``None`` = the CUDA card) must be the strategy's device:
     a run on the host is asked for by name on both.
 
+    While a ``torch.profiler`` session records, the discovery records its
+    spans (``discover.run`` at the root) into
+    :func:`~repro_torch.obs.profile.profiled_tracer` through the strategy,
+    its engine and executor, and the search; otherwise it records none.
+
     Raises:
         RuntimeError: ``device`` is the CUDA card and none is available.
         ValueError: the strategy counts on another device."""
@@ -304,8 +340,18 @@ def discover_model(db: RelationalDB, strategy: Strategy,
     if strategy.device != device:
         raise ValueError(f"strategy counts on {strategy.device}, "
                          f"discover_model was asked for {device}")
-    lattice = build_lattice(db.schema, max_chain_length)
-    strategy.prepare(db, lattice)
-    search = StructureSearch(db, strategy, max_parents=max_parents, ess=ess)
-    models = search.run(lattice)
+    tracer = profiled_tracer() if profiling() else NULL_TRACER
+    with tracer.span("discover.run") as sp, gc_spans(tracer):
+        lattice = build_lattice(db.schema, max_chain_length)
+        if tracer.enabled:
+            sp.set(strategy=strategy.name, points=len(lattice))
+            strategy.set_tracer(tracer)
+        try:
+            strategy.prepare(db, lattice)
+            search = StructureSearch(db, strategy, max_parents=max_parents,
+                                     ess=ess, tracer=tracer)
+            models = search.run(lattice)
+        finally:
+            if tracer.enabled:
+                strategy.set_tracer(NULL_TRACER)
     return models, strategy

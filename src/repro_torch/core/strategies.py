@@ -39,10 +39,11 @@ through the executor (the K3 kernel on the card), or through a
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs.trace import NULL_TRACER, NullTracer
 from .contract import CostStats
 from .ct import CtTable
 from .database import RelationalDB
@@ -90,13 +91,28 @@ class Strategy:
     _policy_cls = None                     # set by subclasses
     _precount_complete = False             # PRECOUNT: complete tables upfront
     _warm_hists = False                    # ONDEMAND: hists are the metadata
+    tracer = NULL_TRACER                   # set_tracer; not a field
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
 
+    def set_tracer(self, tracer: NullTracer) -> None:
+        """Record this strategy's spans (``strategy.*``, ``mobius.*``, and
+        its engine's and executor's) into ``tracer``.  The cache's per-get
+        events are left to a counting service's tracer."""
+        self.tracer = tracer
+        engine = getattr(self, "engine", None)
+        if engine is not None:
+            engine.tracer = engine.executor.tracer = tracer
+
     # -- pre-search phase ----------------------------------------------------
     def prepare(self, db: RelationalDB,
                 lattice: Sequence[LatticePoint]) -> None:
+        with self.tracer.span("strategy.prepare"):
+            self._prepare(db, lattice)
+
+    def _prepare(self, db: RelationalDB,
+                 lattice: Sequence[LatticePoint]) -> None:
         self.db, self.lattice = db, list(lattice)
         with self.stats.timer("metadata"):
             from .executors import make_executor
@@ -106,6 +122,7 @@ class Strategy:
                 db, ex, self.stats,
                 cache_budget_bytes=self.cache_budget_bytes, dtype=self.dtype,
                 device=self.device)
+            self.set_tracer(self.tracer)
             self.provider = self._policy_cls(self.engine)
             self._service = None           # rebuilt lazily over this engine
             self._rows_counted = set()
@@ -131,7 +148,10 @@ class Strategy:
         nested inside it (ONDEMAND joins, eviction recomputes) time
         themselves in the policy, so the disjoint timer subtracts that
         growth to keep the Fig. 3 decomposition disjoint."""
-        with self.stats.disjoint_timer("negative"):
+        with self.tracer.span("mobius.negative") as sp, \
+                self.stats.disjoint_timer("negative"):
+            if self.tracer.enabled:
+                sp.set(families=1)
             return complete_ct(point, keep, self.provider, self.stats,
                                use_butterfly=self.use_butterfly,
                                mobius_fn=self._mobius_fn())
@@ -153,6 +173,21 @@ class Strategy:
     # -- search phase --------------------------------------------------------
     def family_ct(self, point: LatticePoint,
                   keep: Sequence[CtVar]) -> CtTable:
+        with self.tracer.span("strategy.fetch") as sp:
+            if self.tracer.enabled:
+                sp.set(asked=1, missing=int(self._missing(point, keep)))
+            return self._family_ct(point, keep)
+
+    def _missing(self, point: LatticePoint, keep: Sequence[CtVar]) -> bool:
+        """Must ``(point, keep)``'s family table be computed (not served
+        from the cache)?"""
+        if self._precount_complete:
+            keep = tuple(point.all_ct_vars(self.db.schema, include_rind=True))
+            return ("complete", point.atoms, keep) not in self.engine.cache
+        return ("fam",) + _freeze(point, keep) not in self.engine.cache
+
+    def _family_ct(self, point: LatticePoint,
+                   keep: Sequence[CtVar]) -> CtTable:
         if self._precount_complete:
             return _project_wide(self._complete_full(point), keep)
         key = ("fam",) + _freeze(point, keep)
@@ -172,6 +207,10 @@ class Strategy:
         if svc is None:
             from ..serve.service import CountingService
             svc = self._service = CountingService(self.engine)
+            if self.tracer.enabled:
+                # the service wires its own tracer through the engine; a
+                # traced strategy's dispatch spans stay in its tracer
+                self.set_tracer(self.tracer)
         return svc
 
     def _mobius_batch_fn(self):
@@ -223,27 +262,45 @@ class Strategy:
         semantics under cache eviction — are numerically identical to
         per-family :meth:`family_ct`."""
         keeps = [tuple(k) for k in keeps]
+        with self.tracer.span("strategy.fetch") as sp:
+            return self._family_ct_many(point, keeps, sp)
+
+    def _family_ct_many(self, point: LatticePoint,
+                        keeps: List[Tuple[CtVar, ...]], span) -> list:
+        tracer = self.tracer
         if self._precount_complete or len(keeps) <= 1:
-            return [self.family_ct(point, keep) for keep in keeps]
+            if tracer.enabled:
+                span.set(asked=len(keeps), missing=sum(
+                    self._missing(point, keep) for keep in keeps))
+            return [self._family_ct(point, keep) for keep in keeps]
         cache = self.engine.cache
         missing = [keep for keep in keeps
                    if ("fam",) + _freeze(point, keep) not in cache]
         missing = list(dict.fromkeys(missing))
+        if tracer.enabled:
+            span.set(asked=len(keeps), missing=len(missing))
         if missing and self.provider.supports_batch_prefetch:
-            queries = []
-            for keep in missing:
-                queries.extend(positive_queries(point, keep,
-                                                self.use_butterfly))
-            self.service().prefetch(self.provider, queries)
+            with tracer.span("strategy.prefetch") as pre:
+                queries = []
+                for keep in missing:
+                    queries.extend(positive_queries(point, keep,
+                                                    self.use_butterfly))
+                executed = self.service().prefetch(self.provider, queries)
+                if tracer.enabled:
+                    pre.set(queries=len(queries), executed=executed)
         fresh = {}
         if missing:
-            with self.stats.disjoint_timer("negative"):
+            with tracer.span("mobius.negative") as neg, \
+                    self.stats.disjoint_timer("negative"):
+                if tracer.enabled:
+                    neg.set(families=len(missing))
                 tabs = complete_ct_many(
                     [(point, keep) for keep in missing], self.provider,
                     self.stats, use_butterfly=self.use_butterfly,
                     mobius_fn=self._mobius_fn(),
                     mobius_batch_fn=self._mobius_batch_fn(),
-                    mobius_fused_fn=self._mobius_fused_fn())
+                    mobius_fused_fn=self._mobius_fused_fn(),
+                    tracer=tracer)
             for keep, tab in zip(missing, tabs):
                 cache.put(("fam",) + _freeze(point, keep), tab)
                 fresh[keep] = tab      # return directly: under a tight
@@ -251,7 +308,7 @@ class Strategy:
                                        # other, and a cache round-trip
                                        # would recompute per family
         return [fresh[keep] if keep in fresh
-                else self.family_ct(point, keep) for keep in keeps]
+                else self._family_ct(point, keep) for keep in keeps]
 
 
 class OnDemand(Strategy):

@@ -233,16 +233,14 @@ class DiscoveryService:
                   t0: float, t1: float) -> None:
         self.metrics.inc(rounds=1, families_scored=n_scored)
         self.metrics.observe_round(t1 - t0)
-        if self.tracer.enabled:
-            self.tracer.record("discover.round", t0, t1, point=str(point),
-                               moves=n_moves, scored=n_scored)
 
     def _make_search(self, token: Tuple) -> StructureSearch:
         return StructureSearch(
             None, None, counts=self.provider, schema=self.schema,
             max_parents=self.max_parents, ess=self.ess,
             max_moves=self.max_moves, batch_scoring=self.batch_scoring,
-            score_cache=_MemoView(self, token), round_cb=self._round_cb)
+            score_cache=_MemoView(self, token), round_cb=self._round_cb,
+            tracer=self.tracer)
 
     def _run_stable(self, init_models: Optional[Dict[LatticePoint, BNModel]]
                     ) -> Tuple[Dict[LatticePoint, BNModel], Tuple, int, int]:

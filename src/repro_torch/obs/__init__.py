@@ -8,15 +8,15 @@ Three pieces, each usable alone:
   whose merge is exactly associative (p50/p95/p99 + max);
 * :mod:`repro_torch.obs.registry` — Prometheus-text / JSON rendering of
   snapshots, plus :mod:`repro_torch.obs.slowlog` (top-K slow queries) and
-  :mod:`repro_torch.obs.profile` (``torch.profiler`` annotations on
-  dispatches, off unless ``REPRO_TORCH_PROFILE`` is set).
+  :mod:`repro_torch.obs.profile` (the process-wide tracer a discovery
+  records into while a ``torch.profiler`` session records).
 
 This package imports nothing from :mod:`repro_torch.core` or
 :mod:`repro_torch.serve`, so every layer of the stack can depend on it.
 """
 
 from .hist import CountHistogram, LatencyHistogram, N_BUCKETS
-from .profile import annotate
+from .profile import profiled_tracer
 from .registry import MetricsRegistry, prometheus_lines
 from .slowlog import SlowQuery, SlowQueryLog
 from .trace import (NULL_TRACER, NullTracer, Span, SpanContext, SpanRecord,
@@ -24,7 +24,7 @@ from .trace import (NULL_TRACER, NullTracer, Span, SpanContext, SpanRecord,
 
 __all__ = [
     "CountHistogram", "LatencyHistogram", "N_BUCKETS",
-    "annotate",
+    "profiled_tracer",
     "MetricsRegistry", "prometheus_lines",
     "SlowQuery", "SlowQueryLog",
     "NULL_TRACER", "NullTracer", "Span", "SpanContext", "SpanRecord",

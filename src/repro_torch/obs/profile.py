@@ -1,72 +1,102 @@
-"""Optional ``torch.profiler`` hooks: line device profiles up with spans.
+"""Spans while ``torch.profiler`` records: one process-wide tracer.
 
-Host-side spans (:mod:`repro_torch.obs.trace`) stop at the launch — the
-device timeline in a ``torch.profiler`` trace shows kernel names, not
-"which bucket dispatch was this".  Wrapping each dispatch in a
-``torch.profiler.record_function`` with the *same name the span uses*
-("exec.positive_batch", "exec.mobius_batch") makes the two timelines
-joinable by eye in Perfetto or TensorBoard.
+A profiled run's trace holds the card's kernels and copies and the host's
+CUDA runtime calls, but not which of the program's steps was running
+while the card sat idle.  While a ``torch.profiler`` session records, a
+discovery (:func:`~repro_torch.core.search.discover_model`) therefore
+records its spans into :func:`profiled_tracer`, one ring for the whole
+process, stamped on the trace's own clock (:mod:`repro_torch.obs.trace`),
+so the two line up by time: the spans name the host's work, the trace
+gives the device's.  With no session recording a discovery takes
+:data:`~repro_torch.obs.trace.NULL_TRACER` and pays one flag check.
 
-Annotations are off by default (they cost a call into the profiler even
-when no profiling session is active) and enabled process-wide via
-:func:`enable` or the ``REPRO_TORCH_PROFILE`` environment variable (any
-value other than ``""`` / ``"0"``).  When off, :func:`annotate` returns a
-shared no-op context manager.
+Read the spans after the profiled window::
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]):
+        discover_model(db, strategy)
+    spans = profiled_tracer().records()     # discover.run, exec.hop, ...
+
+The spans and what each covers are listed in ``README.md``'s observability
+section; ``perfbench/spans.py`` reads their self times and which span was
+innermost while the card was idle.
 """
 
 from __future__ import annotations
 
-import os
+import gc
+import threading
+import time
+from contextlib import contextmanager, nullcontext
+from typing import Optional
 
-import torch
+from .trace import NullTracer, Tracer
 
-__all__ = ["annotate", "enable", "disable", "enabled"]
+__all__ = ["PROFILED_CAPACITY", "profiling", "profiled_tracer", "gc_spans"]
 
+#: Ring of the profiled tracer, in spans: four times what the benchmark's
+#: 51 s window records at IMDb's scale (about 140 discoveries of 455
+#: spans on an H100; VisualGenome's about 18 of 1,296).
+PROFILED_CAPACITY = 1 << 18
 
-class _NullAnnotation:
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-_NULL = _NullAnnotation()
-_enabled = False
+_PROFILED: Optional[Tracer] = None
+_LOCK = threading.Lock()
 
 
-def enable() -> bool:
-    """Turn profiler annotations on; returns whether they are on."""
-    global _enabled
-    _enabled = True
-    return _enabled
+def profiling() -> bool:
+    """Is a ``torch.profiler`` session recording (its active step)?"""
+    from torch.autograd import profiler
+    return profiler._is_profiler_enabled
 
 
-def disable() -> None:
-    global _enabled
-    _enabled = False
+def profiled_tracer() -> Tracer:
+    """The process-wide tracer that profiled discoveries record into,
+    made on first use, with a ring of :data:`PROFILED_CAPACITY` spans."""
+    global _PROFILED
+    if _PROFILED is None:
+        with _LOCK:
+            if _PROFILED is None:
+                _PROFILED = Tracer(capacity=PROFILED_CAPACITY,
+                                   slow_threshold_s=None)
+    return _PROFILED
 
 
-def enabled() -> bool:
-    return _enabled
+_gc_open = 0                       # open gc_spans blocks
+_gc_started: dict = {}             # thread id -> the collection's start
 
 
-def annotate(name: str):
-    """A context manager marking ``name`` on the profiler timeline
-    (``torch.profiler.record_function``) when enabled, or a shared no-op
-    otherwise.
-
-    Usage::
-
-        with annotate("exec.mobius_batch_fused"):
-            out = ops.mobius(x)
-    """
-    if _enabled:
-        return torch.profiler.record_function(name)
-    return _NULL
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: each collection a ``host.gc`` span."""
+    key = threading.get_ident()
+    if phase == "start":
+        _gc_started[key] = time.perf_counter()
+    else:
+        t0 = _gc_started.pop(key, None)
+        if t0 is not None and _PROFILED is not None:
+            _PROFILED.record("host.gc", t0, time.perf_counter(),
+                             generation=info.get("generation"))
 
 
-if os.environ.get("REPRO_TORCH_PROFILE", "").strip() not in ("", "0"):
-    enable()
+@contextmanager
+def _gc_recorded():
+    global _gc_open
+    with _LOCK:
+        if _gc_open == 0:
+            gc.callbacks.append(_on_gc)
+        _gc_open += 1
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _gc_open -= 1
+            if _gc_open == 0:
+                gc.callbacks.remove(_on_gc)
+
+
+def gc_spans(tracer: NullTracer):
+    """``with gc_spans(tracer):`` records each garbage collection inside
+    as a ``host.gc`` span (``generation``) of :func:`profiled_tracer`, so
+    that idle time which is a collection carries a name; a no-op unless
+    ``tracer`` is that tracer."""
+    if tracer is None or tracer is not _PROFILED:
+        return nullcontext()
+    return _gc_recorded()

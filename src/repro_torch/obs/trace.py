@@ -9,11 +9,16 @@ touched, and a parent link — into a fixed-capacity ring buffer
 the full path service queue → bucket execution → executor dispatch →
 cache install, and a discovery run its search rounds.
 
-Spans are host-clock intervals.  On the CUDA card a launch returns before
-its kernel ends, so a span around launches times their enqueueing unless
-the code inside it synchronises; the counting service ends each batch
-with a synchronisation, so its ``service.exec`` spans hold the card's
-time.
+Spans are host-clock intervals, stamped on the clock of a
+``torch.profiler`` trace: seconds since the epoch (the trace's events
+carry nanoseconds since the epoch), read as ``time.perf_counter()`` plus
+one offset anchored when the tracer starts, so a span's interval holds
+the trace's events of the work inside it.  On the CUDA card a launch
+returns before its kernel ends, so a span around launches times their
+enqueueing unless the code inside it synchronises; the counting service
+ends each batch with a synchronisation, so its ``service.exec`` spans
+hold the card's time.  A span never synchronises: the device's time comes
+from the profiler's trace.
 
 Design constraints, in order:
 
@@ -30,14 +35,17 @@ Design constraints, in order:
   executing side parents its spans on it explicitly.
   Same-thread nesting is implicit via a thread-local span stack.
 * **Retroactive spans.**  Queue residency is only known when the entry is
-  drained; :meth:`Tracer.record` writes a span from timestamps captured
-  earlier, so no span object needs to live across threads.
+  drained; :meth:`Tracer.record` writes a span from ``time.perf_counter()``
+  readings captured earlier (moved onto the trace's clock as it records
+  them), so no span object needs to live across threads.
 
 Enable per service via the ``tracer=`` knob (or
 ``CountingService.set_tracer``), or
 process-wide with the ``REPRO_TRACE`` environment variable (any value
 other than ``"" / "0"``; an integer sets the ring capacity), which
-:func:`default_tracer` resolves at construction time.
+:func:`default_tracer` resolves at construction time.  A discovery
+records into :func:`repro_torch.obs.profile.profiled_tracer` while a
+``torch.profiler`` session records (:mod:`repro_torch.obs.profile`).
 
 Usage::
 
@@ -163,11 +171,11 @@ class Span:
     def __enter__(self) -> "Span":
         self._tracer._push(self)
         self._pushed = True
-        self.t0 = time.perf_counter()
+        self.t0 = time.perf_counter() + self._tracer.offset
         return self
 
     def __exit__(self, *exc) -> bool:
-        self.t1 = time.perf_counter()
+        self.t1 = time.perf_counter() + self._tracer.offset
         if self._pushed:
             self._tracer._pop(self)
         self._tracer._append(SpanRecord(
@@ -197,6 +205,9 @@ class NullTracer:
                parent: Optional[SpanContext] = None,
                **attrs) -> Optional[SpanContext]:
         return None
+
+    def current(self) -> _NullSpan:
+        return NULL_SPAN
 
     def records(self) -> List[SpanRecord]:
         return []
@@ -247,6 +258,14 @@ class Tracer(NullTracer):
         self._local = threading.local()
         self.recorded = 0              # total appends (ring may have fewer)
         self.slow = SlowQueryLog(threshold_s=slow_threshold_s, top_k=slow_k)
+        self._anchor()
+
+    def _anchor(self) -> None:
+        """Tie ``time.perf_counter()`` to the trace's clock (seconds since
+        the epoch) by one pair of readings: ``offset`` is added to every
+        stamp."""
+        pc, epoch = time.perf_counter_ns(), time.time_ns()
+        self.offset = (epoch - pc) / 1e9
 
     # -- recording ----------------------------------------------------------
     def span(self, name: str, parent: Optional[SpanContext] = None,
@@ -266,9 +285,10 @@ class Tracer(NullTracer):
     def record(self, name: str, t0: float, t1: float,
                parent: Optional[SpanContext] = None,
                **attrs) -> SpanContext:
-        """Retroactive span from timestamps captured earlier (queue
-        residency is only known at drain time).  Returns the new span's
-        context so children can parent on it."""
+        """Retroactive span from ``time.perf_counter()`` readings captured
+        earlier (queue residency is only known at drain time), recorded on
+        the trace's clock.  Returns the new span's context so children can
+        parent on it."""
         if parent is not None:
             trace_id, parent_id = parent.trace_id, parent.span_id
         else:
@@ -278,7 +298,8 @@ class Tracer(NullTracer):
             else:
                 trace_id, parent_id = next(_trace_ids), None
         span_id = next(_ids)
-        self._append(SpanRecord(trace_id, span_id, parent_id, name, t0, t1,
+        self._append(SpanRecord(trace_id, span_id, parent_id, name,
+                                t0 + self.offset, t1 + self.offset,
                                 attrs or None,
                                 threading.current_thread().name))
         return SpanContext(trace_id, span_id)
@@ -297,6 +318,12 @@ class Tracer(NullTracer):
     def _current(self) -> Optional[Span]:
         st = getattr(self._local, "stack", None)
         return st[-1] if st else None
+
+    def current(self):
+        """This thread's innermost open span (:data:`NULL_SPAN` if none),
+        so a callee can ``set`` on its caller's span what only it learns."""
+        top = self._current()
+        return top if top is not None else NULL_SPAN
 
     def _push(self, span: Span) -> None:
         self._stack().append(span)
@@ -317,6 +344,7 @@ class Tracer(NullTracer):
         self._ring.clear()
         self.recorded = 0
         self.slow.clear()
+        self._anchor()
 
     def traces(self) -> Dict[int, List[SpanRecord]]:
         """Resident spans grouped by trace id (each list sorted by t0)."""

@@ -14,6 +14,10 @@
 * :mod:`repro_torch.obs.registry` — the same snapshots render to the same
   Prometheus and JSON text as the JAX package's registry, and a torch
   scalar renders as the number it holds.
+* :mod:`repro_torch.obs.profile` — a discovery inside a CPU profiler
+  records its spans, each within its parent, into the profiled tracer,
+  and records none outside one; a span holds the profiler's event of the
+  operator inside it (one clock); collections become ``host.gc`` spans.
 * End to end on the CPU — a traced service nests every ``service.exec``
   under its ``service.queue`` span, and a traced discovery records its
   search rounds.
@@ -23,7 +27,6 @@ counterpart here: the router is not ported yet (ROADMAP item 11).
 """
 
 import dataclasses
-import importlib
 import json
 import sys
 import threading
@@ -471,32 +474,128 @@ def test_registry_renders_torch_scalars_as_numbers():
 
 # ---------------------------------------------------------------- profile --
 
-def test_profiler_annotation_knob():
-    assert not profile.enabled()
-    with profile.annotate("off"):                    # inert when disabled
-        pass
-    profile.enable()
-    try:
-        assert profile.enabled()
-        with profile.annotate("exec.positive_batch"):
-            pass
-    finally:
-        profile.disable()
-    assert not profile.enabled()
+#: Spans a HYBRID discovery on the sparse executor records.
+DISCOVERY_SPANS = {"discover.run", "strategy.prepare", "precount.point",
+                   "exec.hop", "exec.host_ids", "exec.upload", "exec.root",
+                   "discover.point", "discover.round", "strategy.fetch",
+                   "strategy.prefetch", "mobius.negative", "mobius.blocks",
+                   "exec.mobius_batch_fused", "search.score"}
 
 
-def test_profiler_env_knob(monkeypatch):
-    """``REPRO_TORCH_PROFILE`` turns annotations on at import, as
-    ``REPRO_JAX_PROFILE`` does in the JAX package; "0" leaves them off."""
+def _profiled_discoveries(n):
+    """``n`` HYBRID discoveries inside a CPU profiler; their searches and
+    the profiled tracer's spans."""
+    import repro_torch.core.search as search_mod
+    made = []
+
+    class Kept(search_mod.StructureSearch):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    db = to_port(jax_mixed_db())
+    tracer = profile.profiled_tracer()
+    tracer.clear()
+    plain, search_mod.StructureSearch = search_mod.StructureSearch, Kept
     try:
-        for value, want in (("1", True), ("0", False), ("", False)):
-            monkeypatch.setenv("REPRO_TORCH_PROFILE", value)
-            importlib.reload(profile)
-            assert profile.enabled() is want, value
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for _ in range(n):
+                strategy = tc.make_strategy("HYBRID", executor="sparse",
+                                            device=CPU)
+                tc.discover_model(db, strategy, device=CPU)
+                assert not strategy.tracer.enabled      # unwired after
     finally:
-        monkeypatch.delenv("REPRO_TORCH_PROFILE")
-        importlib.reload(profile)
-    assert not profile.enabled()
+        search_mod.StructureSearch = plain
+    return made, tracer
+
+
+def test_profiled_discovery_records_its_spans():
+    searches, tracer = _profiled_discoveries(2)
+    records = tracer.records()
+    assert tracer.snapshot()["dropped"] == 0
+    roots = [r for r in records if r.parent_id is None
+             and r.name != "host.gc"]
+    assert [r.name for r in roots] == ["discover.run"] * 2
+    assert all(r.attrs["strategy"] == "HYBRID" and r.attrs["points"] > 0
+               for r in roots)
+    assert DISCOVERY_SPANS <= {r.name for r in records}
+    by_id = {r.span_id: r for r in records}
+    for r in records:                  # every span within its parent
+        if r.parent_id is not None:
+            parent = by_id[r.parent_id]
+            assert parent.t0 <= r.t0 <= r.t1 <= parent.t1, (parent, r)
+            assert parent.trace_id == r.trace_id
+    for root, search in zip(roots, searches):
+        rounds = [r for r in records if r.trace_id == root.trace_id
+                  and r.name == "discover.round"]
+        assert sum(r.attrs["scored"] for r in rounds) \
+            == search.families_scored
+    for r in records:
+        if r.name == "exec.hop":
+            assert r.attrs["kernel"] in ("K1", "K2") and r.attrs["edges"] > 0
+        if r.name == "exec.upload":
+            assert r.attrs["bytes"] > 0
+        if r.name == "mobius.negative":
+            assert r.attrs["families"] >= r.attrs.get("groups", 0)
+
+
+def test_discovery_records_nothing_without_a_profiler():
+    """Outside a profiler session, and in its warm-up step, a discovery
+    leaves the profiled tracer's ring empty."""
+    from torch.profiler import ProfilerActivity, schedule
+    db = to_port(jax_mixed_db())
+    tracer = profile.profiled_tracer()
+    tracer.clear()
+    strategy = tc.make_strategy("HYBRID", executor="sparse", device=CPU)
+    tc.discover_model(db, strategy, device=CPU)
+    assert not profile.profiling()
+    assert strategy.engine.executor.tracer is NULL_TRACER
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        tc.discover_model(db, tc.make_strategy("HYBRID", device=CPU),
+                          device=CPU)
+        prof.step()
+    assert tracer.records() == [] and tracer.snapshot()["recorded"] == 0
+
+
+def test_span_clock_is_the_profiler_trace_clock():
+    """A CPU operator's event in the profiler's trace falls within the
+    span around it (live and retroactive), within 1 ms."""
+    tracer = Tracer()
+    x = torch.ones(4096)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracer.span("around"):
+            x.add(1)
+        t0 = time.perf_counter()
+        x.mul(3)
+        tracer.record("after", t0, time.perf_counter())
+    spans = {r.name: r for r in tracer.records()}
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    for op, name in (("aten::add", "around"), ("aten::mul", "after")):
+        ev, span = events[op], spans[name]
+        start = ev.start_ns() / 1e9
+        end = (ev.start_ns() + ev.duration_ns()) / 1e9
+        assert span.t0 - 1e-3 <= start <= end <= span.t1 + 1e-3, (op, span)
+
+
+def test_gc_spans_name_collections():
+    import gc
+    tracer = profile.profiled_tracer()
+    tracer.clear()
+    before = list(gc.callbacks)
+    with tracer.span("work"), profile.gc_spans(tracer):
+        gc.collect()
+    assert gc.callbacks == before
+    gcs = [r for r in tracer.records() if r.name == "host.gc"]
+    assert gcs and gcs[-1].attrs["generation"] == 2
+    work = [r for r in tracer.records() if r.name == "work"][0]
+    assert gcs[-1].parent_id == work.span_id
+    with profile.gc_spans(Tracer()), profile.gc_spans(NULL_TRACER):
+        assert gc.callbacks == before          # other tracers: no hook
+    tracer.clear()
 
 
 # ------------------------------------------------------------ end to end --

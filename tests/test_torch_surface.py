@@ -35,8 +35,13 @@ _GSPMD = ("the reference's GSPMD layout hint; the port's spmd body gathers "
 _TRACE = ("the port's routing_trace reads the routing from the block as it "
           "runs (block_attend), so it normalises nothing itself and needs "
           "no config type")
+_ANNOTATE = ("the reference's record_function marks behind an env knob; "
+             "the port's discovery records its spans into one tracer while "
+             "a torch.profiler session records (obs.profile), on the "
+             "trace's clock, so no second span system runs beside it")
 NO_COUNTERPART = {
     "core": {"plan_input_arrays": _PACKS},
+    "obs": {"annotate": _ANNOTATE},
     "serve": {"plan_input_arrays": _PACKS},
     "roofline": {"parse_collectives": _HLO},
     "launch.mesh": {"make_production_mesh": _TPU, "PEAK_FLOPS_BF16": _TPU,
