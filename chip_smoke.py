@@ -19,20 +19,27 @@ Phases (any failure exits non-zero before the last line is printed):
               every kernel launch; its wall time and peak memory are read on
               this run alone.  The IMDb run is made once more under
               ``torch.profiler``: device busy time against wall time, and
-              the kernels that took most of it, and K1's, K2's and K4's
-              device time by kernel name.  Then HYBRID pre-counting alone
-              on the VisualGenome stand-in (15.8M rows, 8 relationships,
-              chains of 3, which take the dense-message hop), and once
-              more keeping K2's
-              largest call and its largest in the direct regime (the
-              dense-message hop), each held bit for bit against its plain
-              version and timed.  Checks that each kernel was launched,
-              that K2 took both regimes (launch counts by regime printed),
-              and that every single-relation positive table sums to its
-              relation's edge count.
+              the kernels that took most of it, and K1's, K2's, K4's and
+              the id kernel's device time by kernel name.  Then HYBRID
+              pre-counting alone on the VisualGenome stand-in (15.8M rows,
+              8 relationships, chains of 3, which take the dense-message
+              hop), and once more keeping K2's largest call and its
+              largest in the direct regime (the dense-message hop), each
+              held bit for bit against its plain version and timed, and
+              the id kernel's (``ops.hop_ids``: the sparse executor's
+              segment ids, dense gather indices and entity codes) largest
+              leaf, dense and root calls, each held bit for bit against
+              its plain version (``segsum.hop_ids_plain``) and timed
+              beside its bound (``ids_reading``).  Checks that each kernel
+              of the main path was launched (``MAIN_PATH_KERNELS``: K1-K4
+              and the id kernel), that K2 took both regimes (launch counts
+              by regime printed), and that every single-relation positive
+              table sums to its relation's edge count.
 4. kernels  — the IMDb run once more, keeping a copy of the inputs of each
-              kernel's largest call; each kernel against its plain PyTorch
-              version on those inputs: exact for the
+              kernel's largest call (the id kernel's of each kind too: its
+              row is VisualGenome's largest leaf call, with phase 3's other
+              calls and IMDb's beside it); each kernel against its plain
+              PyTorch version on those inputs: exact for the
               segment sums, the Möbius transform and BDeu (BDeu is
               bit-reproducible by design; the ``rtol=1e-4, atol=1e-2``
               tolerance is the JAX reference's and is checked too).  Times
@@ -551,6 +558,8 @@ UW_SCALE = 1.0
 
 # The counting path's kernels (phases 3-4); K5 and K6 have paths of their own.
 COUNTING_KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu")
+# ... and the sparse executor's id kernel, on the main path (phase 3).
+MAIN_PATH_KERNELS = COUNTING_KERNELS + ("hop_ids",)
 # K2's CUDA kernels (csrc/segsum.cu), by the names ptxas and the profiler
 # give them.
 K2_KERNEL_NAMES = ("rows_private_kernel", "rows_direct_kernel")
@@ -563,7 +572,8 @@ NO_SPILL_KERNELS = ("flash_wgmma", "flash_mma", "rows_private_kernel",
                     "rows_direct_kernel", "segsum_ones_direct_kernel",
                     "segsum_ones_sliced_kernel", "segsum_ones_private_kernel",
                     "segsum_ones_zero_kernel", "bdeu_chunk_kernel",
-                    "mobius_reg_kernel", "mobius_tile_kernel")
+                    "mobius_reg_kernel", "mobius_tile_kernel",
+                    "hop_ids_kernel")
 # K4's edge shapes (phase 10): q either side of a warp, of the 256 lanes
 # and past one chunk; r from one column to a chunk that no longer fits
 # 256 rows' lgammas (33); B of one family, the IMDb largest call's 9 and
@@ -1075,7 +1085,8 @@ def profile_main_path(db, discover_model, make_strategy) -> None:
             f"{e.key[:100]}")
     for label, names in (("K1 (segsum_ones)", K1_KERNEL_NAMES),
                          ("K2 (the row scatter)", K2_KERNEL_NAMES),
-                         ("K4 (bdeu)", K4_KERNEL_NAMES)):
+                         ("K4 (bdeu)", K4_KERNEL_NAMES),
+                         ("the id kernel (hop_ids)", ("hop_ids_kernel",))):
         mine = [e for e in on_card if any(k in e.key for k in names)]
         log(f"profile: {label} "
             f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms of "
@@ -1121,6 +1132,99 @@ def k2_reading(ops, seg, r, p) -> dict:
                  f"{err_direct} at E={e} D={d} P={p}")
         reading["direct_device_ms"] = device_ms(run_direct)
     return reading
+
+
+class IdsSpy:
+    """Wraps ``ops.hop_ids`` during a run and keeps a copy of the inputs of
+    its largest call (by ids made) of each kind: ``leaf`` (a hop without
+    gather indices), ``dense`` (a hop that also makes them) and ``root``
+    (the entity codes of a root or a histogram: no gather, no scatter)."""
+
+    def __init__(self, ops):
+        from repro_torch.kernels.segsum import IdPart
+        self.ops, self.orig, self.big, self.calls = ops, ops.hop_ids, {}, 0
+
+        def clone(t):
+            return None if t is None else t.clone()
+
+        def spy(parts, cards, gathered, step, mult=0, gather_step=None, *,
+                device):
+            self.calls += 1
+            kind = ("root" if parts[0].gather is None else
+                    "leaf" if gather_step is None else "dense")
+            size = sum(p.n for p in parts)
+            if size > self.big.get(kind, (0,))[0]:
+                self.big[kind] = (size, (
+                    [IdPart(p.n, clone(p.gather), clone(p.scatter),
+                            tuple(map(clone, p.cols))) for p in parts],
+                    tuple(cards), tuple(gathered), step, mult, gather_step,
+                    torch.device(device)))
+            return self.orig(parts, cards, gathered, step, mult, gather_step,
+                             device=device)
+        ops.hop_ids = spy
+
+    def remove(self):
+        self.ops.hop_ids = self.orig
+
+
+def ids_bytes(parts, gathered, gather_step) -> float:
+    """The least bytes an id kernel call moves: each distinct input column
+    read once (a gathered one at most at as many rows as it is read at)
+    and the ids (and gather indices) written."""
+    reads, ids = {}, 0
+    for p in parts:
+        ids += p.n
+        cols = [(t, False) for t in (p.gather, p.scatter) if t is not None]
+        cols += [(c, at and p.gather is not None)
+                 for c, at in zip(p.cols, gathered)]
+        for t, at in cols:
+            key = (t.data_ptr(), t.numel())
+            n = reads.get(key, 0) + (p.n if at else t.numel())
+            reads[key] = min(n, t.numel())
+    written = ids * (2 if gather_step is not None else 1)
+    return 4.0 * (sum(reads.values()) + written)
+
+
+def ids_reading(ops, call) -> dict:
+    """The id kernel at one call's inputs: bit for bit against its plain
+    version (ids and gather indices), times of the kernel and its plain
+    version (the kernel's include its argument table's copy to the card)
+    beside the bound.  No library call computes the ids."""
+    from repro_torch.kernels.segsum import hop_ids_plain
+    parts, cards, gathered, step, mult, gstep, dev = call
+
+    def kernel():
+        return ops.hop_ids(parts, cards, gathered, step, mult, gstep,
+                           device=dev)
+
+    def plain():
+        return hop_ids_plain(parts, cards, gathered, step, mult, gstep, dev)
+    (seg, gidx), (want, want_g) = kernel(), plain()
+    shape = (f"plans={len(parts)} ids={seg.numel()} cols={len(cards)} "
+             f"gather_indices={gstep is not None}")
+    if not torch.equal(seg, want) or (gstep is not None
+                                      and not torch.equal(gidx, want_g)):
+        fail(f"hop_ids differs from its plain version at {shape}")
+    b_ms, b_by = bound_ms(ids_bytes(parts, gathered, gstep), 0)
+    return dict(shape=shape, max_abs_err=0, bound_ms=b_ms, bound_by=b_by,
+                **timings(kernel, plain, None))
+
+
+def ids_readings(ops, spy: IdsSpy, label: str, kinds) -> dict:
+    """:func:`ids_reading` at the largest call of each kind that ``spy``
+    kept; fails where one of ``kinds`` did not run."""
+    missing = [k for k in kinds if k not in spy.big]
+    if missing:
+        fail(f"{label}: the id kernel made no {missing} ids")
+    out = {}
+    for kind in sorted(spy.big):
+        out[kind] = r = ids_reading(ops, spy.big[kind][1])
+        log(f"id kernel {label} largest {kind} [{r['shape']}]: bit for bit; "
+            f"device {r['device_ms']} ms (events {r['ms']:.4f}), plain "
+            f"device {r['plain_device_ms']} ms (events "
+            f"{r['plain_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return out
 
 
 def ones_alternatives(plan, e: int, p: int, card) -> list:
@@ -1618,14 +1722,14 @@ def replay_phase(ops, recorder) -> dict:
 
 def record_families(strategy) -> list:
     """The ``(point, keep)`` of every family table ``strategy`` serves
-    from now on (its ``family_ct``, which ``family_ct_many`` also calls
-    for PRECOUNT), in order."""
-    asked, inner = [], strategy.family_ct
+    from now on (its ``_family_ct``, behind ``family_ct`` and, for
+    PRECOUNT, ``family_ct_many``), in order."""
+    asked, inner = [], strategy._family_ct
 
     def family_ct(point, keep):
         asked.append((point, tuple(keep)))
         return inner(point, keep)
-    strategy.family_ct = family_ct
+    strategy._family_ct = family_ct
     return asked
 
 
@@ -1761,6 +1865,8 @@ def precount_tables(db, precount, asked, differ, edges) -> dict:
         # leaves is the negative phase proper, short of no subtraction
         f = _project_wide(faulty[point], keep).counts
         planted = max(planted, past_2_24(a.counts[f != 0], f[f != 0])[0])
+    if not fams:
+        fail("PRECOUNT: no family table was recorded")
     if planted <= ROUNDING_PAST_2_24:
         fail(f"PRECOUNT: a negative phase that subtracts no positive count "
              f"differs from HYBRID past 2^24 by {planted} of a cell at "
@@ -7403,7 +7509,7 @@ def main() -> None:
         f"launches: {json.dumps(launches)}; K2 launches by regime: "
         f"{json.dumps(imdb_regimes)}; K1 launches by regime: "
         f"{json.dumps(imdb_ones_regimes)}")
-    if any(launches[k] <= 0 for k in COUNTING_KERNELS):
+    if any(launches[k] <= 0 for k in MAIN_PATH_KERNELS):
         fail(f"a kernel of the main path was not launched: {launches}")
     if any(ops.PLAIN_CALLS[k] for k in ops.KERNELS):
         fail(f"plain versions ran on the card: {ops.PLAIN_CALLS}")
@@ -7432,6 +7538,8 @@ def main() -> None:
         f"{json.dumps(ops.LAUNCHES)}")
     if ops.LAUNCHES["segsum_rows"] <= 0:
         fail("the dense-message hop did not launch segsum_rows")
+    if ops.LAUNCHES["hop_ids"] <= 0:
+        fail("VisualGenome's hops did not launch the id kernel")
     if ops.ROW_REGIMES["direct"] <= 0:
         fail("the dense-message hop did not take K2's direct regime")
     log(f"  K2 launches by regime: {json.dumps(ops.ROW_REGIMES)}")
@@ -7443,14 +7551,20 @@ def main() -> None:
         ("direct",) if rows_plan(args[1].shape[0], args[1].shape[1], args[2],
                                  card_of(args[1].device)).regime == "direct"
         else ()))
+    # (and the id kernel's largest leaf, dense and root calls)
+    vg_ids_spy = IdsSpy(ops)
     make_strategy("HYBRID", executor="sparse").prepare(
         vg, build_lattice(vg.schema, 3))
+    vg_ids_spy.remove()
     vg_spy.remove()
     vg_k2 = {key: k2_reading(ops, *vg_spy.big[big][1])
              for key, big in (("largest", "segsum_rows"), ("hop", "direct"))}
     for key, reading in vg_k2.items():
         log_k2(f"VisualGenome {key}", reading)
-    del vg_spy
+    vg_ids = ids_readings(ops, vg_ids_spy, "VisualGenome",
+                          ("leaf", "dense", "root"))
+    vg_ids_calls = vg_ids_spy.calls
+    del vg_spy, vg_ids_spy
 
     # -- 4. kernels against their plain versions ------------------------------
     # (K1's largest call, and its largest in the privatised regime: an
@@ -7459,11 +7573,21 @@ def main() -> None:
         ("segsum_ones/private",) if name == "segsum_ones" and ones_plan(
             args[0].shape[0], args[2], card_of(args[0].device)).regime
         == "private" else ()))
+    ids_spy = IdsSpy(ops)
     discover_model(db, make_strategy("HYBRID", executor="sparse"),
                    **DISCOVERY)
+    ids_spy.remove()
     spy.remove()
     del db
     rows = []
+    imdb_ids = ids_readings(ops, ids_spy, "IMDb", ("leaf", "root"))
+    rows.append(dict(
+        name="hop_ids", route="cuda",
+        source="src/repro_torch/kernels/csrc/segsum.cu", replaces=None,
+        launches=launches["hop_ids"], **vg_ids["leaf"],
+        visualgenome=dict(calls=vg_ids_calls, **vg_ids),
+        imdb=dict(calls=ids_spy.calls, **imdb_ids)))
+    del ids_spy
     reading = k1_reading(ops, *spy.big["segsum_ones"][1])
     log_k1("IMDb largest", reading)
     private = k1_reading(ops, *spy.big["segsum_ones/private"][1])

@@ -4,7 +4,9 @@ A :class:`RelationalDB` stands in for the paper's MariaDB input: every
 entity table is a dict of ``int32[n]`` attribute columns and every
 relationship table is an edge list ``(src int32[m], dst int32[m])`` plus
 ``int32[m]`` edge-attribute columns.  The arrays stay on the host as numpy;
-the executors move index and code arrays to the counting device hop by hop.
+the executors move index and code arrays to the counting device (the sparse
+executor keeps a copy of each column it reads).  No write changes a column
+in place: a write replaces the arrays it changes.
 
 The store is **versioned and mutable**: :meth:`RelationalDB.insert_facts` /
 :meth:`RelationalDB.delete_facts` apply a batch of relationship-fact writes,
@@ -344,7 +346,11 @@ class RelationalDB:
                 raise ValueError(f"attr {name!r} value out of range")
         old_vals = {name: tab.attrs[name][rows].copy() for name in attrs}
         for name, col in attrs.items():
-            tab.attrs[name][rows] = col
+            # a new column in place of the old, never a write into it: a
+            # copy of the old array (the sparse executor's) stays true
+            new = tab.attrs[name].copy()
+            new[rows] = col
+            tab.attrs[name] = new
         old, self.version = self.version, self.version + 1
         return AttrDelta(etype, rows, old_vals, attrs, old, self.version)
 

@@ -484,10 +484,11 @@ class ShardedSparseExecutor(SparseExecutor):
     The plan walk, the mixed-radix code arithmetic and the caching
     semantics are inherited unchanged; only the two device steps change:
 
-    * **edge scatter-add** (:meth:`_edge_segment_sum`) — the hop's edge
-      list (padded to a multiple of the rank count, with a 0/1 weight mask)
-      is split over ``axis``; each rank scatters its contiguous slice into
-      the full ``(parent, code)`` segment space (K1 with the mask as its
+    * **edge scatter-add** (:meth:`_edge_segment_sum`) — the hop's
+      segment ids (built on rank 0's device, brought to its host for the
+      scatter; padded to a multiple of the rank count, with a 0/1 weight
+      mask) are split over ``axis``; each rank scatters its contiguous
+      slice into the full ``(parent, code)`` segment space (K1 with the mask as its
       weights for a leaf hop, K2 on zero-padded rows for a dense-message
       hop) and one SUM reduction merges them.  This is the Möbius-join
       parallelisation of Qian & Schulte: sufficient statistics are sums
@@ -579,13 +580,13 @@ class ShardedSparseExecutor(SparseExecutor):
         return out
 
     # -- device steps, sharded ----------------------------------------------
-    def _edge_segment_sum(self, seg_np: np.ndarray,
+    def _edge_segment_sum(self, seg_t: torch.Tensor,
                           rows: Optional[torch.Tensor],
                           total: int) -> torch.Tensor:
         if self._local():
-            return super()._edge_segment_sum(seg_np, rows, total)
+            return super()._edge_segment_sum(seg_t, rows, total)
         n = self.n_ranks
-        seg, w = _pad_to(seg_np, n)
+        seg, w = _pad_to(seg_t.cpu().numpy(), n)
         segs = _split(torch.from_numpy(seg), n)
         if rows is None:
             ws = _split(torch.from_numpy(w), n)

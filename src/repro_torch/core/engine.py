@@ -155,7 +155,10 @@ class CountingEngine:
         self.cache = cache if cache is not None else CtCache(
             cache_budget_bytes, self.stats)
         self.cache.deps_fn = key_deps
-        self.cache.version_fn = lambda: self.db.version
+        # the store, not the engine: a closure over ``self`` would make the
+        # engine (and its executor's device copies of the database) wait
+        # for a full garbage collection once its strategy is dropped
+        self.cache.version_fn = lambda: db.version
         self.tracer = NULL_TRACER
         self.dtype = dtype
         # Table 5's "once per distinct artefact" row accounting

@@ -25,16 +25,19 @@ through :func:`repro_torch.kernels.ops.segsum_ones` (K1) or
 step through :func:`~repro_torch.kernels.ops.mobius` (K3): the CUDA kernels
 for tensors on the card, their plain versions on the host.
 
-Database arrays stay on the host as numpy; each hop moves the index and
-code arrays it needs to the executor's ``device``.
+Database arrays stay on the host as numpy.  The dense executor moves the
+index and code arrays each hop needs to the executor's ``device``; the
+sparse executor copies each column it reads to the device once and
+builds every hop's segment ids there (the id kernel,
+:func:`~repro_torch.kernels.ops.hop_ids`).
 
 :meth:`Executor.positive_batch` evaluates many plans at once.  Plans with
 equal :func:`plan_stack_key` run the same operations on arrays of the same
 sizes; the JAX package stacks their input packs and ``vmap``s one traced
 evaluator.  The port's kernels are ``ctypes`` calls on raw pointers, which
 ``torch.func.vmap`` cannot trace, so a group is evaluated as ONE problem
-instead: each plan's index and code arithmetic runs on the host as it does
-for one plan, plan ``i``'s segment ids are offset by ``i`` segment spaces
+instead: each plan's index and code arithmetic is the one-plan
+arithmetic, plan ``i``'s segment ids are offset by ``i`` segment spaces
 and its gathers by ``i`` entity tables, and each hop step of the whole
 group is one K1 or K2 launch whose result splits into per-plan tables.
 :meth:`Executor.positive` is the group of one.  Counts are integers below
@@ -54,6 +57,11 @@ here needs no equal-length arrays.
 
 from __future__ import annotations
 
+import math
+import os
+import threading
+import weakref
+from collections import OrderedDict
 from contextlib import nullcontext
 from typing import List, Optional, Sequence, Tuple
 
@@ -61,6 +69,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.segsum import IdPart, hop_ids_table_bytes
 from ..obs.trace import NULL_TRACER
 from .contract import CostStats, _khatri_rao_reduce, _onehot
 from .ct import CtTable, sum_partials
@@ -102,10 +111,12 @@ def _finalise(flat: torch.Tensor, mvars: Sequence[CtVar],
     return tab
 
 
-def _host_to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An ``int32`` index/code array moved to ``device``."""
+def _host_to(arr: np.ndarray, device: torch.device,
+             copy: bool = False) -> torch.Tensor:
+    """An ``int32`` index/code array moved to ``device`` (with ``copy``, a
+    copy even where ``device`` is the host's)."""
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(
-        device)
+        device, copy=copy)
 
 
 class Executor:
@@ -729,24 +740,18 @@ class DenseExecutor(Executor):
 # ---------------------------------------------------------------------------
 
 class _SparseMsg:
-    """Per-entity messages of ``b`` aligned nodes: per plan a mixed-radix
-    scalar code over its ``svars`` (one value per entity — exact, no
-    one-hot), plus an optional dense block ``(b * n, D)`` over each plan's
-    ``dvars`` (present only after an aggregation made the distribution
-    genuinely multi-valued)."""
+    """Per-entity messages of ``b`` aligned nodes: per plan the device
+    columns ``cols`` of its ``svars``, whose mixed-radix code over
+    ``cards`` is the entity's scalar code (one value per entity — exact,
+    no one-hot), plus an optional dense block ``(b * n, D)`` over each
+    plan's ``dvars`` (present only after an aggregation made the
+    distribution genuinely multi-valued)."""
 
-    __slots__ = ("codes", "ds", "svars", "dense", "dvars")
+    __slots__ = ("cols", "cards", "svars", "dense", "dvars")
 
-    def __init__(self, codes, ds, svars, dense, dvars):
-        self.codes, self.ds, self.svars = codes, ds, svars
+    def __init__(self, cols, cards, svars, dense, dvars):
+        self.cols, self.cards, self.svars = cols, cards, svars
         self.dense, self.dvars = dense, dvars
-
-
-def _np_codes(cols: List[np.ndarray], cards: List[int]) -> np.ndarray:
-    code = np.zeros(len(cols[0]) if cols else 0, dtype=np.int64)
-    for col, card in zip(cols, cards):
-        code = code * card + col.astype(np.int64)
-    return code
 
 
 def _kr_segment_sum(code: torch.Tensor, mats: Sequence[torch.Tensor],
@@ -770,20 +775,97 @@ def _kr_segment_sum(code: torch.Tensor, mats: Sequence[torch.Tensor],
     return out.to(dtype)
 
 
+def _free_bytes(device: torch.device) -> int:
+    """Bytes free on ``device``: the card's free memory and what PyTorch's
+    allocator holds unused, or the host's available memory for the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0]
+                   + torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
 class SparseExecutor(Executor):
+    """The code path (module docstring).  The database's int32 columns
+    that a hop or a root reads (edge endpoints, edge and entity
+    attributes) are copied to the device at first use: each hop's segment
+    ids, gather indices and entity codes are then one launch of the id
+    kernel (:func:`~repro_torch.kernels.ops.hop_ids`) over those copies.
+
+    A copy is keyed by the host array it came from, of which it keeps a
+    weak reference: the database never writes a column in place (a write
+    replaces the arrays it changes), so a live array's copy is never
+    stale, and a delta or fan-out view reads its parent's copies of the
+    arrays it shares.  A copy goes when its host array does (at the next
+    copy) or, least recently read first, once the copies pass a quarter of
+    the device's free memory and their own bytes, read at each copy.
+    ``resident_builds`` and ``resident_hits`` count the arrays copied and
+    the reads served from a copy."""
+
     name = "sparse"
 
-    def _entity_code(self, db: RelationalDB, fs: FactorSpec
-                     ) -> Tuple[Optional[np.ndarray], int]:
-        """Mixed-radix host-side code per entity.  Kept as numpy: codes are
-        consumed by host index arithmetic in ``_hop``; only the final
-        segment-id array ever moves to the device."""
-        if not fs.attrs:
-            return None, 1
+    def __init__(self, dtype=torch.float32, mobius_fn=None, device=None):
+        super().__init__(dtype=dtype, mobius_fn=mobius_fn, device=device)
+        # id(host array) -> (weak reference to it, device copy)
+        self._copies: OrderedDict = OrderedDict()
+        self._copies_limit: Optional[int] = None    # None: from free memory
+        self._copies_lock = threading.Lock()
+        self.resident_builds = 0
+        self.resident_hits = 0
+
+    @property
+    def _copies_bytes(self) -> int:
+        return sum(t.nbytes for _, t in self._copies.values())
+
+    def _resident(self, arr: np.ndarray) -> Tuple[torch.Tensor, bool]:
+        """The device copy of a database's int32 column ``arr``, and
+        whether this call made it."""
+        key = id(arr)
+        with self._copies_lock:
+            hit = self._copies.get(key)
+            if hit is not None and hit[0]() is arr:
+                self._copies.move_to_end(key)
+                self.resident_hits += 1
+                return hit[1], False
+        with self.tracer.span("exec.upload") as sp:
+            if self.tracer.enabled:
+                sp.set(bytes=4 * int(np.size(arr)), what="resident")
+            # a copy on the host too: a tensor sharing ``arr`` would keep
+            # it alive
+            copy = _host_to(arr, self.device, copy=True)
+        with self._copies_lock:
+            for dead in [k for k, (ref, _) in self._copies.items()
+                         if ref() is None]:
+                del self._copies[dead]
+            self._copies[key] = (weakref.ref(arr), copy)
+            self._copies.move_to_end(key)
+            self.resident_builds += 1
+            limit = self._copies_limit
+            if limit is None:
+                limit = (_free_bytes(self.device) + self._copies_bytes) // 4
+            while len(self._copies) > 1 and self._copies_bytes > limit:
+                self._copies.popitem(last=False)
+        return copy, True
+
+    def _entity_cols(self, db: RelationalDB, fs: FactorSpec
+                     ) -> Tuple[torch.Tensor, ...]:
+        """The device columns of ``fs``'s attributes, in code order."""
         tab = db.entities[fs.var.etype]
-        cols = [np.asarray(tab.attrs[cv.owner[1]]) for cv in fs.attrs]
-        code = _np_codes(cols, [cv.card for cv in fs.attrs])
-        return code.astype(np.int32), fs.card
+        return tuple(self._resident(tab.attrs[cv.owner[1]])[0]
+                     for cv in fs.attrs)
+
+    def _codes(self, dbs: Sequence[RelationalDB], fss: Sequence[FactorSpec],
+               step: int) -> torch.Tensor:
+        """Entity codes of ``b`` aligned factors (factor ``i`` over
+        ``dbs[i]``, raised by ``i * step``) laid end to end, as one id
+        kernel launch over the device columns."""
+        n = dbs[0].entities[fss[0].var.etype].size
+        parts = [IdPart(n, None, None, self._entity_cols(db, fs))
+                 for db, fs in zip(dbs, fss)]
+        cards = tuple(cv.card for cv in fss[0].attrs)
+        seg, _ = ops.hop_ids(parts, cards, (False,) * len(cards), step,
+                             device=self.device)
+        return seg
 
     def _hop(self, dbs: Sequence[RelationalDB], hops: Sequence[HopSpec],
              msg: _SparseMsg, stats: Sequence[Optional[CostStats]]
@@ -795,84 +877,91 @@ class SparseExecutor(Executor):
         the ``i``-th of ``b`` segment spaces laid end to end: one launch for
         the group."""
         tracer = self.tracer
+        b = len(hops)
         with tracer.span("exec.hop") as span:
             with tracer.span("exec.host_ids") as ids:
-                seg_np, gathers, n_parent, ds, total, out_vars = \
-                    self._hop_ids(dbs, hops, msg, stats)
+                parts, n_parent, built = self._hop_parts(dbs, hops, msg)
+                seg, gathers, ds, total, out_vars = self._hop_ids(
+                    dbs, hops, msg, parts, n_parent, stats)
                 if tracer.enabled:
-                    ids.set(edges=int(seg_np.shape[0]))
-            b = len(hops)
+                    ids.set(edges=int(seg.shape[0]))
+                    if self.device.type == "cuda":
+                        ids.set(args_bytes=hop_ids_table_bytes(
+                            b, len(parts[0].cols)))
             if tracer.enabled:
                 span.set(kernel="K1" if msg.dense is None else "K2",
-                         edges=int(seg_np.shape[0]), segments=b * total,
+                         edges=int(seg.shape[0]), segments=b * total,
                          width=1 if msg.dense is None
-                         else int(msg.dense.shape[1]))
+                         else int(msg.dense.shape[1]),
+                         resident=int(not built))
             if msg.dense is None:
-                flat = self._edge_segment_sum(seg_np, None, b * total)
+                flat = self._edge_segment_sum(seg, None, b * total)
                 return flat.reshape(b * n_parent, ds), out_vars
-            rows = msg.dense[self._upload(gathers).long()]
-            agg = self._edge_segment_sum(seg_np, rows, b * total)
+            rows = msg.dense.index_select(0, gathers)
+            agg = self._edge_segment_sum(seg, rows, b * total)
         return agg.reshape(b * n_parent, ds * msg.dense.shape[1]), out_vars
 
+    def _hop_parts(self, dbs: Sequence[RelationalDB],
+                   hops: Sequence[HopSpec], msg: _SparseMsg
+                   ) -> Tuple[List[IdPart], int, bool]:
+        """Each plan's id-kernel inputs for one hop: its edges' gather
+        (child end) and scatter (parent end) columns, the child's code
+        columns and the kept edge attributes, on the device; the parent
+        count; and whether a column of the hop's own was copied."""
+        parts, built = [], False
+
+        def col(arr):
+            nonlocal built
+            copy, new = self._resident(arr)
+            built |= new
+            return copy
+        for i, (db, hop) in enumerate(zip(dbs, hops)):
+            rt, g, s, n_parent = _hop_indices(db, hop.atom, hop.child,
+                                              hop.parent)
+            parts.append(IdPart(
+                int(np.asarray(g).shape[0]), col(g), col(s),
+                msg.cols[i] + tuple(col(rt.attrs[cv.owner[1]])
+                                    for cv in hop.edge_attrs)))
+        return parts, n_parent, built
+
     def _hop_ids(self, dbs: Sequence[RelationalDB], hops: Sequence[HopSpec],
-                 msg: _SparseMsg, stats: Sequence[Optional[CostStats]]):
-        """The host's side of :meth:`_hop`: the group's segment ids (one
-        int32 array), the dense rows' gather indices (``None`` for a leaf
-        hop), the parent count, the per-parent code space and the segment
-        space of one plan, and each plan's output vars."""
-        idx = [_hop_indices(db, h.atom, h.child, h.parent)
-               for db, h in zip(dbs, hops)]
-        n_parent = idx[0][3]
-        ds = msg.ds
-        for cv in hops[0].edge_attrs:
-            ds *= cv.card
+                 msg: _SparseMsg, parts: Sequence[IdPart], n_parent: int,
+                 stats: Sequence[Optional[CostStats]]):
+        """The group's segment ids (one int32 tensor), the dense rows'
+        gather indices (``None`` for a leaf hop), the per-parent code
+        space and the segment space of one plan, and each plan's output
+        vars: one id kernel launch over ``parts``."""
+        ds = math.prod(msg.cards) * math.prod(
+            cv.card for cv in hops[0].edge_attrs)
         total = n_parent * ds
         if total > _INT32_LIMIT:
             raise OverflowError(
                 f"sparse hop segment space {total} exceeds int32; use the "
                 f"dense executor or reduce kept axes")
-        sizes = [int(np.asarray(g).shape[0]) for _, g, _, _ in idx]
-        # each plan's ids go straight into its slice of one int32 array:
-        # every id is below the group's b * total, which fits int32
-        seg_np = np.empty(sum(sizes), dtype=np.int32)
         out_vars: List[Tuple[CtVar, ...]] = []
-        off = 0
-        for i, (hop, (rt, gather_idx, scatter_idx, _), n) in enumerate(
-                zip(hops, idx, sizes)):
-            seg = seg_np[off:off + n]
-            off += n
-            np.multiply(scatter_idx, ds, out=seg, casting="unsafe")
-            # per-edge scalar code: child code gathered at the child end of
-            # the edge, extended with this relationship's kept edge attrs
-            ecode = None if msg.codes[i] is None \
-                else msg.codes[i][np.asarray(gather_idx)]
-            svars = tuple(msg.svars[i])
-            for cv in hop.edge_attrs:
-                col = np.asarray(rt.attrs[cv.owner[1]], dtype=np.int32)
-                ecode = col if ecode is None else ecode * cv.card + col
-                svars = svars + (cv,)
-            if ecode is not None:
-                seg += ecode
-            if i:   # plan i scatters into the i-th of b segment spaces
-                seg += i * total
+        for i, (hop, part) in enumerate(zip(hops, parts)):
+            svars = tuple(msg.svars[i]) + tuple(hop.edge_attrs)
             out_vars.append(svars if msg.dense is None
                             else svars + tuple(msg.dvars[i]))
             if stats[i] is not None:
                 stats[i].joins += 1
-                stats[i].rows_scanned += n
-        gathers = None if msg.dense is None else _end_to_end(
-            [g for _, g, _, _ in idx],
-            dbs[0].entities[hops[0].child.etype].size)
-        return seg_np, gathers, n_parent, ds, total, out_vars
+                stats[i].rows_scanned += part.n
+        n_edge = len(hops[0].edge_attrs)
+        seg, gathers = ops.hop_ids(
+            parts, msg.cards + tuple(cv.card for cv in hops[0].edge_attrs),
+            (True,) * len(msg.cards) + (False,) * n_edge, total, ds,
+            None if msg.dense is None
+            else dbs[0].entities[hops[0].child.etype].size,
+            device=self.device)
+        return seg, gathers, ds, total, out_vars
 
-    def _edge_segment_sum(self, seg_np: np.ndarray,
+    def _edge_segment_sum(self, seg: torch.Tensor,
                           rows: Optional[torch.Tensor],
                           total: int) -> torch.Tensor:
         """Device step of one sparse hop: scatter-add per-edge contributions
         into the flattened ``(parent, code)`` segment space.  ``rows`` is
         ``None`` for a leaf hop (each edge contributes 1, K1) or the
         gathered dense block ``(edges, Dd)`` (K2)."""
-        seg = self._upload(seg_np)
         if rows is None:
             ones = torch.ones(seg.shape[0], dtype=torch.float32,
                               device=self.device)
@@ -882,7 +971,7 @@ class SparseExecutor(Executor):
     def _node_message(self, dbs: Sequence[RelationalDB],
                       nodes: Sequence[NodeSpec],
                       stats: Sequence[Optional[CostStats]]) -> _SparseMsg:
-        codes = [self._entity_code(db, n.own) for db, n in zip(dbs, nodes)]
+        cols = [self._entity_cols(db, n.own) for db, n in zip(dbs, nodes)]
         dense: Optional[torch.Tensor] = None
         dvars: List[Tuple[CtVar, ...]] = [() for _ in nodes]
         for j in range(len(nodes[0].hops)):
@@ -895,7 +984,7 @@ class SparseExecutor(Executor):
                 dense = (dense[:, :, None] * h[:, None, :]).reshape(
                     n, d * h.shape[1])
                 dvars = [a + b for a, b in zip(dvars, hvars)]
-        return _SparseMsg([c for c, _ in codes], codes[0][1],
+        return _SparseMsg(cols, tuple(cv.card for cv in nodes[0].own.attrs),
                           [tuple(n.own.attrs) for n in nodes], dense, dvars)
 
     def _hop_group(self, dbs: Sequence[RelationalDB],
@@ -910,13 +999,6 @@ class SparseExecutor(Executor):
         ones = torch.ones(code.shape[0], dtype=torch.float32,
                           device=self.device)
         return ops.segsum_ones(code, ones, ds).to(self.dtype)
-
-    def _code_tensor(self, code: Optional[np.ndarray],
-                     n: int) -> torch.Tensor:
-        """A host entity code (``None``: no kept attributes, all 0) as an
-        ``int32`` tensor on the device."""
-        return (torch.zeros(n, dtype=torch.int32, device=self.device)
-                if code is None else self._upload(code))
 
     def _reduce_by_code(self, code_t: torch.Tensor, ds: int,
                         factors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -938,9 +1020,8 @@ class SparseExecutor(Executor):
     def hist(self, db: RelationalDB, var: Var, attrs: Tuple[CtVar, ...],
              stats: Optional[CostStats] = None) -> CtTable:
         fs = FactorSpec(var, tuple(attrs))
-        code, ds = self._entity_code(db, fs)
-        n = db.entities[var.etype].size
-        flat = self._reduce_by_code(self._code_tensor(code, n), ds, ())
+        flat = self._reduce_by_code(self._codes([db], [fs], fs.card),
+                                    fs.card, ())
         if not fs.attrs:
             return CtTable((), flat[0])
         return CtTable(fs.attrs, flat.reshape(tuple(v.card for v in fs.attrs)))
@@ -951,16 +1032,10 @@ class SparseExecutor(Executor):
               keeps: Sequence[Sequence[CtVar]],
               stats: Sequence[Optional[CostStats]]) -> List[CtTable]:
         b = len(owns)
-        n = dbs[0].entities[owns[0].var.etype].size
-        codes = [self._entity_code(db, own) for db, own in zip(dbs, owns)]
-        ds = codes[0][1]
-        if b == 1:
-            code_t = self._code_tensor(codes[0][0], n)
-        else:   # plan i's root codes index the i-th of b code spaces
-            code_t = self._upload(_end_to_end(
-                [np.zeros(n, dtype=np.int32) if c is None else c
-                 for c, _ in codes], ds))
-        flat = self._reduce_by_code(code_t, b * ds, [m for m, _ in factors])
+        ds = owns[0].card
+        # plan i's root codes index the i-th of b code spaces
+        flat = self._reduce_by_code(self._codes(dbs, owns, ds), b * ds,
+                                    [m for m, _ in factors])
         mvars = [tuple(own.attrs) for own in owns]
         for _, vs in factors:
             mvars = [a + tuple(v) for a, v in zip(mvars, vs)]

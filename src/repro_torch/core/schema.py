@@ -35,7 +35,8 @@ class _CachedHash:
     def __hash__(self) -> int:
         h = self.__dict__.get("_hash")
         if h is None:
-            fields = tuple(v for k, v in self.__dict__.items()
+            # a snapshot: another thread may set ``_hash`` meanwhile
+            fields = tuple(v for k, v in list(self.__dict__.items())
                            if k != "_hash")
             h = hash((self.__hash_seed__,) + fields)
             object.__setattr__(self, "_hash", h)

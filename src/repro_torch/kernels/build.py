@@ -36,6 +36,7 @@ _SIGNATURES = {
     "segsum_rows": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _I64,
                     _I64, _P],
     "segsum_card": [ctypes.c_int],
+    "hop_ids": [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
     "mobius_batch": [_P, _P, _I64, ctypes.c_int, _I64, _P],
     "mobius_max_bits": [],
     "bdeu_batch": [_P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float,

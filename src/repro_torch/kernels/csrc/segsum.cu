@@ -87,6 +87,26 @@
 // sign of a zero.  The histogram's values are any float32, so its sums
 // round in the order the additions land and are not bit-exact.
 //
+// hop_ids builds the sparse executor's segment ids on the card.  It
+// replaces no TPU kernel: the JAX package computes the same int32
+// arithmetic in XLA on its staged input packs.  For plan p of a group of
+// b, edge e of n_p, with g = gather_p[e] (e where there is no gather):
+//   code  = fold over the columns c: code * card_c + col_c[g or e]
+//   seg[off_p + e]  = p * step + scatter_p[e] * mult + code
+//   gidx[off_p + e] = p * gather_step + g        (dense hops only)
+// The child entity's attribute columns are read at g, the edge's own
+// attribute columns at e; with neither gather nor scatter it is the
+// entity codes of a root or a histogram.  Per-plan pointers and offsets
+// come from an int64 argument table: cards[n_cols], gathered[n_cols],
+// then a row per plan of offset, edges, gather, scatter and n_cols
+// column pointers (0 where a plan has no gather or scatter).  Every id is
+// below b * step <= 2^31, so the int64 sums cast to the int32 ids the
+// host's arithmetic gave, bit for bit.  Bound: bytes, 4 B a column read
+// and 4 B (8 B with gidx) written an edge, plus gather and scatter.
+// Grid: y over plans, x over a plan's edges; the child's columns are
+// entity tables of 4 B a row (800 KB at VisualGenome), read at random
+// from L2.
+//
 // The kernels allocate nothing and launch on the caller's stream; each
 // entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a plan it cannot run.
@@ -378,6 +398,53 @@ rows_direct_kernel(const int32_t* __restrict__ seg,
   }
 }
 
+// --- hop_ids ----------------------------------------------------------------
+
+constexpr int kIdsMaxCols = 32;     // columns a plan's code folds
+constexpr int kIdsRow = 4;          // offset, edges, gather, scatter
+
+__global__ void __launch_bounds__(kThreads)
+hop_ids_kernel(const int64_t* __restrict__ table, int64_t n_plans,
+               int n_cols, int64_t step, int64_t mult, int64_t gather_step,
+               int32_t* __restrict__ seg, int32_t* __restrict__ gidx) {
+  __shared__ int64_t card[kIdsMaxCols];
+  __shared__ bool at_gather[kIdsMaxCols];
+  __shared__ const int32_t* col[kIdsMaxCols];
+  __shared__ const int32_t* gather;
+  __shared__ const int32_t* scatter;
+  __shared__ int64_t off, n_edges;
+  const int t = threadIdx.x;
+  if (t < n_cols) {
+    card[t] = table[t];
+    at_gather[t] = table[n_cols + t] != 0;
+  }
+  const int64_t width = kIdsRow + n_cols;
+  for (int64_t p = blockIdx.y; p < n_plans; p += gridDim.y) {
+    const int64_t* row = table + 2 * n_cols + p * width;
+    if (t == 0) {
+      off = row[0];
+      n_edges = row[1];
+      gather = reinterpret_cast<const int32_t*>((uintptr_t)row[2]);
+      scatter = reinterpret_cast<const int32_t*>((uintptr_t)row[3]);
+    }
+    if (t < n_cols)
+      col[t] = reinterpret_cast<const int32_t*>((uintptr_t)row[kIdsRow + t]);
+    __syncthreads();   // the plan's row (and the cards) staged
+    for (int64_t e = (int64_t)blockIdx.x * kThreads + t; e < n_edges;
+         e += (int64_t)gridDim.x * kThreads) {
+      const int64_t g = gather ? (int64_t)__ldg(gather + e) : e;
+      int64_t code = 0;
+      for (int c = 0; c < n_cols; ++c)
+        code = code * card[c] + __ldg(col[c] + (at_gather[c] ? g : e));
+      int64_t id = p * step + code;
+      if (scatter) id += (int64_t)__ldg(scatter + e) * mult;
+      seg[off + e] = (int32_t)id;
+      if (gidx) gidx[off + e] = (int32_t)(p * gather_step + g);
+    }
+    __syncthreads();   // every thread is done with the row
+  }
+}
+
 int64_t grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -514,4 +581,26 @@ extern "C" int segsum_card(int what) {
                   : cudaDevAttrMaxSharedMemoryPerMultiprocessor;
   if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) return -1;
   return v;
+}
+
+// A hop group's segment ids (and, with `gidx`, its dense rows' gather
+// indices) from the argument table at `table` (device memory, laid out
+// as hop_ids_kernel reads it) for `n_plans` plans of at most `max_edges`
+// edges, into int32 `seg` (and `gidx`, or null).
+extern "C" int hop_ids(const void* table, int64_t n_plans, int64_t n_cols,
+                       int64_t max_edges, int64_t step, int64_t mult,
+                       int64_t gather_step, void* seg, void* gidx,
+                       void* stream) {
+  if (n_plans < 1 || n_cols < 0 || n_cols > kIdsMaxCols || max_edges < 1
+      || step < 0 || mult < 0 || gather_step < 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t y = n_plans < 65535 ? n_plans : 65535;
+  int64_t x = (max_edges + kThreads - 1) / kThreads;
+  const int64_t most = kMaxBlocks / y > 1 ? kMaxBlocks / y : 1;
+  if (x > most) x = most;
+  const dim3 grid((unsigned)x, (unsigned)y);
+  hop_ids_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)table, n_plans, (int)n_cols, step, mult, gather_step,
+      (int32_t*)seg, (int32_t*)gidx);
+  return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@ kernel is an atomic scatter of O(edges).
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,12 +30,13 @@ from .attention import (flash_attention_backward, flash_attention_cuda,
                         flash_attention_plain)
 from .bdeu import MAX_R, bdeu_cuda, bdeu_plain
 from .mobius import mobius_cuda, mobius_plain
-from .segsum import (REGIMES, card_of, ones_plan, rows_plan,
+from .segsum import (IDS_MAX_COLS, REGIMES, IdPart, card_of, hop_ids_cuda,
+                     hop_ids_plain, hop_ids_table, ones_plan, rows_plan,
                      segment_hist_plain, segsum_ones_cuda, segsum_ones_plain,
-                     segsum_rows_cuda, segsum_rows_plain)
+                     segsum_rows_cuda, segsum_rows_plain, to_card)
 
 KERNELS = ("segsum_ones", "segsum_rows", "mobius", "bdeu", "segment_hist",
-           "flash_attention")
+           "flash_attention", "hop_ids")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 #: Launches of the row scatter (K2 and K5 together) by regime.
@@ -83,6 +84,11 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    return _device_on_card(name, dev)
+
+
+def _device_on_card(name: str, dev: torch.device) -> bool:
+    """:func:`_on_card` for work on ``dev``."""
     if dev.type == "cpu":
         _bump(PLAIN_CALLS, name)
         return False
@@ -168,6 +174,58 @@ def _row_scatter(seg: torch.Tensor, rows: torch.Tensor, num_segments: int,
                      card_of(rows.device))
     segsum_rows_cuda(seg, rows, num_segments, out, plan)
     _bump(LAUNCHES, name, ROW_REGIMES, plan.regime)
+
+
+def hop_ids(parts: Sequence[IdPart], cards: Sequence[int],
+            gathered: Sequence[bool], step: int, mult: int = 0,
+            gather_step: Optional[int] = None, *, device: torch.device
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A group's int32 segment ids, plan ``i``'s edges ``e`` at
+    ``i * step + scatter[e] * mult + code(e)``, laid end to end, and with
+    ``gather_step`` the int32 gather indices ``i * gather_step +
+    gather[e]`` (see :mod:`.segsum`).  ``code(e)`` folds the plan's
+    ``cols`` by ``cards``, each read at ``gather[e]`` where its
+    ``gathered`` flag is set and at ``e`` otherwise.  Every tensor is on
+    ``device``; on the card the argument table goes there through pinned
+    memory (:func:`.segsum.to_card`).  Every id must lie below
+    ``len(parts) * step``, and so fit int32."""
+    parts, device = list(parts), torch.device(device)
+    tensors = [t for p in parts for t in (p.gather, p.scatter, *p.cols)
+               if t is not None]
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"hop_ids: tensors off {device}")
+    on_card = _device_on_card("hop_ids", device)
+    if len(cards) != len(gathered) or any(len(p.cols) != len(cards)
+                                          for p in parts):
+        raise ValueError("hop_ids: every plan needs one column a card")
+    if gather_step is not None and any(p.gather is None for p in parts):
+        raise ValueError("hop_ids: gather indices need every plan's gather")
+    if len(parts) * max(step, gather_step or 0) > _INT32_MAX + 1:
+        raise ValueError("hop_ids: ids exceed int32")
+    if not on_card:
+        return hop_ids_plain(parts, cards, gathered, step, mult, gather_step,
+                             device)
+    for t in tensors:
+        _check("hop_ids", t, torch.int32, 1)
+    if len(cards) > IDS_MAX_COLS:
+        raise ValueError(f"hop_ids: more than {IDS_MAX_COLS} columns")
+    for p in parts:
+        for t in (p.gather, p.scatter):
+            if t is not None and t.shape[0] != p.n:
+                raise ValueError("hop_ids: an index column is not n long")
+        for c, at_gather in zip(p.cols, gathered):
+            if not at_gather and c.shape[0] != p.n:
+                raise ValueError("hop_ids: an edge column is not n long")
+    n_all = sum(p.n for p in parts)
+    seg = torch.empty(n_all, dtype=torch.int32, device=device)
+    gidx = None if gather_step is None else torch.empty_like(seg)
+    if n_all == 0:
+        return seg, gidx
+    table = to_card(hop_ids_table(parts, cards, gathered), device)
+    hop_ids_cuda(table, len(parts), len(cards), max(p.n for p in parts),
+                 step, mult, gather_step, seg, gidx)
+    _bump(LAUNCHES, "hop_ids")
+    return seg, gidx
 
 
 def mobius(x: torch.Tensor) -> torch.Tensor:

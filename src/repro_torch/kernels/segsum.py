@@ -23,13 +23,27 @@ edge row is added into ``out`` where it lands).  K1 has the same two
 regimes, chosen by :func:`ones_plan`; it fills an ``out`` it allocates
 uninitialised, and its direct regime zeroes and scatters a table larger
 than L2 keeps slice by slice in one cooperative launch.
+
+The sparse executor's segment ids come from a third kernel of the same
+source, :func:`hop_ids_cuda` (its plain version :func:`hop_ids_plain`):
+for each plan ``p`` of a group and each of its edges ``e``, with ``g =
+gather[e]``,
+
+    seg[off_p + e]  = p * step + scatter[e] * mult + code(e)
+    gidx[off_p + e] = p * gather_step + g
+
+where ``code(e)`` folds the plan's columns in order, ``code * card +
+col[g]`` for a column read at the gathered entity and ``code * card +
+col[e]`` for one read at the edge.  A plan without a gather or scatter
+takes ``g = e`` and no scatter term: the entity codes of a root.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import build
@@ -230,3 +244,84 @@ def segsum_rows_cuda(seg: torch.Tensor, rows: torch.Tensor,
 def segment_hist_plain(codes: torch.Tensor, values: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     return segsum_rows_plain(codes, values.float(), num_segments)
+
+
+class IdPart(NamedTuple):
+    """One plan's inputs to the id kernel: ``n`` edges (or entities), the
+    int32 ``gather`` and ``scatter`` index columns of length ``n`` (each
+    ``None`` where the plan has none) and its int32 code ``cols``."""
+    n: int
+    gather: Optional[torch.Tensor]
+    scatter: Optional[torch.Tensor]
+    cols: Tuple[torch.Tensor, ...]
+
+
+IDS_MAX_COLS = 32                 # csrc/segsum.cu's kIdsMaxCols
+
+
+def hop_ids_plain(parts: Sequence[IdPart], cards: Sequence[int],
+                  gathered: Sequence[bool], step: int, mult: int,
+                  gather_step: Optional[int], device: torch.device
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    n_all = sum(p.n for p in parts)
+    seg = torch.empty(n_all, dtype=torch.int32, device=device)
+    gidx = None if gather_step is None else torch.empty_like(seg)
+    off = 0
+    for i, p in enumerate(parts):
+        g = None if p.gather is None else p.gather.long()
+        code = torch.zeros(p.n, dtype=torch.int64, device=device)
+        for col, card, at_gather in zip(p.cols, cards, gathered):
+            code = code * card + (col[g] if at_gather and g is not None
+                                  else col).long()
+        if p.scatter is not None:
+            code += p.scatter.long() * mult
+        seg[off:off + p.n] = code + i * step
+        if gidx is not None:
+            gidx[off:off + p.n] = g + i * gather_step
+        off += p.n
+    return seg, gidx
+
+
+def hop_ids_table(parts: Sequence[IdPart], cards: Sequence[int],
+                  gathered: Sequence[bool]) -> np.ndarray:
+    """The id kernel's int64 argument table: the columns' cards and
+    gathered flags, then per plan its offset, edge count and the device
+    addresses of its gather, scatter and columns (0 for none)."""
+    k = len(cards)
+    rows = np.zeros((len(parts), 4 + k), dtype=np.int64)
+    off = 0
+    for row, p in zip(rows, parts):
+        row[0], row[1] = off, p.n
+        row[2] = 0 if p.gather is None else p.gather.data_ptr()
+        row[3] = 0 if p.scatter is None else p.scatter.data_ptr()
+        row[4:] = [c.data_ptr() for c in p.cols]
+        off += p.n
+    return np.concatenate([np.asarray(cards, dtype=np.int64),
+                           np.asarray(gathered, dtype=np.int64),
+                           rows.reshape(-1)])
+
+
+def hop_ids_table_bytes(n_plans: int, n_cols: int) -> int:
+    """The bytes of :func:`hop_ids_table`'s table."""
+    return 8 * (2 * n_cols + n_plans * (4 + n_cols))
+
+
+def to_card(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` through pinned memory, without
+    waiting for the card (the pinned block is not reused until the copy
+    is done)."""
+    return torch.from_numpy(table).pin_memory().to(device, non_blocking=True)
+
+
+def hop_ids_cuda(table: torch.Tensor, n_plans: int, n_cols: int,
+                 max_edges: int, step: int, mult: int,
+                 gather_step: Optional[int], seg: torch.Tensor,
+                 gidx: Optional[torch.Tensor]) -> None:
+    rc = build.load().hop_ids(
+        table.data_ptr(), n_plans, n_cols, max_edges, step, mult,
+        0 if gather_step is None else gather_step, seg.data_ptr(),
+        None if gidx is None else gidx.data_ptr(),
+        torch.cuda.current_stream(seg.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hop_ids launch failed (cudaError {rc}, "
+                           f"{n_plans} plans, {n_cols} columns)")

@@ -21,6 +21,7 @@ import repro_torch.core as tc
 from repro.core.oracle import oracle_ct as jax_oracle_ct
 from repro_torch.core.oracle import oracle_ct as torch_oracle_ct
 from repro_torch.kernels import ops
+from repro_torch.kernels.segsum import IdPart
 from tests.test_counting_core import tiny_db
 
 CPU = "cpu"
@@ -205,6 +206,12 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
                                                        [6, 8]]
     qkv = torch.ones(1, 3, 2, 4)
     assert ops.flash_attention(qkv, qkv, qkv).tolist() == qkv.tolist()
+    col = torch.tensor([2, 0, 1], dtype=torch.int32)
+    part = IdPart(3, col, col, (col,))
+    ids, gidx = ops.hop_ids([part, part], (3,), (True,), 9, 3, 3,
+                            device=torch.device("cpu"))
+    assert ids.tolist() == [7, 2, 3, 16, 11, 12]
+    assert gidx.tolist() == [2, 0, 1, 5, 3, 4]
     assert ops.PLAIN_CALLS == {k: 1 for k in ops.KERNELS}
     assert ops.LAUNCHES == {k: 0 for k in ops.KERNELS}
 
