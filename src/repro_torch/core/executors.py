@@ -800,7 +800,9 @@ class SparseExecutor(Executor):
     copy) or, least recently read first, once the copies pass a quarter of
     the device's free memory and their own bytes, read at each copy.
     ``resident_builds`` and ``resident_hits`` count the arrays copied and
-    the reads served from a copy."""
+    the reads served from a copy; ``hop_cells`` counts the cells of hop
+    output tables written (each hop group's segments times its width,
+    summed: the ``segments`` and ``width`` of its ``exec.hop`` span)."""
 
     name = "sparse"
 
@@ -812,6 +814,7 @@ class SparseExecutor(Executor):
         self._copies_lock = threading.Lock()
         self.resident_builds = 0
         self.resident_hits = 0
+        self.hop_cells = 0
 
     @property
     def _copies_bytes(self) -> int:
@@ -888,12 +891,13 @@ class SparseExecutor(Executor):
                     if self.device.type == "cuda":
                         ids.set(args_bytes=hop_ids_table_bytes(
                             b, len(parts[0].cols)))
+            width = 1 if msg.dense is None else int(msg.dense.shape[1])
+            with self._copies_lock:
+                self.hop_cells += b * total * width
             if tracer.enabled:
                 span.set(kernel="K1" if msg.dense is None else "K2",
                          edges=int(seg.shape[0]), segments=b * total,
-                         width=1 if msg.dense is None
-                         else int(msg.dense.shape[1]),
-                         resident=int(not built))
+                         width=width, resident=int(not built))
             if msg.dense is None:
                 flat = self._edge_segment_sum(seg, None, b * total)
                 return flat.reshape(b * n_parent, ds), out_vars
